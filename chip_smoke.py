@@ -9,25 +9,41 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    and TF32 switched off (the reference never reduces in bf16);
 2. build: every CUDA kernel of the package, from the sources in this
    checkout, one ``nvcc`` per source, all started together;
-3. kernels: each kernel's wrapper on the card, held against its plain
-   PyTorch version at the serving engine's shapes and at one odd small
-   shape; masked-tail poisoning must not change the output; the kernel
-   and the plain version timed with CUDA events (median of 100 launches,
-   L2 flushed between launches) beside the least time the card could
-   take;
-4. engine: greedy continuous-batching serving of the dense burn-in LM at
+3. kernels: the paged-attention kernel held against its plain PyTorch
+   version at the serving engine's shapes and at one odd small shape;
+   masked-tail poisoning must not change the output; the kernel and the
+   plain version timed with CUDA events (median of 100 launches, L2
+   flushed between launches) beside the least time the card could take;
+4. flash kernel: the flash-attention forward held against its plain
+   version at the trainer's shapes ((16, 1024, 32, 128) bf16, causal,
+   q/k/v views of one qkv tensor) and against the reference attention,
+   then at odd shapes (non-causal, d 64, f32, a ragged sequence); timed
+   beside its bound, its plain version and
+   ``scaled_dot_product_attention`` (a yardstick, never on the path),
+   with the backward the trainer runs through it timed too; the gradient
+   wiring of the flash entry checked (its backward is the reference
+   attention's autograd, so this checks plumbing, not the kernel);
+5. engine: greedy continuous-batching serving of the dense burn-in LM at
    full width (vocab 32768, d_model 4096, 32 heads, d_ff 16384, 8
    layers, seq 1024; random weights from a seeded generator) through
    ``attn_backend="cuda"``: 16 requests through 8 slots, every kernel
    launch counted, then the same stream through the gather backend;
-5. the kernels' JSON line, the card's line, and the result line.
+6. train: 6 momentum steps of the flash family at the same width (batch
+   16, seq 1024; f32 masters, about 1.75 B parameters) through
+   ``burnin.train``: the loss must descend, every flash launch counted;
+   then MFU, peak memory, the first loss against the dense path's, the
+   kernel's output inside the model's first layer against its plain
+   version, and a profile of two steps;
+7. the kernels' JSON line, the card's line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -35,7 +51,13 @@ import sys
 import time
 import traceback
 
-TOL = 2e-2  # kernel vs plain: bf16 outputs, f32 sums in another order
+TOL = 2e-2  # paged kernel vs plain: bf16 outputs, f32 sums in another order
+# Flash kernel vs plain, bf16: both round one f32 result once, so they may
+# differ by one bf16 ulp of the value (at most 2**-7 of it); measured
+# 0.001953 (2**-9) at the trainer's shapes.
+FLASH_BF16_TOL = {"atol": 2 ** -9, "rtol": 2 ** -7}
+FLASH_F32_TOL = {"atol": 1e-5, "rtol": 1e-5}
+FIRST_LOSS_RTOL = 1e-4  # flash vs dense first loss; measured 2.8e-6
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 
@@ -173,10 +195,122 @@ def phase_kernels(torch, pa):
         "bound_by": bound_by,
         # No single PyTorch call attends a query over a block table.
         "library_ms": None,
-        "kernel_us": kernel_ms * 1e3,
-        "plain_us": plain_ms * 1e3,
-        "bound_us": bound_ms * 1e3,
     }
+
+
+def flash_qkv(b, s, h, d, dtype, seed):
+    """q, k and v as strided views of one (b, s, 3, h, d) tensor, the
+    layout the model's qkv product hands the kernel."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device="cuda").to(dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def flash_bound_ms(q, causal):
+    """The least time for one call: q, k and v read once and the output
+    written once at the HBM rate; or the products over the visible
+    (query, key) pairs (2 flops per multiply-add, q.k and p.v) at the
+    bf16 peak."""
+    b, s, h, d = q.shape
+    nbytes = 4 * q.numel() * q.element_size()
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 4 * b * h * pairs * d
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = flops / H100_BF16_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def check_flash(fa, shape, causal, dtype, block, seed, tol):
+    """Kernel against the plain version at ``tol`` (allclose's atol and
+    rtol); returns the max abs error and the inputs."""
+    import torch
+
+    q, k, v = flash_qkv(*shape, dtype, seed)
+    want = fa.flash_attention_plain(q, k, v, causal, block, block).float()
+    got = fa.flash_attention_forward(q, k, v, causal, block, block)
+    torch.cuda.synchronize()
+    label = f"flash b{shape[0]} s{shape[1]} h{shape[2]} d{shape[3]} {str(dtype)[6:]} causal={causal}"
+    if got.shape != q.shape or got.dtype != dtype or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{label}: output {tuple(got.shape)} {got.dtype} or not finite")
+    err = (got.float() - want).abs().max().item()
+    if not torch.allclose(got.float(), want, **tol):
+        raise AssertionError(f"{label}: kernel vs plain max abs err {err} (tol {tol})")
+    log(f"kernel {label}: max_abs_err={err} vs plain (tol {tol})")
+    return err, (q, k, v)
+
+
+def phase_flash(torch, fa, flash, ring):
+    """K2 at the trainer's shapes, then at odd ones; timed beside its
+    bound, its plain version and scaled_dot_product_attention."""
+    shape = (16, 1024, 32, 128)
+    err, (q, k, v) = check_flash(fa, shape, True, torch.bfloat16, 128, 11, FLASH_BF16_TOL)
+    got = fa.flash_attention_forward(q, k, v, True, 128, 128).float()
+    ref = ring.reference_attention(q, k, v, causal=True).float()
+    ref_err = (got - ref).abs().max().item()
+    if not torch.allclose(got, ref, atol=3e-2, rtol=0):
+        raise AssertionError(f"flash vs reference_attention: max abs err {ref_err} > 3e-2")
+    log(f"kernel flash at the trainer's shapes vs ring.reference_attention: max_abs_err={ref_err} (atol 3e-2)")
+    del got, ref
+    check_flash(fa, shape, False, torch.bfloat16, 128, 12, FLASH_BF16_TOL)
+    check_flash(fa, (2, 192, 3, 64), True, torch.bfloat16, 64, 13, FLASH_BF16_TOL)
+    check_flash(fa, (2, 192, 3, 64), False, torch.float32, 64, 14, FLASH_F32_TOL)
+    check_flash(fa, (1, 200, 2, 128), True, torch.float32, 8, 15, FLASH_F32_TOL)
+
+    scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    flush = scrub.zero_
+    kernel_ms = time_ms(lambda: fa.flash_attention_forward(q, k, v, True, 128, 128), flush)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, True, 128, 128), flush)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (b, h, s, d) views, no copy
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+    bound_ms, bound_by = flash_bound_ms(q, True)
+    log(f"kernel timing at the trainer's shapes: flash kernel {kernel_ms:.6f} ms, plain "
+        f"{plain_ms:.6f} ms, scaled_dot_product_attention {library_ms:.6f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    # The backward the trainer runs once a layer: the reference attention
+    # recomputed over materialized (b, h, s, s) f32 scores, and its gradient.
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = flash.flash_attention(*qkv, True, 128, 128)
+    g = torch.randn_like(out)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, qkv, g, retain_graph=True), flush,
+                     n=10, warmup=2)
+    log(f"flash backward (reference attention recomputed and differentiated) at the "
+        f"trainer's shapes: {bwd_ms:.6f} ms")
+    del qkv, out, g
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "tpu_dra_torch/parallel/kernels/csrc/flash_attn.cu",
+        "replaces": "tpu_dra/parallel/flash.py:142",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def phase_flash_grads(torch, flash, ring):
+    """The gradient through the flash entry against the reference
+    attention's, within 1e-5.  The entry's backward is that oracle's
+    autograd, so this checks the wiring (saved inputs, the arguments
+    passed on, the views' gradients), not the kernel."""
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.randn((2, 512, 8, 128), generator=torch.Generator(device="cuda").manual_seed(21),
+                        device="cuda").to(dtype)
+        grads = []
+        for fn in (flash.flash_attention, ring.reference_attention):
+            qkv = [t.detach().requires_grad_() for t in flash_qkv(2, 512, 8, 128, dtype, 22)]
+            grads.append(torch.autograd.grad(fn(*qkv), qkv, g))
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(*grads))
+        if err > 1e-5:
+            raise AssertionError(f"flash gradients vs reference_attention ({dtype}): max abs err {err}")
+        log(f"flash gradient wiring (2, 512, 8, 128) {str(dtype)[6:]}: max abs err {err} "
+            "vs reference_attention")
 
 
 def make_stream(vocab: int):
@@ -217,10 +351,7 @@ def serve(ServeEngine, params, cfg, stream, backend):
 
 def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8):
     """Where a decode step's device time goes: 8 rows mid-decode (contexts
-    256..480 tokens), ``steps`` steps timed on the host clock, then as
-    many under torch.profiler.  Kernel time by name comes from the
-    exported trace (written to chiprun_out/); the device's idle share is
-    one minus kernel time over the unprofiled steps' host wall time."""
+    256..480 tokens), ``steps`` steps under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
@@ -230,33 +361,65 @@ def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8):
     eng.tick()  # admits all eight, then one step
     eng.tick()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(steps):
-        eng.tick()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t) * 1e3  # unprofiled: the profiler slows the host
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             eng.tick()
         torch.cuda.synchronize()
     eng.close()
+    report_profile(prof, "chip_smoke_decode_trace.json", f"{steps} decode steps of 8 rows", steps)
+
+
+KERNEL_KINDS = (  # (substring of a kernel's name, kind), first match wins
+    ("paged_attention_kernel", "paged attention (K1)"),
+    ("flash_fwd_kernel", "flash attention (K2)"),
+    ("nvjet", "cuBLAS GEMM"),
+    ("gemm", "cuBLAS GEMM"),
+    ("reduce_kernel", "reduction"),
+    ("softmax", "reduction"),
+    ("copy", "copy / cast"),
+    ("index", "index / gather / scatter"),
+    ("elementwise", "elementwise"),
+)
+
+
+def report_profile(prof, trace_name, label, steps):
+    """Kernel time by name and by kind from the profile's exported trace
+    (written to chiprun_out/), and the device's idle share: one minus the
+    time some kernel runs (the union of the kernels' intervals) over the
+    span from the first kernel's start to the last one's end, all on the
+    device's clock in the one profiled run.  The profiler slows the
+    host's dispatch, so a host-bound run idles somewhat more here than
+    unprofiled."""
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "chip_smoke_decode_trace.json")
+    path = os.path.join(out_dir, trace_name)
     prof.export_chrome_trace(path)
     with open(path, encoding="utf-8") as f:
         kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     if not kernels:
-        log("profile: the trace holds no device kernels; device time not measured")
+        log(f"profile, {label}: the trace holds no device kernels; device time not measured")
         return
     by_name: "dict[str, float]" = {}
+    by_kind: "dict[str, float]" = {}
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+        kind = next((k for s, k in KERNEL_KINDS if s in e["name"]), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + float(e["dur"])
     busy_ms = sum(by_name.values()) / 1e3
-    log(f"profile, {steps} decode steps of 8 rows: host wall {wall_ms:.3f} ms unprofiled, kernel time "
-        f"{busy_ms:.3f} ms, device idle share {1 - busy_ms / wall_ms:.4f}")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
+    covered, reach = 0.0, spans[0][0]
+    for start, end in spans:
+        covered += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    span_ms = (reach - spans[0][0]) / 1e3
+    idle = 1 - covered / 1e3 / span_ms if span_ms > 0 else 0.0
+    log(f"profile, {label}: kernel time {busy_ms:.3f} ms, kernels span {span_ms:.3f} ms "
+        f"on the device, device idle share {idle:.4f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {us / steps / 1e3:.4f} ms/step  {us / 1e3 / busy_ms:.4f} of kernel time  {name[:100]}")
+    log("  by kind: " + "; ".join(
+        f"{kind} {us / steps / 1e3:.4f} ms/step ({us / 1e3 / busy_ms:.4f})"
+        for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1])))
 
 
 def phase_engine(torch, cfg_mod, serve_mod, weights, pa, paged):
@@ -352,6 +515,103 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, pa, paged):
     return launches
 
 
+def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
+    """Single-device training of the flash family at full width: the
+    width `chip_sized_config` gives an 80 GB card, params from init_params'
+    seeded generator, momentum at the config's lr.  Returns the kernel's
+    launches in the ``train`` run."""
+    cfg = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True)
+    log(f"train config: vocab {cfg.vocab}, d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
+        f"{cfg.d_ff}, {cfg.n_layers} layers, seq {cfg.seq}, batch {cfg.batch}, "
+        f"{mfu.param_count(cfg)} params, {cfg.optimizer} lr {cfg.learning_rate}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_forward.launches = 0  # count only the main path's launches
+    report = burnin.train(cfg, steps=steps, device="cuda")
+    launches = fa.flash_attention_forward.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not report.ok or report.error:
+        raise AssertionError(f"train: {report}")
+    if not (math.isfinite(report.loss_first) and math.isfinite(report.loss_last)):
+        raise AssertionError(f"train: loss not finite: {report}")
+    # One launch per layer in the forward, one in the checkpoint's recompute.
+    if launches != steps * 2 * cfg.n_layers:
+        raise AssertionError(
+            f"flash launches {launches} != {steps} steps x 2 x {cfg.n_layers} layers"
+        )
+    log(f"train flash: {report.steps} steps, loss {report.loss_first:.6f} -> {report.loss_last:.6f}, "
+        f"step p50 {report.step_seconds_p50 * 1e3:.3f} ms, {report.tokens_per_second:.3f} tokens/s, "
+        f"{launches} flash launches (2 a layer a step), peak memory allocated {peak_gb:.3f} GB")
+
+    rep = mfu.measure_mfu(cfg, peak_tflops=H100_BF16_FLOPS / 1e12)
+    if not rep.ok or rep.error:
+        raise AssertionError(f"measure_mfu: {rep}")
+    log(f"mfu: step {rep.step_seconds * 1e3:.3f} ms (8 steps back to back, one fetch), "
+        f"{rep.tokens_per_second:.3f} tokens/s, {rep.achieved_tflops:.3f} TFLOP/s of model flops "
+        f"(attention counted at the full s x s, as the reference counts it; recompute not "
+        f"counted) = MFU {rep.mfu:.4f} of the 989 TFLOP/s bf16 peak")
+
+    # The first step's loss through the kernel and through dense attention,
+    # on the same params and tokens (the dense path fits under the
+    # per-block checkpoint at this width).  The flash run's first call
+    # (layer 0's forward) is caught and held against the plain version on
+    # the same q/k/v views: at random init the loss alone would hardly
+    # see a wrong attention output.
+    tokens = burnin.prepare_tokens(cfg, "cuda")
+    first, caught = {}, []
+    real = flash.flash_attention
+
+    def catch_first(q, k, v, *args):
+        out = real(q, k, v, *args)
+        if not caught:
+            caught.append(((q.detach(), k.detach(), v.detach()), args, out.detach().clone()))
+        return out
+
+    for flash_on in (True, False):
+        step_fn, state = burnin.make_train_step(
+            dataclasses.replace(cfg, flash_attention=flash_on), "cuda")
+        flash.flash_attention = catch_first  # `_block` imports it at each call
+        try:
+            first[flash_on] = float(step_fn(state, tokens)[1])
+        finally:
+            flash.flash_attention = real
+        if flash_on:
+            (q, k, v), args, got = caught[0]
+            want = fa.flash_attention_plain(q, k, v, *args).float()
+            in_model_err = (got.float() - want).abs().max().item()
+            if got.shape != q.shape or not torch.allclose(got.float(), want, **FLASH_BF16_TOL):
+                raise AssertionError(f"flash in layer 0 vs plain: max abs err {in_model_err}")
+            log(f"flash output in layer 0 of the first step {tuple(q.shape)} {args}: max abs err "
+                f"{in_model_err} vs plain (tol {FLASH_BF16_TOL})")
+            del q, k, v, got, want, caught[:]
+        del step_fn, state
+        torch.cuda.empty_cache()
+    rel = abs(first[True] - first[False]) / abs(first[False])
+    if rel > FIRST_LOSS_RTOL:
+        raise AssertionError(f"first loss flash {first[True]} vs dense {first[False]}: rel {rel}")
+    log(f"first-step loss: flash {first[True]:.6f}, dense {first[False]:.6f}, rel diff {rel:.3e} "
+        f"(tol {FIRST_LOSS_RTOL})")
+
+    profile_train(torch, burnin, cfg)
+    return launches
+
+
+def profile_train(torch, burnin, cfg, steps: int = 2):
+    """Where a training step's device time goes: ``steps`` steps under
+    torch.profiler after one warm-up step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn, state = burnin.make_train_step(cfg, "cuda")
+    tokens = burnin.prepare_tokens(cfg, "cuda")
+    state, loss = step_fn(state, tokens)
+    float(loss)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, loss = step_fn(state, tokens)
+        float(loss)
+    report_profile(prof, "chip_smoke_train_trace.json", f"{steps} training steps", steps)
+
+
 def main() -> int:
     try:
         import torch
@@ -363,8 +623,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from tpu_dra_torch.parallel import burnin, paged, serve, weights
+        from tpu_dra_torch.parallel import burnin, flash, mfu, paged, ring, serve, weights
         from tpu_dra_torch.parallel.kernels import _build
+        from tpu_dra_torch.parallel.kernels import flash_attn as fa
         from tpu_dra_torch.parallel.kernels import paged_attn as pa
     except ImportError as e:
         print(f"chip_smoke: the tpu_dra_torch package is not beside this script: {e}",
@@ -388,17 +649,24 @@ def main() -> int:
                     log(f"  {name}: {line.strip()}")
 
         t = time.perf_counter()
-        row = phase_kernels(torch, pa)
+        paged_row = phase_kernels(torch, pa)
         log(f"phase kernels: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        row["launches"] = phase_engine(torch, burnin, serve, weights, pa, paged)
+        flash_row = phase_flash(torch, fa, flash, ring)
+        phase_flash_grads(torch, flash, ring)
+        log(f"phase flash kernel: {time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+        paged_row["launches"] = phase_engine(torch, burnin, serve, weights, pa, paged)
         log(f"phase engine: {time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+        flash_row["launches"] = phase_train(torch, burnin, mfu, fa, flash)
+        log(f"phase train: {time.perf_counter() - t:.3f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [paged_row, flash_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -63,6 +63,14 @@ class TestConfig:
          ("flash_attention", True), ("moe_experts", 4), ("pipeline_stages", 2)],
     )
     def test_unserved_fields_rejected(self, field, value):
+        if field == "flash_attention":
+            # Ported: the config takes it, and the model rejects it only
+            # where its tiles cannot cut the sequence (the reference's rule).
+            cfg = tb.BurninConfig(**{**_SHAPE, field: value, "seq": 12})
+            params = tb.init_params(cfg, device="cpu")
+            with pytest.raises(ValueError, match=f"{field} needs seq % 8 == 0"):
+                tb.forward(params, torch.zeros((1, 12), dtype=torch.int32), cfg)
+            return
         with pytest.raises(ValueError, match=field):
             tb.BurninConfig(**{field: value})
 

@@ -1,23 +1,35 @@
-"""The port's CUDA kernel on the card (tests marked ``cuda``; each skips
+"""The port's CUDA kernels on the card (tests marked ``cuda``; each skips
 where torch sees no CUDA device).  This module imports neither JAX nor
 the reference package, so it also runs on a GPU host that has no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-(``--noconftest``: the suite's conftest sets JAX up.)  The kernel is held
-against its plain PyTorch version, which the CPU tests hold against the
-reference; the engine's kernel path against its gather path.
+(``--noconftest``: the suite's conftest sets JAX up.)  Each kernel is
+held against its plain PyTorch version, which the CPU tests hold against
+the reference; the engine's kernel path against its gather path; the
+flash gradient against the reference attention's.
 
-Tolerances: kernel vs plain ``atol = rtol = 2e-2`` (bf16 outputs whose
-f32 sums run in another order); decode-step logits within 2 bf16 ulps of
-the gather path's magnitude (``rtol = 2**-6``, ``atol = 2**-6 *
-max|ref|``)."""
+Tolerances: paged kernel vs plain ``atol = rtol = 2e-2`` for bf16 outputs
+whose f32 sums run in another order; flash kernel vs plain one bf16 ulp of
+the value (``atol = 2**-9``, ``rtol = 2**-7``: both round one f32 result
+once), ``1e-5`` for f32 outputs; decode-step
+logits within 2 bf16 ulps of the gather path's magnitude (``rtol =
+2**-6``, ``atol = 2**-6 * max|ref|``); flash gradients ``1e-5`` (both
+differentiate the same oracle)."""
+
+import dataclasses
 
 import pytest
 import torch
 
-from tpu_dra_torch.parallel import burnin, paged
-from tpu_dra_torch.parallel.kernels import paged_attention, paged_attention_plain
+from tpu_dra_torch.parallel import burnin, flash, paged, ring
+from tpu_dra_torch.parallel.kernels import (
+    flash_attention_forward,
+    flash_attention_plain,
+    paged_attention,
+    paged_attention_plain,
+)
+from tpu_dra_torch.parallel.mfu import chip_sized_config
 from tpu_dra_torch.parallel.serve import ServeEngine
 
 TOL = 2e-2
@@ -127,3 +139,87 @@ class TestEngine:
         assert [len(r.tokens) for r in sorted(done, key=lambda r: r.id)] == [6, 2, 4, 6]
         assert all(r.finish_reason == "budget" for r in done)
         assert eng.kv_stats()["blocks_free"] == eng.kv_stats()["blocks_total"] - 1
+
+
+# (b, s, h, d, block): both head widths the kernel takes, a sequence that
+# is not a multiple of its 64-row tiles, and the reference's block sizes.
+FLASH_CASES = {
+    "d64": (2, 192, 3, 64, 64),
+    "d128": (2, 256, 4, 128, 128),
+    "d128_ragged": (1, 200, 2, 128, 8),
+}
+FLASH_TOL = {torch.bfloat16: (2 ** -9, 2 ** -7), torch.float32: (1e-5, 1e-5)}  # (atol, rtol)
+
+
+def _qkv(dev, b, s, h, d, dtype=torch.bfloat16, seed=0):
+    """q, k and v as strided views of one (b, s, 3, h, d) tensor, the
+    layout of the model's qkv product."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, s, 3, h, d), generator=g).to(dev, dtype)
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+@pytest.mark.cuda
+class TestFlashKernel:
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+    @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+    @pytest.mark.parametrize("name", sorted(FLASH_CASES))
+    def test_matches_plain_and_counts_its_launch(self, name, causal, dtype, cuda):
+        b, s, h, d, block = FLASH_CASES[name]
+        q, k, v = _qkv(cuda, b, s, h, d, dtype)
+        want = flash_attention_plain(q, k, v, causal, block, block).float()
+        before = flash_attention_forward.launches
+        got = flash_attention_forward(q, k, v, causal, block, block)
+        torch.cuda.synchronize()
+        assert flash_attention_forward.launches == before + 1
+        assert got.dtype == dtype and got.is_contiguous() and got.shape == q.shape
+        atol, rtol = FLASH_TOL[dtype]
+        torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+    def test_contiguous_inputs_match_views(self, cuda):
+        q, k, v = _qkv(cuda, 2, 256, 4, 128)
+        views = flash_attention_forward(q, k, v)
+        dense = flash_attention_forward(q.contiguous(), k.contiguous(), v.contiguous())
+        assert torch.equal(views, dense)
+
+    def test_future_tiles_never_read(self, cuda):
+        q, k, v = _qkv(cuda, 2, 256, 4, 128)
+        base = flash_attention_forward(q, k, v)
+        k, v = k.clone(), v.clone()
+        k[:, 128:], v[:, 128:] = float("nan"), float("inf")
+        assert torch.equal(flash_attention_forward(q, k, v)[:, :128], base[:, :128])
+
+    def test_rejects_what_it_does_not_take(self, cuda):
+        q, k, v = _qkv(cuda, 2, 128, 2, 64)
+        with pytest.raises(TypeError, match="dtype"):
+            flash_attention_forward(q.half(), k.half(), v.half())
+        swapped = torch.randn((2, 128, 64, 2), device=cuda, dtype=torch.bfloat16).transpose(2, 3)
+        with pytest.raises(ValueError, match="contiguous head"):
+            flash_attention_forward(swapped, swapped, swapped)
+        with pytest.raises(ValueError, match="takes d"):
+            flash_attention_forward(*_qkv(cuda, 2, 128, 2, 32))
+        with pytest.raises(ValueError, match="all on the CPU"):
+            flash_attention_forward(q, k.cpu(), v)
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+    def test_gradients_match_reference_attention(self, dtype, cuda):
+        g = torch.randn((2, 512, 8, 128), device=cuda, dtype=dtype)
+        grads = []
+        for fn in (flash.flash_attention, ring.reference_attention):
+            qkv = [t.detach().requires_grad_() for t in _qkv(cuda, 2, 512, 8, 128, dtype, seed=4)]
+            grads.append(torch.autograd.grad(fn(*qkv), qkv, g))
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+class TestFlashTraining:
+    def test_full_width_step_launches_twice_per_layer(self, cuda):
+        cfg = dataclasses.replace(chip_sized_config(80), n_layers=2, flash_attention=True)
+        step, state = burnin.make_train_step(cfg, device=cuda)
+        tokens = burnin.sample_tokens(cfg, device=cuda)
+        before = flash_attention_forward.launches
+        state, loss = step(state, tokens)
+        # One launch in the forward and one in the checkpoint's recompute.
+        assert flash_attention_forward.launches - before == 2 * cfg.n_layers
+        assert torch.isfinite(loss)

@@ -6,15 +6,21 @@ file paths (``tpu_dra_torch/parallel/decode.py`` is the counterpart of
 GPU host needs neither.  Every TPU kernel on a ported path is a kernel
 written by hand for Hopper, with a plain PyTorch version beside it.
 
-Ported so far: greedy paged serving of the dense burn-in LM on one
-device —
+Ported so far: greedy paged serving of the dense burn-in LM, and
+training of its dense, flash and rope families, on one device —
 
-- ``tpu_dra_torch.parallel.burnin``  — config, params and the dense forward;
-- ``tpu_dra_torch.parallel.weights`` — the JAX param tree as torch tensors;
+- ``tpu_dra_torch.parallel.burnin``  — config, params, forward, training step;
+- ``tpu_dra_torch.parallel.weights`` — the JAX param tree and training state
+  as torch tensors;
 - ``tpu_dra_torch.parallel.decode``  — the KV-cache decode step;
 - ``tpu_dra_torch.parallel.paged``   — the paged block pool and its prefill;
-- ``tpu_dra_torch.parallel.kernels`` — the paged-attention CUDA kernel;
-- ``tpu_dra_torch.parallel.serve``   — the continuous-batching engine.
+- ``tpu_dra_torch.parallel.serve``   — the continuous-batching engine;
+- ``tpu_dra_torch.parallel.ring``    — the reference attention (the oracle);
+- ``tpu_dra_torch.parallel.flash``   — flash attention with its gradient;
+- ``tpu_dra_torch.parallel.kernels`` — the paged- and flash-attention CUDA
+  kernels;
+- ``tpu_dra_torch.parallel.mfu``     — sizing, flop counts and MFU;
+- ``tpu_dra_torch.models``           — the workload families' training.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; asking for CUDA where there is none raises.

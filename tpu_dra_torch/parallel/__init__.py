@@ -1,4 +1,4 @@
-"""tpu_dra_torch.parallel — the single-device serving path in PyTorch.
+"""tpu_dra_torch.parallel — single-device serving and training in PyTorch.
 
 Counterpart of `tpu_dra.parallel` for the modules ported so far; each file
 here is held against the JAX file of the same name by the

@@ -23,7 +23,7 @@ import torch
 from tpu_dra_torch.parallel.burnin import (
     BurninConfig,
     _attend_dense,
-    _layer,
+    _layers,
     _logits,
     _matmul_bf16,
     _mlp,
@@ -125,9 +125,9 @@ def _run_blocks(params, x, cache, p0, mask, config: BurninConfig, kv_io=None):
         else:
             positions = p0 + torch.arange(x.shape[1], device=x.device)
         rope_tab = rope_tables(positions, config.d_head)
-    for i in range(config.n_layers):
+    for i, layer in enumerate(_layers(params)):
         x, _, _ = _decode_block(
-            _layer(params, i), x, cache["k"][i], cache["v"][i], p0,
+            layer, x, cache["k"][i], cache["v"][i], p0,
             config=config, mask=mask, rope_tab=rope_tab, kv_io=kv_io,
         )
     return _logits(params, x), cache
