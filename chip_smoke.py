@@ -14,6 +14,9 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    masked-tail poisoning must not change the output; the kernel and the
    plain version timed with CUDA events (median of 100 launches, L2
    flushed between launches) beside the least time the card could take;
+   then the same for its int8 form, over pools quantized with
+   ``quant.quantize_tensor`` (one scale per position and head), whose
+   scratch block and masked tails are poisoned with q = 127, s = NaN;
 4. flash kernel: the flash-attention forward held against its plain
    version at the trainer's shapes ((16, 1024, 32, 128) bf16, causal,
    q/k/v views of one qkv tensor) and against the reference attention,
@@ -28,6 +31,11 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    layers, seq 1024; random weights from a seeded generator) through
    ``attn_backend="cuda"``: 16 requests through 8 slots, every kernel
    launch counted, then the same stream through the gather backend;
+   then the same stream served int8 (``quant.quantize_params`` weights,
+   ``kv_int8=True`` pool; three eager weight-dequantization routes checked
+   bitwise and timed on one layer) through the int8 kernel, every launch counted,
+   against the int8 gather engine, one int8 decode step's logits through
+   both backends, and a profile of 8 int8 decode steps;
 6. train: 6 momentum steps of the flash family at the same width (batch
    16, seq 1024; f32 masters, about 1.75 B parameters) through
    ``burnin.train``: the loss must descend, every flash launch counted;
@@ -51,7 +59,13 @@ import sys
 import time
 import traceback
 
-TOL = 2e-2  # paged kernel vs plain: bf16 outputs, f32 sums in another order
+# Paged kernel vs plain, both forms: both read the same bf16 values (an
+# int8 element dequantized to bf16(f32(q) * s) on both sides) and round
+# f32 sums taken in another order, so they may differ by about one bf16
+# ulp of the value (at most 2**-7 of it).  Measured at the engine's
+# shapes: 3.8e-6 (bf16) and 0.00048828125 (int8, 2**-11); 0.0 at the odd
+# small shape.
+PAGED_TOL = {"atol": 2 ** -9, "rtol": 2 ** -7}
 # Flash kernel vs plain, bf16: both round one f32 result once, so they may
 # differ by one bf16 ulp of the value (at most 2**-7 of it); measured
 # 0.001953 (2**-9) at the trainer's shapes.
@@ -60,6 +74,9 @@ FLASH_F32_TOL = {"atol": 1e-5, "rtol": 1e-5}
 FIRST_LOSS_RTOL = 1e-4  # flash vs dense first loss; measured 2.8e-6
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
+# One decode step's rows at the engine's shapes: the first slot, mid-block,
+# a block boundary, the table's last slot.
+ENGINE_POS = [0, 63, 127, 128, 200, 383, 511, 639]
 
 
 def log(msg: str) -> None:
@@ -119,8 +136,43 @@ def make_case(B, H, K, W, NW, NB, pos, seed):
     return q, k_pool, v_pool, table.cuda(), torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
-def check_kernel(case, plain, kernel, label):
-    """Kernel against the plain version (atol = rtol = TOL), then the
+def int8_case(case, quant):
+    """A case with its pools as the int8 pairs the engine stores: one
+    scale per (position, head), over d_head."""
+    q, k_pool, v_pool, table, pos = case
+    return (q, quant.quantize_tensor(k_pool, (3,)), quant.quantize_tensor(v_pool, (3,)),
+            table, pos)
+
+
+def poison_bf16(k_pool, v_pool, table, pos):
+    """Copies of bf16 pools with scratch block 0 and every row's masked
+    tail overwritten by finite values."""
+    W = k_pool.shape[1]
+    pk, pv = k_pool.clone(), v_pool.clone()
+    pk[0], pv[0] = 99.0, -55.0
+    for b, p in enumerate(pos.tolist()):
+        blk = int(table[b, p // W])
+        pk[blk, p % W + 1:], pv[blk, p % W + 1:] = 77.0, 33.0
+    return pk, pv
+
+
+def poison_int8(k_pool, v_pool, table, pos):
+    """Copies of int8 pools with scratch block 0 and every row's masked
+    tail set to q = 127, s = NaN: any read of them shows in the output."""
+    W = k_pool["q"].shape[1]
+    out = []
+    for pool in (k_pool, v_pool):
+        pool = {leaf: t.clone() for leaf, t in pool.items()}
+        pool["q"][0], pool["s"][0] = 127, float("nan")
+        for b, p in enumerate(pos.tolist()):
+            blk = int(table[b, p // W])
+            pool["q"][blk, p % W + 1:], pool["s"][blk, p % W + 1:] = 127, float("nan")
+        out.append(pool)
+    return out
+
+
+def check_kernel(case, plain, kernel, label, poison=poison_bf16):
+    """Kernel against the plain version within PAGED_TOL, then the
     poisoned scratch block and masked tails must leave it bitwise equal."""
     import torch
 
@@ -131,31 +183,29 @@ def check_kernel(case, plain, kernel, label):
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{label}: kernel output not finite")
     err = (got.float() - want).abs().max().item()
-    if not torch.allclose(got.float(), want, atol=TOL, rtol=TOL):
-        raise AssertionError(f"{label}: kernel vs plain max abs err {err}")
-    W = k_pool.shape[1]
-    pk, pv = k_pool.clone(), v_pool.clone()
-    pk[0], pv[0] = 99.0, -55.0
-    for b, p in enumerate(pos.tolist()):
-        blk = int(table[b, p // W])
-        pk[blk, p % W + 1:], pv[blk, p % W + 1:] = 77.0, 33.0
-    poisoned = kernel(q, pk, pv, table, pos)
+    if not torch.allclose(got.float(), want, **PAGED_TOL):
+        raise AssertionError(f"{label}: kernel vs plain max abs err {err} (tol {PAGED_TOL})")
+    poisoned = kernel(q, *poison(k_pool, v_pool, table, pos), table, pos)
     torch.cuda.synchronize()
     if not torch.equal(poisoned, got):
         raise AssertionError(f"{label}: masked tail or scratch leaked into the output")
-    log(f"kernel {label}: max_abs_err={err} vs plain (tol {TOL}); poisoned tail unchanged")
+    log(f"kernel {label}: max_abs_err={err} vs plain (tol {PAGED_TOL}); poisoned tail unchanged "
+        "(bitwise)")
     return err
 
 
 def kernel_bound_ms(case):
     """The least time for one call: each input byte read once (K and V
-    of the visible positions only, q, the table, pos), the output
-    written once, at the HBM rate; or the flops at the bf16 peak."""
+    of the visible positions only: 2 * K bytes a position and head in
+    bf16, K + 4 in int8 with its f32 scale; q, the table, pos), the
+    output written once, at the HBM rate; or the flops at the bf16 peak."""
     q, k_pool, v_pool, table, pos = case
     B, H, K = q.shape
-    W, NW = k_pool.shape[1], table.shape[1]
+    int8 = isinstance(k_pool, dict)
+    W, NW = (k_pool["q"] if int8 else k_pool).shape[1], table.shape[1]
     visible = sum(min(p + 1, NW * W) for p in pos.tolist())
-    nbytes = 2 * visible * H * K * 2 + 2 * B * H * K * 2 + table.numel() * 4 + B * 4
+    kv_bytes = K + 4 if int8 else 2 * K
+    nbytes = 2 * visible * H * kv_bytes + 2 * B * H * K * 2 + table.numel() * 4 + B * 4
     flops = 4 * visible * H * K
     by_bytes = nbytes / H100_BYTES_PER_S * 1e3
     by_ops = flops / H100_BF16_FLOPS * 1e3
@@ -163,8 +213,7 @@ def kernel_bound_ms(case):
 
 
 def phase_kernels(torch, pa):
-    engine_pos = [0, 63, 127, 128, 200, 383, 511, 639]  # first, mid, boundary, last slot
-    big = make_case(8, 32, 128, 128, 5, 41, engine_pos, seed=1)
+    big = make_case(8, 32, 128, 128, 5, 41, ENGINE_POS, seed=1)
     err = check_kernel(big, pa.paged_attention_plain, pa.paged_attention, "B8 H32 K128 W128 NW5")
     small = make_case(3, 4, 64, 4, 3, 10, [0, 5, 11], seed=2)
     check_kernel(small, pa.paged_attention_plain, pa.paged_attention, "B3 H4 K64 W4 NW3")
@@ -194,6 +243,38 @@ def phase_kernels(torch, pa):
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         # No single PyTorch call attends a query over a block table.
+        "library_ms": None,
+    }
+
+
+def phase_kernels_int8(torch, pa, quant):
+    """K1's int8 form at the engine's shapes and at one odd small shape,
+    timed beside its bound and its plain version."""
+    big = int8_case(make_case(8, 32, 128, 128, 5, 41, ENGINE_POS, seed=1), quant)
+    err = check_kernel(big, pa.paged_attention_plain, pa.paged_attention,
+                       "int8 B8 H32 K128 W128 NW5", poison_int8)
+    small = int8_case(make_case(3, 4, 64, 4, 3, 10, [0, 5, 11], seed=2), quant)
+    check_kernel(small, pa.paged_attention_plain, pa.paged_attention, "int8 B3 H4 K64 W4 NW3",
+                 poison_int8)
+
+    scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+    flush = scrub.zero_
+    kernel_ms = time_ms(lambda: pa.paged_attention(*big), flush)
+    plain_ms = time_ms(lambda: pa.paged_attention_plain(*big), flush)
+    bound_ms, bound_by = kernel_bound_ms(big)
+    log(f"int8 kernel timing at the engine's shapes: kernel {kernel_ms:.6f} ms, plain "
+        f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    return {
+        "name": "paged_attention_int8",
+        "route": "cuda",
+        "source": "tpu_dra_torch/parallel/kernels/csrc/paged_attn.cu",
+        "replaces": "tpu_dra/parallel/kernels/paged_attn.py:177",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,
     }
 
@@ -324,14 +405,14 @@ def make_stream(vocab: int):
     return stream
 
 
-def serve(ServeEngine, params, cfg, stream, backend):
+def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False):
     """Drive the stream through one engine tick by tick.  Returns the
     engine, the finished requests by id, the run's wall seconds and the
     wall times of ticks that admitted nothing (one decode step each)."""
     import torch
 
     eng = ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
-                      attn_backend=backend)
+                      attn_backend=backend, kv_int8=kv_int8)
     ids = [eng.submit(p, b) for p, b in stream]
     step_walls = []
     done = {}
@@ -349,13 +430,13 @@ def serve(ServeEngine, params, cfg, stream, backend):
     return eng, done, wall, step_walls
 
 
-def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8):
+def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8, kv_int8=False):
     """Where a decode step's device time goes: 8 rows mid-decode (contexts
     256..480 tokens), ``steps`` steps under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
-                      attn_backend="cuda")
+                      attn_backend="cuda", kv_int8=kv_int8)
     for i in range(8):
         eng.submit([(7 * i + j) % cfg.vocab for j in range(256 + 32 * i)], 64)
     eng.tick()  # admits all eight, then one step
@@ -366,7 +447,10 @@ def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8):
             eng.tick()
         torch.cuda.synchronize()
     eng.close()
-    report_profile(prof, "chip_smoke_decode_trace.json", f"{steps} decode steps of 8 rows", steps)
+    form = "int8" if kv_int8 else "bf16"
+    report_profile(prof, f"chip_smoke_decode_{form}_trace.json",
+                   f"{steps} {form} decode steps of 8 rows", steps,
+                   INT8_DECODE_KINDS if kv_int8 else KERNEL_KINDS)
 
 
 KERNEL_KINDS = (  # (substring of a kernel's name, kind), first match wins
@@ -380,9 +464,18 @@ KERNEL_KINDS = (  # (substring of a kernel's name, kind), first match wins
     ("index", "index / gather / scatter"),
     ("elementwise", "elementwise"),
 )
+# In an int8 decode step the one product with a cast (int8 and f32 in,
+# bf16 out) is quant.dequantize_bf16, 4 a layer and 1 for the logits; the
+# training step has products of that name too, so the kind is the int8
+# decode profile's alone.
+INT8_DECODE_KINDS = (
+    ("gpu_kernel_impl<at::native::BinaryFunctor<float, float, float, "
+     "at::native::binary_internal::MulFunctor", "int8 dequantization"),
+    *KERNEL_KINDS,
+)
 
 
-def report_profile(prof, trace_name, label, steps):
+def report_profile(prof, trace_name, label, steps, kinds=KERNEL_KINDS):
     """Kernel time by name and by kind from the profile's exported trace
     (written to chiprun_out/), and the device's idle share: one minus the
     time some kernel runs (the union of the kernels' intervals) over the
@@ -403,7 +496,7 @@ def report_profile(prof, trace_name, label, steps):
     by_kind: "dict[str, float]" = {}
     for e in kernels:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
-        kind = next((k for s, k in KERNEL_KINDS if s in e["name"]), "other")
+        kind = next((k for s, k in kinds if s in e["name"]), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + float(e["dur"])
     busy_ms = sum(by_name.values()) / 1e3
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
@@ -422,19 +515,22 @@ def report_profile(prof, trace_name, label, steps):
         for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1])))
 
 
-def phase_engine(torch, cfg_mod, serve_mod, weights, pa, paged):
-    cfg = cfg_mod.BurninConfig(
-        vocab=32768, d_model=4096, n_heads=32, d_ff=16384, n_layers=8, seq=1024, batch=16,
-    )
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = weights.cast_matrices(cfg_mod.init_params(cfg, gen, device="cuda"))
-    stream = make_stream(cfg.vocab)
+# The serving width: `tpu_dra/parallel/mfu.py`'s rung for an 80 GB card.
+SERVE_WIDTH = dict(vocab=32768, d_model=4096, n_heads=32, d_ff=16384, n_layers=8, seq=1024,
+                   batch=16)
 
+
+def serve_main_path(ServeEngine, pa, quant, params, cfg, stream, form, kv_int8=False):
+    """The stream through the kernel backend after a warm-up, the
+    kernel's launches counted from 0 just before and read just after;
+    every request finished on its budget, every block freed, one launch
+    a layer a step.  Returns the finished requests by id, the launches
+    and the pool's bytes."""
     # Warm-up (cuBLAS handles, the caching allocator) off the record.
-    serve(serve_mod.ServeEngine, params, cfg, stream[:2], "cuda")[0].close()
+    serve(ServeEngine, params, cfg, stream[:2], "cuda", kv_int8)[0].close()
 
     pa.paged_attention.launches = 0  # count only the main path's launches
-    eng, done, wall, steps = serve(serve_mod.ServeEngine, params, cfg, stream, "cuda")
+    eng, done, wall, steps = serve(ServeEngine, params, cfg, stream, "cuda", kv_int8)
     launches = pa.paged_attention.launches
     nb = eng.kv_stats()["blocks_total"]
     if (eng.block_size, nb) != (128, 41):
@@ -453,21 +549,27 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, pa, paged):
     n_tok = sum(len(r.tokens) for r in done.values())
     ttft = statistics.median(r.ttft_s for r in done.values())
     step_ms = statistics.median(steps) * 1e3
-    log(f"engine cuda: {len(done)} requests, {n_tok} tokens, {eng.device_steps} steps, "
+    log(f"engine {form} cuda: {len(done)} requests, {n_tok} tokens, {eng.device_steps} steps, "
         f"{launches} kernel launches; {n_tok / wall:.3f} tokens/s, TTFT p50 "
         f"{ttft * 1e3:.3f} ms, step p50 {step_ms:.3f} ms (ticks without admission)")
+    pool_bytes = quant.tree_bytes(eng._pool)
     eng.close()
+    return done, launches, pool_bytes
 
-    g_eng, g_done, g_wall, g_steps = serve(serve_mod.ServeEngine, params, cfg, stream, "gather")
+
+def serve_gather(ServeEngine, params, cfg, stream, form, kv_int8=False):
+    g_eng, g_done, g_wall, g_steps = serve(ServeEngine, params, cfg, stream, "gather", kv_int8)
     g_tok = sum(len(r.tokens) for r in g_done.values())
-    log(f"engine gather: {g_tok / g_wall:.3f} tokens/s, step p50 "
+    log(f"engine {form} gather: {g_tok / g_wall:.3f} tokens/s, step p50 "
         f"{statistics.median(g_steps) * 1e3:.3f} ms")
     g_eng.close()
-    profile_decode(torch, serve_mod.ServeEngine, params, cfg)
+    return g_done
 
-    # Where greedy tokens first differ, the gather path must have been at
-    # a near-tie: its top-2 margin within 2 bf16 ulps of the row's
-    # largest logit (2**-6 relative), recomputed by the dense forward.
+
+def check_near_ties(torch, done, g_done, logits_at, form):
+    """Where greedy tokens first differ, the gather path must have been at
+    a near-tie: its top-2 margin within 2 bf16 ulps of the row's largest
+    logit (2**-6 relative), recomputed by ``logits_at(sequence)``."""
     diverged = 0
     for rid, r in done.items():
         a, b = r.tokens, g_done[rid].tokens
@@ -475,11 +577,8 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, pa, paged):
         if i is None:
             continue
         diverged += 1
-        seq = r.prompt + a[:i]
-        toks = torch.zeros((1, cfg.seq), dtype=torch.int32, device="cuda")
-        toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
         with torch.no_grad():
-            row = cfg_mod.forward(params, toks, cfg)[0, len(seq) - 1]
+            row = logits_at(r.prompt + a[:i])
         top2 = torch.topk(row, 2).values
         margin = (top2[0] - top2[1]).item()
         tol = 2 ** -6 * row.abs().max().item()
@@ -487,16 +586,14 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, pa, paged):
             f"gather-path margin {margin} (near-tie tolerance {tol})")
         if margin > tol:
             raise AssertionError(f"request {rid}: tokens differ at {i} with margin {margin} > {tol}")
-    log(f"engine cuda vs gather: {16 - diverged} of 16 requests token-identical, "
-        f"{diverged} first differ at a near-tie")
+    log(f"engine {form} cuda vs gather: {len(done) - diverged} of {len(done)} requests "
+        f"token-identical, {diverged} first differ at a near-tie")
 
-    # One decode step's logits through both backends, on the same state.
-    pool = paged.init_block_pool(cfg, 41, 128, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(3)
-    for leaf in pool.values():
-        leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * 0.5)
+
+def check_step_logits(torch, paged, params, cfg, pool, form):
+    """One decode step's logits through both backends, on the same state."""
     table = torch.arange(1, 41, dtype=torch.int32, device="cuda").view(8, 5)
-    pos = torch.tensor([0, 63, 127, 128, 200, 383, 511, 639], dtype=torch.int32, device="cuda")
+    pos = torch.tensor(ENGINE_POS, dtype=torch.int32, device="cuda")
     tok = torch.arange(8, dtype=torch.int32, device="cuda") * 1000
     out = {}
     for backend in ("gather", "cuda"):
@@ -506,12 +603,128 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, pa, paged):
             )
     ref, got = out["gather"], out["cuda"]
     if got.shape != (8, cfg.vocab) or not torch.isfinite(got).all():
-        raise AssertionError(f"step logits: shape {tuple(got.shape)} or not finite")
+        raise AssertionError(f"{form} step logits: shape {tuple(got.shape)} or not finite")
     step_err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     if not torch.allclose(got, ref, rtol=2 ** -6, atol=2 ** -6 * scale):
-        raise AssertionError(f"step logits cuda vs gather: max abs err {step_err} (scale {scale})")
-    log(f"decode step logits cuda vs gather: max abs err {step_err} of max |logit| {scale}")
+        raise AssertionError(f"{form} step logits cuda vs gather: max abs err {step_err} (scale {scale})")
+    log(f"{form} decode step logits cuda vs gather: max abs err {step_err} of max |logit| {scale}")
+
+
+def phase_engine(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
+    cfg = cfg_mod.BurninConfig(**SERVE_WIDTH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = weights.cast_matrices(cfg_mod.init_params(cfg, gen, device="cuda"))
+    stream = make_stream(cfg.vocab)
+
+    done, launches, _ = serve_main_path(serve_mod.ServeEngine, pa, quant, params, cfg,
+                                        stream, "bf16")
+    g_done = serve_gather(serve_mod.ServeEngine, params, cfg, stream, "bf16")
+    profile_decode(torch, serve_mod.ServeEngine, params, cfg)
+
+    def dense_logits_at(seq):
+        toks = torch.zeros((1, cfg.seq), dtype=torch.int32, device="cuda")
+        toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
+        return cfg_mod.forward(params, toks, cfg)[0, len(seq) - 1]
+
+    check_near_ties(torch, done, g_done, dense_logits_at, "bf16")
+
+    pool = paged.init_block_pool(cfg, 41, 128, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for leaf in pool.values():
+        leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * 0.5)
+    check_step_logits(torch, paged, params, cfg, pool, "bf16")
+    return launches
+
+
+def dequant_routes(torch):
+    """Ways to turn an int8 leaf into ``bf16(f32(q) * s)``, all bitwise
+    equal: one mixed-type product that rounds on its bf16 store; the f32
+    product, then a cast; the f32 widening, then a product into bf16."""
+    def into_bf16(a, s):
+        return torch.mul(a, s, out=torch.empty(a.shape, dtype=torch.bfloat16, device=a.device))
+
+    return {
+        "one pass": lambda leaf: into_bf16(leaf["q"], leaf["s"]),
+        "two step": lambda leaf: (leaf["q"].float() * leaf["s"]).to(torch.bfloat16),
+        "widen, then product into bf16": lambda leaf: into_bf16(leaf["q"].float(), leaf["s"]),
+    }
+
+
+def check_dequant_routes(torch, quant, params, flush):
+    """``quant.dequantize_bf16`` and every route of `dequant_routes` give
+    the two-step product's bf16 bits on every int8 leaf on this card; then
+    each is timed over one layer's four matrices (layer 0)."""
+    routes = dequant_routes(torch)
+    for name, leaf in [("embed", params["embed"]), *params["layers"].items()]:
+        if quant.is_quantized_leaf(leaf):
+            want = routes["two step"](leaf)
+            for route, fn in [("dequantize_bf16", quant.dequantize_bf16), *routes.items()]:
+                if not torch.equal(fn(leaf), want):
+                    raise AssertionError(f"{route}({name}) differs from bf16(f32(q) * s)")
+            del want
+    log(f"dequantize_bf16 and the routes {sorted(routes)} equal bf16(f32(q) * s) bitwise on "
+        "every int8 leaf")
+    layer0 = [{"q": leaf["q"][0], "s": leaf["s"][0]} for leaf in params["layers"].values()
+              if quant.is_quantized_leaf(leaf)]
+    times = {
+        route: time_ms(lambda fn=fn: [fn(leaf) for leaf in layer0], flush, n=50, warmup=5)
+        for route, fn in [("dequantize_bf16", quant.dequantize_bf16), *routes.items()]
+    }
+    log(f"dequantization of layer 0's {len(layer0)} int8 matrices "
+        f"({sum(leaf['q'].numel() for leaf in layer0)} values): "
+        + "; ".join(f"{route} {ms:.6f} ms" for route, ms in times.items()))
+
+
+def phase_engine_int8(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
+    """The same stream served int8: the same seeded params quantized on
+    the card (`quant.quantize_params`), an int8 pool (``kv_int8=True``),
+    the int8 kernel.  Returns its launches on that main path."""
+    cfg = cfg_mod.BurninConfig(**SERVE_WIDTH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    full = cfg_mod.init_params(cfg, gen, device="cuda")
+    bf16_weight_bytes = quant.tree_bytes(weights.cast_matrices(full))
+    params = quant.quantize_params(full)
+    del full
+    torch.cuda.empty_cache()
+    stream = make_stream(cfg.vocab)
+
+    check_dequant_routes(torch, quant, params, flush=torch.empty(
+        64 * 2**20, dtype=torch.uint8, device="cuda").zero_)
+
+    done, launches, pool_bytes = serve_main_path(serve_mod.ServeEngine, pa, quant, params,
+                                                 cfg, stream, "int8", kv_int8=True)
+    bf16_pool_bytes = quant.tree_bytes(paged.init_block_pool(cfg, 41, 128, device="cuda"))
+    log(f"int8 engine bytes on the card: weights {quant.tree_bytes(params)} (bf16 engine "
+        f"{bf16_weight_bytes}), pool {pool_bytes} (bf16 pool {bf16_pool_bytes})")
+    g_done = serve_gather(serve_mod.ServeEngine, params, cfg, stream, "int8", kv_int8=True)
+
+    # The near-tie margin recomputed through the int8 paged prefill of the
+    # sequence so far: each window quantized at insert and read back, as
+    # the engine's own prefill and decode do.
+    slots = 640  # five 128-position windows: a 512-token prompt and its 63 tokens
+    prefill = paged.make_paged_prefill(cfg, slots, 128)
+
+    def int8_logits_at(seq):
+        pool = paged.init_block_pool(cfg, 6, 128, kv_int8=True, device="cuda")
+        toks = torch.zeros((1, slots), dtype=torch.int32, device="cuda")
+        toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
+        table = torch.arange(1, 6, dtype=torch.int32, device="cuda")[None]
+        lens = torch.tensor([len(seq)], dtype=torch.int32, device="cuda")
+        return prefill(params, toks, lens, pool, table)[0][0]
+
+    check_near_ties(torch, done, g_done, int8_logits_at, "int8")
+
+    pool = paged.init_block_pool(cfg, 41, 128, kv_int8=True, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for leaf in pool.values():
+        row = quant.quantize_tensor(torch.randn(leaf["q"].shape, generator=g, device="cuda") * 0.5,
+                                    (4,))
+        leaf["q"].copy_(row["q"])
+        leaf["s"].copy_(row["s"])
+    check_step_logits(torch, paged, params, cfg, pool, "int8")
+    del pool
+    profile_decode(torch, serve_mod.ServeEngine, params, cfg, kv_int8=True)
     return launches
 
 
@@ -621,9 +834,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from tpu_dra_torch.parallel import burnin, flash, mfu, paged, ring, serve, weights
+        from tpu_dra_torch.parallel import burnin, flash, mfu, paged, quant, ring, serve, weights
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
         from tpu_dra_torch.parallel.kernels import paged_attn as pa
@@ -652,21 +866,28 @@ def main() -> int:
         paged_row = phase_kernels(torch, pa)
         log(f"phase kernels: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
+        int8_row = phase_kernels_int8(torch, pa, quant)
+        log(f"phase int8 kernel: {time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
         flash_row = phase_flash(torch, fa, flash, ring)
         phase_flash_grads(torch, flash, ring)
         log(f"phase flash kernel: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        paged_row["launches"] = phase_engine(torch, burnin, serve, weights, pa, paged)
+        paged_row["launches"] = phase_engine(torch, burnin, serve, weights, quant, pa, paged)
         log(f"phase engine: {time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+        int8_row["launches"] = phase_engine_int8(torch, burnin, serve, weights, quant, pa, paged)
+        log(f"phase int8 engine: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
         flash_row["launches"] = phase_train(torch, burnin, mfu, fa, flash)
         log(f"phase train: {time.perf_counter() - t:.3f} s")
+        log(f"all phases: {time.perf_counter() - started:.3f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    print(json.dumps({"kernels": [paged_row, flash_row]}))
+    print(json.dumps({"kernels": [paged_row, flash_row, int8_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tpu_dra.parallel import burnin as jb
+from tpu_dra.parallel import quant as jquant
 from tpu_dra_torch.parallel import burnin as tb
 from tpu_dra_torch.parallel.weights import MATRICES, params_from_numpy
 
@@ -30,9 +31,12 @@ CONFIGS = {
 }
 
 
-def both_params(cfg, seed: int = 0):
-    """The reference's params and the port's copy of them on the CPU."""
+def both_params(cfg, seed: int = 0, quantized: bool = False):
+    """The reference's params (int8, through its ``quantize_params``,
+    when ``quantized``) and the port's copy of them on the CPU."""
     jparams = jb.init_params(cfg, jax.random.PRNGKey(seed))
+    if quantized:
+        jparams = jquant.quantize_params(jparams)
     tparams = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
     return jparams, tparams
 

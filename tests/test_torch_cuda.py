@@ -6,13 +6,15 @@ the reference package, so it also runs on a GPU host that has no JAX:
 
 (``--noconftest``: the suite's conftest sets JAX up.)  Each kernel is
 held against its plain PyTorch version, which the CPU tests hold against
-the reference; the engine's kernel path against its gather path; the
-flash gradient against the reference attention's.
+the reference; the engine's kernel path against its gather path, with
+bf16 and with int8 pools and weights; the flash gradient against the
+reference attention's.
 
-Tolerances: paged kernel vs plain ``atol = rtol = 2e-2`` for bf16 outputs
-whose f32 sums run in another order; flash kernel vs plain one bf16 ulp of
-the value (``atol = 2**-9``, ``rtol = 2**-7``: both round one f32 result
-once), ``1e-5`` for f32 outputs; decode-step
+Tolerances: paged kernel vs plain about one bf16 ulp of the value
+(``atol = 2**-9``, ``rtol = 2**-7``): both sides read the same bf16 values
+(an int8 element is dequantized to the same bf16 value on both) and round
+f32 sums taken in another order; flash kernel vs plain the same one ulp
+(both round one f32 result once), ``1e-5`` for f32 outputs; decode-step
 logits within 2 bf16 ulps of the gather path's magnitude (``rtol =
 2**-6``, ``atol = 2**-6 * max|ref|``); flash gradients ``1e-5`` (both
 differentiate the same oracle)."""
@@ -22,7 +24,7 @@ import dataclasses
 import pytest
 import torch
 
-from tpu_dra_torch.parallel import burnin, flash, paged, ring
+from tpu_dra_torch.parallel import burnin, flash, paged, quant, ring
 from tpu_dra_torch.parallel.kernels import (
     flash_attention_forward,
     flash_attention_plain,
@@ -32,7 +34,7 @@ from tpu_dra_torch.parallel.kernels import (
 from tpu_dra_torch.parallel.mfu import chip_sized_config
 from tpu_dra_torch.parallel.serve import ServeEngine
 
-TOL = 2e-2
+PAGED_TOL = {"atol": 2 ** -9, "rtol": 2 ** -7}
 
 # (B, H, K, W, NW, positions): the head widths the kernel takes, tables
 # with scratch tails, positions at the first slot, mid-block, a block
@@ -76,7 +78,7 @@ class TestKernel:
         got = paged_attention(*args)
         torch.cuda.synchronize()
         assert paged_attention.launches == before + 1
-        torch.testing.assert_close(got.float(), want, atol=TOL, rtol=TOL)
+        torch.testing.assert_close(got.float(), want, **PAGED_TOL)
 
     def test_masked_tail_and_scratch_never_read(self, cuda):
         q, kp, vp, table, pos = _case(cuda, *CASES["k64"])
@@ -102,43 +104,108 @@ class TestKernel:
             paged_attention(q2, kp2, vp2, t2, p2)
 
 
+def _int8(pool):
+    """A pool, one layer's or stacked, as the int8 pair the engine
+    stores: one scale per (position, head), over d_head."""
+    return quant.quantize_tensor(pool, (pool.dim() - 1,))
+
+
+@pytest.mark.cuda
+class TestInt8Kernel:
+    @pytest.mark.parametrize("name", sorted(CASES))
+    def test_matches_plain_and_counts_its_launch(self, name, cuda):
+        q, kp, vp, table, pos = _case(cuda, *CASES[name])
+        args = (q, _int8(kp), _int8(vp), table, pos)
+        want = paged_attention_plain(*args).float()
+        before = paged_attention.launches
+        got = paged_attention(*args)
+        torch.cuda.synchronize()
+        assert paged_attention.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want, **PAGED_TOL)
+
+    def test_nan_scales_in_scratch_and_tails_never_read(self, cuda):
+        q, kp, vp, table, pos = _case(cuda, *CASES["k64"])
+        k8, v8 = _int8(kp), _int8(vp)
+        base = paged_attention(q, k8, v8, table, pos)
+        W = kp.shape[1]
+        for pool in (k8, v8):
+            pool["q"][0], pool["s"][0] = 127, float("nan")  # scratch
+            for b, p in enumerate(pos.tolist()):
+                blk = int(table[b, p // W])
+                pool["q"][blk, p % W + 1:], pool["s"][blk, p % W + 1:] = 127, float("nan")
+        assert torch.equal(paged_attention(q, k8, v8, table, pos), base)
+
+    def test_rejects_mixed_pairs_and_wrong_scales(self, cuda):
+        q, kp, vp, table, pos = _case(cuda, *CASES["k64"])
+        with pytest.raises(TypeError, match="not one of each"):
+            paged_attention(q, _int8(kp), vp, table, pos)
+        bad = _int8(kp)
+        bad["s"] = bad["s"][..., 0]
+        with pytest.raises(ValueError, match=r"k_pool\['s'\]"):
+            paged_attention(q, bad, _int8(vp), table, pos)
+        half = {"q": _int8(kp)["q"], "s": _int8(kp)["s"].half()}
+        with pytest.raises(TypeError, match="float32"):
+            paged_attention(q, half, _int8(vp), table, pos)
+
+
 _CFG = burnin.BurninConfig(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=2, seq=32)
+
+
+def _step_both_backends(cuda, kv_int8):
+    """One decode step of a random pool through the gather and kernel
+    backends (int8 weights with an int8 pool)."""
+    params = burnin.init_params(_CFG, device=cuda)
+    if kv_int8:
+        params = quant.quantize_params(params)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    shape = (_CFG.n_layers, 12, 4, _CFG.n_heads, _CFG.d_head)
+    pool = {n: torch.randn(shape, generator=g, device=cuda) for n in ("k", "v")}
+    pool = {n: _int8(a) if kv_int8 else a.to(torch.bfloat16) for n, a in pool.items()}
+    table = torch.tensor([[1, 2, 3, 0], [4, 5, 6, 7], [8, 0, 0, 0]], dtype=torch.int32,
+                         device=cuda)
+    pos = torch.tensor([9, 15, 0], dtype=torch.int32, device=cuda)
+    tok = torch.tensor([3, 9, 60], dtype=torch.int32, device=cuda)
+    out = {}
+    for backend in ("gather", "cuda"):
+        out[backend], _ = paged.paged_decode_step_rows(
+            params, tok, pool, table, pos, _CFG, backend=backend
+        )
+    ref = out["gather"]
+    torch.testing.assert_close(
+        out["cuda"], ref, rtol=2 ** -6, atol=2 ** -6 * ref.abs().max().item()
+    )
+
+
+def _engine_launches(params, kv_int8):
+    """A small engine drains four requests, one kernel launch a layer a
+    step, every block freed."""
+    eng = ServeEngine(params, _CFG, slots=2, prompt_slots=8, max_new_cap=6, kv_int8=kv_int8)
+    assert eng.attn_backend == "cuda"  # auto on a CUDA engine
+    for length, budget in ((8, 6), (3, 2), (5, 4), (1, 6)):
+        eng.submit(list(range(1, length + 1)), budget)
+    before = paged_attention.launches
+    done = eng.run()
+    assert paged_attention.launches - before == eng.device_steps * _CFG.n_layers
+    assert [len(r.tokens) for r in sorted(done, key=lambda r: r.id)] == [6, 2, 4, 6]
+    assert all(r.finish_reason == "budget" for r in done)
+    assert eng.kv_stats()["blocks_free"] == eng.kv_stats()["blocks_total"] - 1
 
 
 @pytest.mark.cuda
 class TestEngine:
     def test_kernel_step_matches_gather_step(self, cuda):
-        params = burnin.init_params(_CFG, device=cuda)
-        pool = paged.init_block_pool(_CFG, 12, 4, device=cuda)
-        g = torch.Generator(device=cuda).manual_seed(1)
-        for leaf in pool.values():
-            leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda))
-        table = torch.tensor([[1, 2, 3, 0], [4, 5, 6, 7], [8, 0, 0, 0]], dtype=torch.int32,
-                             device=cuda)
-        pos = torch.tensor([9, 15, 0], dtype=torch.int32, device=cuda)
-        tok = torch.tensor([3, 9, 60], dtype=torch.int32, device=cuda)
-        out = {}
-        for backend in ("gather", "cuda"):
-            out[backend], _ = paged.paged_decode_step_rows(
-                params, tok, pool, table, pos, _CFG, backend=backend
-            )
-        ref = out["gather"]
-        torch.testing.assert_close(
-            out["cuda"], ref, rtol=2 ** -6, atol=2 ** -6 * ref.abs().max().item()
-        )
+        _step_both_backends(cuda, kv_int8=False)
+
+    def test_int8_kernel_step_matches_gather_step(self, cuda):
+        _step_both_backends(cuda, kv_int8=True)
 
     def test_engine_launches_once_per_layer_and_step(self, cuda):
-        params = burnin.init_params(_CFG, device=cuda)
-        eng = ServeEngine(params, _CFG, slots=2, prompt_slots=8, max_new_cap=6)
-        assert eng.attn_backend == "cuda"  # auto on a CUDA engine
-        for length, budget in ((8, 6), (3, 2), (5, 4), (1, 6)):
-            eng.submit(list(range(1, length + 1)), budget)
-        before = paged_attention.launches
-        done = eng.run()
-        assert paged_attention.launches - before == eng.device_steps * _CFG.n_layers
-        assert [len(r.tokens) for r in sorted(done, key=lambda r: r.id)] == [6, 2, 4, 6]
-        assert all(r.finish_reason == "budget" for r in done)
-        assert eng.kv_stats()["blocks_free"] == eng.kv_stats()["blocks_total"] - 1
+        _engine_launches(burnin.init_params(_CFG, device=cuda), kv_int8=False)
+
+    def test_int8_engine_launches_once_per_layer_and_step(self, cuda):
+        params = quant.quantize_params(burnin.init_params(_CFG, device=cuda))
+        _engine_launches(params, kv_int8=True)
 
 
 # (b, s, h, d, block): both head widths the kernel takes, a sequence that

@@ -1,7 +1,8 @@
 """The port's KV-cache decode (tpu_dra_torch/parallel/decode.py) against
 the reference (tpu_dra/parallel/decode.py): per-row decode steps, step by
-step, their greedy tokens, the pick and logprob helpers and the window
-checks.  Tolerance as stated in test_torch_burnin."""
+step, their greedy tokens (bf16, and int8 weights with an int8 cache),
+the pick and logprob helpers and the window checks.  Tolerance as stated
+in test_torch_burnin."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +11,9 @@ import torch
 
 from test_torch_burnin import CONFIGS, assert_logits_close, both_params
 from tpu_dra.parallel import decode as jd
+from tpu_dra.parallel import quant as jq
 from tpu_dra_torch.parallel import decode as td
+from tpu_dra_torch.parallel.quant import dequantize_bf16
 
 torch.set_num_threads(2)
 
@@ -46,6 +49,38 @@ class TestDecodeStepRows:
             want = np.asarray(jcache[leaf], np.float32)
             np.testing.assert_allclose(
                 tcache[leaf].float().numpy(), want,
+                rtol=2 ** -6, atol=2 ** -6 * float(np.abs(want).max()),
+            )
+
+    @pytest.mark.parametrize("name", sorted(CONFIGS))
+    def test_int8_steps_match_reference_and_greedy_tokens_agree(self, name):
+        """The same steps with the reference's quantized weights and an
+        int8 cache on both sides: logits and greedy picks as above, and
+        the caches, dequantized, hold the same K/V (a value may differ by
+        one step of its scale where a bf16 input differs by an ulp)."""
+        jcfg, tcfg = CONFIGS[name]
+        jparams, tparams = both_params(jcfg, quantized=True)
+        jcache = jd.init_cache(jcfg, 3, kv_int8=True)
+        tcache = td.init_cache(tcfg, 3, kv_int8=True, device="cpu")
+        assert tcache["k"]["q"].dtype == torch.int8 and tcache["k"]["s"].dtype == torch.float32
+        assert tuple(tcache["k"]["s"].shape) == jcache["k"]["s"].shape
+        base = np.array([0, 5, 11], np.int32)
+        tok = np.random.RandomState(2).randint(0, jcfg.vocab, 3).astype(np.int32)
+        for t in range(12):
+            pos = base + t
+            jl, jcache = jd.decode_step_rows(
+                jparams, jnp.asarray(tok), jcache, jnp.asarray(pos), jcfg
+            )
+            tl, tcache = td.decode_step_rows(
+                tparams, torch.tensor(tok), tcache, torch.tensor(pos), tcfg
+            )
+            jl = np.asarray(jl)
+            assert_logits_close(tl.numpy(), jl)
+            tok = np.asarray(jd._make_pick(False, 0.0)(jnp.asarray(jl), None))
+        for leaf in ("k", "v"):
+            want = np.asarray(jq.dequantize(jcache[leaf]), np.float32)
+            np.testing.assert_allclose(
+                dequantize_bf16(tcache[leaf]).float().numpy(), want,
                 rtol=2 ** -6, atol=2 ** -6 * float(np.abs(want).max()),
             )
 
@@ -115,8 +150,16 @@ class TestHelpers:
         assert outcome[0] == outcome[1]
 
     def test_embed_lookup_takes_float_tables_only(self):
+        """Float tables and int8 ``{"q","s"}`` tables (f32 rows ``q[idx] *
+        s[idx]``, equal to the reference's); any other table raises."""
         emb = torch.randn(10, 4)
         idx = torch.tensor([3, 0, 9], dtype=torch.int32)
         assert torch.equal(td._embed_lookup(emb, idx), emb[idx.long()])
-        with pytest.raises(TypeError, match="int8"):
-            td._embed_lookup({"q": emb, "s": emb}, idx)
+        jtab = jq.quantize_tensor(jnp.asarray(emb.numpy()), (1,))
+        want = np.asarray(jd._embed_lookup(jtab, jnp.asarray(idx.numpy())))
+        got = td._embed_lookup({k: torch.tensor(np.asarray(a)) for k, a in jtab.items()}, idx)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+        for bad in (emb.to(torch.int8), emb.double(), {"q": emb}):
+            with pytest.raises(TypeError, match="int8"):
+                td._embed_lookup(bad, idx)

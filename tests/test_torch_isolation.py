@@ -45,7 +45,7 @@ def _modules():
 
 def test_port_has_the_slice_modules():
     mods = set(_modules())
-    for name in ("burnin", "decode", "flash", "mfu", "paged", "ring", "serve", "weights",
+    for name in ("burnin", "decode", "flash", "mfu", "paged", "quant", "ring", "serve", "weights",
                  "kernels.flash_attn", "kernels.paged_attn"):
         assert f"tpu_dra_torch.parallel.{name}" in mods
     assert "tpu_dra_torch.models" in mods

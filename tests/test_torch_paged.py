@@ -1,7 +1,10 @@
 """The port's paged KV pool (tpu_dra_torch/parallel/paged.py) against the
 reference (tpu_dra/parallel/paged.py): the per-row paged decode step on
-both attention backends, the block-table prefill, the pool, and the
-block allocator's bookkeeping.  Tolerance as stated in test_torch_burnin."""
+both attention backends, the block-table prefill, over bf16 pools and
+over int8 pools with int8 weights, the pool, and the block allocator's
+bookkeeping.  Tolerance as stated in test_torch_burnin; int8 pools are
+compared dequantized, since a value may differ by one step of its scale
+where a bf16 input to the quantizer differs by an ulp."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +13,9 @@ import torch
 
 from test_torch_burnin import CONFIGS, assert_logits_close, both_params
 from tpu_dra.parallel import paged as jp
+from tpu_dra.parallel import quant as jq
 from tpu_dra_torch.parallel import paged as tp
+from tpu_dra_torch.parallel.quant import dequantize_bf16
 
 torch.set_num_threads(2)
 
@@ -28,12 +33,23 @@ def _random_pool(cfg, nb, w, seed):
     return jpool, tpool
 
 
+def _random_int8_pool(cfg, nb, w, seed):
+    """The same int8 pool for both frameworks: a random pool quantized by
+    the reference (one scale per position and head)."""
+    jpool, _ = _random_pool(cfg, nb, w, seed)
+    jpool = {n: jq.quantize_tensor(a.astype(jnp.float32), (4,)) for n, a in jpool.items()}
+    tpool = {
+        n: {k: torch.tensor(np.asarray(a)) for k, a in leaf.items()} for n, leaf in jpool.items()
+    }
+    return jpool, tpool
+
+
 def _assert_pools_close(tpool, jpool):
     for name in ("k", "v"):
-        want = np.asarray(jpool[name], np.float32)
+        want = np.asarray(jq.dequantize(jpool[name]), np.float32)
+        got = dequantize_bf16(tpool[name]).float().numpy()
         np.testing.assert_allclose(
-            tpool[name].float().numpy(), want,
-            rtol=2 ** -6, atol=2 ** -6 * float(np.abs(want).max()),
+            got, want, rtol=2 ** -6, atol=2 ** -6 * float(np.abs(want).max()),
         )
 
 
@@ -62,6 +78,29 @@ class TestPagedDecodeStep:
             backend=backend,
         )
         assert tpool_out is tpool  # written in place
+        assert_logits_close(got.numpy(), np.asarray(want))
+        _assert_pools_close(tpool, jpool)
+
+    @pytest.mark.parametrize("name", sorted(CONFIGS))
+    @pytest.mark.parametrize("backend,ref_backend", [("gather", "gather"), ("cuda", "pallas")])
+    def test_int8_step_matches_reference(self, name, backend, ref_backend):
+        """The same step over an int8 pool with the reference's int8
+        weights: its gather against the port's, its Pallas kernel in
+        interpret mode against the port's kernel route (the int8 plain
+        version on CPU tensors)."""
+        jcfg, tcfg = CONFIGS[name]
+        jparams, tparams = both_params(jcfg, quantized=True)
+        jpool, tpool = _random_int8_pool(jcfg, 12, 4, seed=3)
+        tok = np.array([3, 9, 60], np.int32)
+        want, jpool = jp.paged_decode_step_rows(
+            jparams, jnp.asarray(tok), jpool, jnp.asarray(TABLE), jnp.asarray(POS), jcfg,
+            backend=ref_backend,
+        )
+        got, tpool_out = tp.paged_decode_step_rows(
+            tparams, torch.tensor(tok), tpool, torch.tensor(TABLE), torch.tensor(POS), tcfg,
+            backend=backend,
+        )
+        assert tpool_out is tpool and tpool["k"]["q"].dtype == torch.int8
         assert_logits_close(got.numpy(), np.asarray(want))
         _assert_pools_close(tpool, jpool)
 
@@ -112,6 +151,32 @@ class TestPagedPrefill:
         assert_logits_close(got.numpy(), np.asarray(want))
         _assert_pools_close(tpool, jpool)
 
+    @pytest.mark.parametrize("name", sorted(CONFIGS))
+    @pytest.mark.parametrize("first_window", [0, 1])
+    def test_int8_prefill_matches_reference(self, name, first_window):
+        """The prefill over an int8 pool with int8 weights: each window
+        quantized at insert and read back dequantized, on both sides."""
+        jcfg, tcfg = CONFIGS[name]
+        jparams, tparams = both_params(jcfg, quantized=True)
+        prompt_slots, w = 8, 4
+        rng = np.random.RandomState(4)
+        lens = np.array([7, 5], np.int32)
+        prompt = np.zeros((2, prompt_slots), np.int32)
+        for b, n in enumerate(lens):
+            prompt[b, :n] = rng.randint(0, jcfg.vocab, n)
+        table = np.array([[1, 2, 3, 0], [4, 5, 6, 0]], np.int32)
+        jpool, tpool = _random_int8_pool(jcfg, 8, w, seed=5)
+        want, jpool = jp.make_paged_prefill(jcfg, None, prompt_slots, w)(
+            jparams, jnp.asarray(prompt), jnp.asarray(lens), jpool, jnp.asarray(table),
+            first_window,
+        )
+        got, tpool = tp.make_paged_prefill(tcfg, prompt_slots, w)(
+            tparams, torch.tensor(prompt), torch.tensor(lens), tpool, torch.tensor(table),
+            first_window,
+        )
+        assert_logits_close(got.numpy(), np.asarray(want))
+        _assert_pools_close(tpool, jpool)
+
     def test_bad_first_window_and_window_rejected(self):
         _, tcfg = CONFIGS["dense"]
         with pytest.raises(ValueError, match="prefix window"):
@@ -130,6 +195,17 @@ class TestPool:
             assert tuple(got[name].shape) == want[name].shape
             assert got[name].dtype == torch.bfloat16
             assert not got[name].any()
+
+    def test_init_int8_block_pool_matches_reference_layout(self):
+        jcfg, tcfg = CONFIGS["dense"]
+        want = jp.init_block_pool(jcfg, 5, 4, kv_int8=True)
+        got = tp.init_block_pool(tcfg, 5, 4, kv_int8=True, device="cpu")
+        for name in ("k", "v"):
+            for leaf, dtype in (("q", torch.int8), ("s", torch.float32)):
+                assert tuple(got[name][leaf].shape) == want[name][leaf].shape
+                assert got[name][leaf].dtype == dtype
+                assert not got[name][leaf].any()
+        assert tp._pool_block_size(got) == jp._pool_block_size(want) == 4
 
     @pytest.mark.parametrize("nb,w,match", [(1, 4, "scratch"), (4, 0, "block_size")])
     def test_bad_pool_rejected(self, nb, w, match):

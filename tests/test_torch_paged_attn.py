@@ -1,8 +1,9 @@
 """The port's paged attention (tpu_dra_torch/parallel/kernels/paged_attn.py):
 the plain PyTorch version against the reference's Pallas kernel (run by
 the Pallas interpreter on the CPU, as tests/test_kernels.py runs it) and
-against the gather path's dense oracle; masked tails; the wrapper's
-dispatch.  The CUDA kernel itself is tested on the card by
+against the gather path's dense oracle, over bf16 pools and over int8
+``{"q","s"}`` pools (the oracle then over the dequantized pool); masked
+tails; the wrapper's dispatch.  The CUDA kernel itself is tested on the card by
 tests/test_torch_cuda.py.
 
 Tolerance ``atol = rtol = 2e-2`` (tests/test_kernels.py's): bf16 outputs
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from tpu_dra.parallel.kernels import paged_attention as jax_paged_attention
+from tpu_dra.parallel.quant import quantize_tensor
 from tpu_dra_torch.parallel.kernels import paged_attention, paged_attention_plain
 
 torch.set_num_threads(2)
@@ -64,6 +66,35 @@ def _torch(case):
             torch.tensor(vp, dtype=bf16), torch.tensor(table), torch.tensor(pos))
 
 
+def _int8_case(case):
+    """The case with its pools quantized by the reference (one scale per
+    position and head), as numpy ``{"q","s"}`` pairs."""
+    q, kp, vp, table, pos = case
+
+    def quantize(pool):
+        leaf = quantize_tensor(jnp.asarray(pool), (3,))
+        return {"q": np.asarray(leaf["q"]), "s": np.asarray(leaf["s"])}
+
+    return q, quantize(kp), quantize(vp), table, pos
+
+
+def _jax8(case):
+    q, kp, vp, table, pos = case
+    return (jnp.asarray(q, jnp.bfloat16), {k: jnp.asarray(a) for k, a in kp.items()},
+            {k: jnp.asarray(a) for k, a in vp.items()}, jnp.asarray(table), jnp.asarray(pos))
+
+
+def _torch8(case):
+    q, kp, vp, table, pos = case
+    return (torch.tensor(q, dtype=torch.bfloat16), {k: torch.tensor(a) for k, a in kp.items()},
+            {k: torch.tensor(a) for k, a in vp.items()}, torch.tensor(table), torch.tensor(pos))
+
+
+def _dequantized(pool):
+    """The bf16 view the reference's kernel reads: bf16(f32(q) * s)."""
+    return (pool["q"].astype(jnp.float32) * pool["s"]).astype(jnp.bfloat16)
+
+
 # Tables mix real blocks, scratch-0 tail columns and partial last blocks;
 # positions cover the first slot, mid-block, a block boundary and the
 # table's last slot.
@@ -85,6 +116,32 @@ class TestPlainVersion:
         got = got.float().numpy()
         np.testing.assert_allclose(got, want_kernel, atol=TOL, rtol=TOL)
         np.testing.assert_allclose(got, want_dense, atol=TOL, rtol=TOL)
+
+    @pytest.mark.parametrize("name", sorted(CASES))
+    def test_int8_matches_reference_kernel_and_dense_oracle(self, name):
+        """int8 pools: the reference kernel reads the same pairs; the
+        dense oracle reads the pools dequantized to bf16."""
+        case = _int8_case(_case(*CASES[name]))
+        q, kp, vp, table, pos = _jax8(case)
+        want_kernel = np.asarray(jax_paged_attention(q, kp, vp, table, pos), np.float32)
+        want_dense = np.asarray(
+            _dense_reference(q, _dequantized(kp), _dequantized(vp), table, pos), np.float32
+        )
+        got = paged_attention_plain(*_torch8(case))
+        assert got.dtype == torch.bfloat16 and tuple(got.shape) == want_kernel.shape
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, want_kernel, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(got, want_dense, atol=TOL, rtol=TOL)
+
+    def test_int8_masked_tail_blocks_do_not_leak(self):
+        """An int8 pool's scratch block and masked tails, values and
+        scales both poisoned, change no output bit."""
+        q, kp, vp, table, pos = _torch8(_int8_case(_case(3, 8, 4, 2, 8, [[1, 2, 0, 0]], [5])))
+        base = paged_attention_plain(q, kp, vp, table, pos)
+        for pool, scale in ((kp, 50.0), (vp, -3.0)):
+            pool["q"][0], pool["s"][0] = 127, scale  # scratch
+            pool["q"][2, 2:], pool["s"][2, 2:] = -127, scale  # the tail of the last live block
+        assert torch.equal(paged_attention_plain(q, kp, vp, table, pos), base)
 
     def test_masked_tail_blocks_do_not_leak(self):
         """Positions past pos[b] — whole scratch columns included — add
@@ -110,12 +167,21 @@ class TestWrapper:
         assert paged_attention.launches == before
 
     def test_int8_pools_rejected(self):
+        """int8 pools are taken in pairs only: an int8 K with a bf16 V (or
+        the other way round), a scale of the wrong shape, or a dict that
+        is not a ``{"q","s"}`` pair is rejected."""
         q, kp, vp, table, pos = _torch(_case(*CASES["mixed"]))
         int8 = {"q": kp.to(torch.int8), "s": torch.ones(kp.shape[:-1] + (1,))}
         with pytest.raises(TypeError, match="int8"):
             paged_attention(q, int8, vp, table, pos)
         with pytest.raises(TypeError, match="int8"):
             paged_attention_plain(q, kp, int8, table, pos)
+        with pytest.raises(ValueError, match=r"v_pool\['s'\]"):
+            paged_attention(q, int8, {"q": int8["q"], "s": int8["s"][..., 0]}, table, pos)
+        with pytest.raises(TypeError, match="pair"):
+            paged_attention(q, {"q": int8["q"]}, int8, table, pos)
+        # A well-formed pair of pairs runs (the plain version, on the CPU).
+        assert paged_attention(q, int8, int8, table, pos).dtype == torch.bfloat16
 
     def test_mixed_devices_rejected(self):
         q, kp, vp, table, pos = _torch(_case(*CASES["mixed"]))

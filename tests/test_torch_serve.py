@@ -2,13 +2,19 @@
 reference's (tpu_dra/parallel/serve.py, paged layout, gather backend) on
 the reference's weights: one stream of more requests than slots, with eos
 and budget finishes, must give identical greedy tokens and finish
-reasons; blocks are conserved; the device and backend rules hold."""
+reasons; blocks are conserved; the device and backend rules hold.  Int8
+serving (int8 weights, an int8 KV pool, or both) must give identical
+tokens, or tokens that first differ where the reference is at a near-tie:
+its top-2 margin within 2 bf16 ulps of the row's largest logit (``2**-6 *
+max|logit|``), recomputed by the reference's own decode_forward."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from test_torch_burnin import CONFIGS, both_params
+from tpu_dra.parallel import decode as jd
 from tpu_dra.parallel.serve import ServeEngine as JaxEngine
 from tpu_dra_torch.parallel.serve import ServeEngine
 
@@ -79,6 +85,47 @@ class TestEngineParity:
                               steps_per_tick=spt, device="cpu")
             out[spt] = _drain(eng, reqs)
         assert out[1] == out[3]
+
+
+# The three int8 combinations of tests/test_quant.py: (int8 weights, int8 KV).
+INT8 = {"weights": (True, False), "kv": (False, True), "both": (True, True)}
+
+
+def _first_difference(got, want):
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+
+
+class TestInt8EngineParity:
+    @pytest.mark.parametrize("name", sorted(CONFIGS))
+    @pytest.mark.parametrize("combo", sorted(INT8))
+    def test_stream_tokens_identical_or_near_tie(self, name, combo):
+        jcfg, tcfg = CONFIGS[name]
+        weights_int8, kv_int8 = INT8[combo]
+        jparams, tparams = both_params(jcfg, quantized=weights_int8)
+        slots, prompt_slots, cap = ENGINES["small"]
+        reqs = _stream(jcfg.vocab, prompt_slots, cap, 2 * slots + 1, seed=9)
+        want = _drain(
+            JaxEngine(jparams, jcfg, slots=slots, prompt_slots=prompt_slots,
+                      max_new_cap=cap, attn_backend="gather", kv_int8=kv_int8),
+            reqs,
+        )
+        eng = ServeEngine(tparams, tcfg, slots=slots, prompt_slots=prompt_slots,
+                          max_new_cap=cap, kv_int8=kv_int8, device="cpu")
+        assert isinstance(eng._pool["k"], dict) == kv_int8
+        got = _drain(eng, reqs)
+        for (prompt, _), (g_toks, g_why), (w_toks, w_why) in zip(reqs, got, want):
+            assert len(g_toks) == len(w_toks) and g_why == w_why == "budget"
+            i = _first_difference(g_toks, w_toks)
+            if i is None:
+                continue
+            seq = jnp.asarray([prompt + w_toks[:i]], jnp.int32)
+            cache = jd.init_cache(jcfg, 1, kv_int8)
+            logits, _ = jd.decode_forward(jparams, seq, cache, 0, jcfg)
+            row = np.asarray(logits[0, -1], np.float32)
+            top2 = np.sort(row)[-2:]
+            assert top2[1] - top2[0] <= 2 ** -6 * np.abs(row).max(), (prompt, i)
+        stats = eng.kv_stats()
+        assert stats["blocks_free"] == stats["blocks_total"] - 1
 
 
 class TestEngineRules:

@@ -31,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.quant import dequantize_bf16
 
 __all__ = [
     "BurninConfig",
@@ -244,8 +245,10 @@ def _layers(params):
 
 
 def _logits(params, x):
+    """Logits f32 of the final norm against the embedding as bf16 (an
+    int8 ``{"q","s"}`` table dequantized here, once a call)."""
     x = _rms_norm(x, params["ln_f"]).to(torch.bfloat16)
-    return (x @ params["embed"].to(torch.bfloat16).T).float()
+    return (x @ dequantize_bf16(params["embed"]).to(torch.bfloat16).T).float()
 
 
 def forward(params, tokens, config: BurninConfig):

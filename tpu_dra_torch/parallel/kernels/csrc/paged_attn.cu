@@ -1,4 +1,4 @@
-// Paged decode attention for Hopper (sm_90a), bf16 block pools.
+// Paged decode attention for Hopper (sm_90a), bf16 or int8 block pools.
 //
 // Replaces: tpu_dra/parallel/kernels/paged_attn.py::paged_attention, the
 // two pl.pallas_call passes _paged_ml_kernel (softmax statistics) and
@@ -7,16 +7,19 @@
 // What it computes: one decode step's attention for B rows.  Row b's
 // single query q[b] (H, K) attends positions j <= pos[b] of the context
 // its block table names: position j lives in physical block
-// table[b, j / W] at offset j % W of the pool (NB, W, H, K).  Rounding is
-// the reference's, point for point:
+// table[b, j / W] at offset j % W of the pool (NB, W, H, K).  A pool is
+// bf16, or int8 values (NB, W, H, K) with one f32 scale per (position,
+// head), (NB, W, H, 1); an int8 element is read as bf16(f32(q) * s), the
+// reference's _block_kv.  Rounding is the reference's, point for point:
 //   score = bf16(dot_f32(q, k)); score = bf16(score / bf16(sqrt(K)));
 //   widened to f32; masked positions contribute exactly zero;
 //   l = max(sum exp(s - m), 1e-30); p = bf16(exp(s - m) / l);
 //   out = bf16(sum_f32(p * v)).
 //
 // What bounds it on an H100: the bytes of K and V of the visible
-// positions, read from device memory (3.35 TB/s).  Each position costs
-// 4*K flops against 4*K bytes, three orders of magnitude below the card's
+// positions, read from device memory (3.35 TB/s): 4*K bytes a position
+// and head in bf16, 2*(K + 4) in int8.  Each position costs 4*K flops
+// against those bytes, three orders of magnitude below the card's
 // flops-per-byte balance, so the tensor cores have nothing to do here.
 //
 // What the design does about it:
@@ -25,21 +28,26 @@
 //   sequential step to the next; Hopper's blocks run in no order, so the
 //   loop over table columns moves inside the block and nothing is
 //   carried across blocks: one launch, no second pass over the grid.
-// - Each K and V row of the head (K bf16 = 2K bytes, contiguous) is read
-//   with 16-byte loads by K/8 neighbouring lanes; the dot product is
-//   reduced with warp shuffles inside that lane group.
+// - Each K and V row of the head (K values, contiguous) is read by K/8
+//   neighbouring lanes, 8 values each; the dot product is reduced with
+//   warp shuffles inside that lane group.
 // - Every byte is read once.  The TPU kernel streams K twice (statistics
 //   pass, then output pass) because nothing survives between its passes;
 //   here the scores of the row's visible positions (4 bytes each) stay in
 //   shared memory between the two passes, so pass 2 reads V only.
 // - The walk stops at pos[b]: table columns past the row's last position
 //   (scratch block 0, masked tails) are never read.
+// - The two pool types differ only in the element load: the kernel is a
+//   template on a loader, Bf16Pool (one 16-byte load of 8 values) or
+//   Int8Pool (one 8-byte load of 8 values and the (position, head)'s
+//   scale, a 4-byte load that the K/8 lanes of a position share).
 // - A simple kernel: no TMA, no cp.async pipelining, no tensor cores.
-//   It runs at about 7x its bound at the engine's shapes.  The blocks of
-//   the longest row set the time; giving each lane 8 positions' loads in
-//   flight was measured and gained nothing.  Splitting a long row's
-//   context across blocks (with the exact two-phase softmax kept) is the
-//   next step; see PERF.md.
+//   At the engine's shapes the bf16 form runs at about 7x its bound and
+//   the int8 form, as fast or a little slower, at about 14x its smaller
+//   bound.  The blocks of the longest row set the time; giving each lane
+//   8 positions' loads in flight was measured and gained nothing.
+//   Splitting a long row's context across blocks (with the exact
+//   two-phase softmax kept) is the next step; see PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +75,28 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// The two pool types.  load(elem, row, out) fills out with the 8 values
+// at element offset elem; row = (block * W + offset) * H + head indexes
+// the position's scale.
+struct Bf16Pool {
+  const __nv_bfloat16* data;
+  __device__ __forceinline__ void load(size_t elem, size_t, float out[kVec]) const {
+    load8(data + elem, out);
+  }
+};
+
+struct Int8Pool {
+  const int8_t* q;
+  const float* s;
+  __device__ __forceinline__ void load(size_t elem, size_t row, float out[kVec]) const {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(q + elem));
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+    const float scale = __ldg(s + row);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) out[i] = round_bf16(static_cast<float>(v[i]) * scale);
+  }
+};
+
 // Block-wide max or sum of one value per thread; every thread gets it.
 template <bool kMax>
 __device__ float block_reduce(float v, float* scratch) {
@@ -87,10 +117,11 @@ __device__ float block_reduce(float v, float* scratch) {
 // Grid: one block per (row, head), blockIdx.x = b * H + h.  Shared
 // memory: span floats of scores, kWarps floats of reduction scratch,
 // groups * K floats for the cross-group output sum.
+template <class Pool>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k_pool,
-                       const __nv_bfloat16* __restrict__ v_pool,
+                       const Pool k_pool,
+                       const Pool v_pool,
                        const int32_t* __restrict__ table,
                        const int32_t* __restrict__ pos,
                        __nv_bfloat16* __restrict__ out,
@@ -126,7 +157,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     if (t < n_vis) {
       const int blk = trow[t / W];
       float kf[kVec];
-      load8(k_pool + blk * blk_stride + (size_t)(t % W) * row_stride + head_off, kf);
+      k_pool.load(blk * blk_stride + (size_t)(t % W) * row_stride + head_off,
+                  ((size_t)blk * W + t % W) * H + h, kf);
 #pragma unroll
       for (int i = 0; i < kVec; ++i) dot = fmaf(qf[i], kf[i], dot);
     }
@@ -153,7 +185,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     const float p = round_bf16(expf(scores[t] - m) / l);
     const int blk = trow[t / W];
     float vf[kVec];
-    load8(v_pool + blk * blk_stride + (size_t)(t % W) * row_stride + head_off, vf);
+    v_pool.load(blk * blk_stride + (size_t)(t % W) * row_stride + head_off,
+                ((size_t)blk * W + t % W) * H + h, vf);
 #pragma unroll
     for (int i = 0; i < kVec; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
   }
@@ -167,35 +200,55 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Shared memory the launch needs, in bytes (the wrapper checks it
-// against the card's limit before launching).
-size_t paged_attention_smem_bytes(int K, int W, int NW) {
+// Shared memory one block needs, in bytes.
+size_t smem_bytes(int K, int W, int NW) {
   const int groups = kThreads / (K / kVec);
   return sizeof(float) * ((size_t)NW * W + kWarps + (size_t)groups * K);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  The
+template <class Pool>
+int launch(const void* q, Pool k_pool, Pool v_pool, const void* table, const void* pos,
+           void* out, int B, int H, int K, int W, int NW, float sqrt_d, void* stream) {
+  const size_t smem = smem_bytes(K, W, NW);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_kernel<Pool>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  paged_attention_kernel<Pool><<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, k_pool, v_pool, (const int32_t*)table,
+      (const int32_t*)pos, (__nv_bfloat16*)out, H, K, W, NW, sqrt_d);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory the launch needs, in bytes, for either pool type (the
+// wrapper checks it against the card's limit before launching).
+size_t paged_attention_smem_bytes(int K, int W, int NW) { return smem_bytes(K, W, NW); }
+
+// Launch on `stream`; return cudaGetLastError() (0 on success).  The
 // wrapper has checked shapes, dtypes, contiguity and alignment: K is a
 // multiple of 8 with K / 8 a power of two <= 32.
 int paged_attention_bf16(const void* q, const void* k_pool, const void* v_pool,
                          const void* table, const void* pos, void* out,
                          int B, int H, int K, int W, int NW, float sqrt_d,
                          void* stream) {
-  const size_t smem = paged_attention_smem_bytes(K, W, NW);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  paged_attention_kernel<<<B * H, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,
-      (const __nv_bfloat16*)v_pool, (const int32_t*)table,
-      (const int32_t*)pos, (__nv_bfloat16*)out, H, K, W, NW, sqrt_d);
-  return (int)cudaGetLastError();
+  return launch(q, Bf16Pool{(const __nv_bfloat16*)k_pool},
+                Bf16Pool{(const __nv_bfloat16*)v_pool}, table, pos, out,
+                B, H, K, W, NW, sqrt_d, stream);
+}
+
+// The int8 pools: values (NB, W, H, K) int8 and scales (NB, W, H, 1) f32.
+int paged_attention_int8(const void* q, const void* k_q, const void* k_s,
+                         const void* v_q, const void* v_s, const void* table,
+                         const void* pos, void* out, int B, int H, int K, int W,
+                         int NW, float sqrt_d, void* stream) {
+  return launch(q, Int8Pool{(const int8_t*)k_q, (const float*)k_s},
+                Int8Pool{(const int8_t*)v_q, (const float*)v_s}, table, pos, out,
+                B, H, K, W, NW, sqrt_d, stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
 """Paged KV pool: block-granular KV with per-request block tables.
 
-Counterpart of `tpu_dra.parallel.paged` for bf16 pools on one device.
-One allocation of ``num_blocks`` fixed-size blocks (``{"k","v"}`` of
-``(L, NB, W, H, d_head)``) is addressed through ``(B, NW)`` int32 block
-tables, so a request holds only the blocks its own context needs.  Block
-0 is scratch: never allocated, permanently referenced; freed table rows
-point at it, so frozen rows' writes land there and unallocated columns
-read masked garbage instead of faulting.  Writes go into the pool IN
-PLACE (``index_put_``) where the reference returned a new pool.
+Counterpart of `tpu_dra.parallel.paged` on one device.  One allocation
+of ``num_blocks`` fixed-size blocks (``{"k","v"}`` of ``(L, NB, W, H,
+d_head)`` bf16, or int8 ``{"q","s"}`` pairs with one f32 scale per token
+and head) is addressed through ``(B, NW)`` int32 block tables, so a
+request holds only the blocks its own context needs.  Block 0 is
+scratch: never allocated, permanently referenced; freed table rows point
+at it, so frozen rows' writes land there and unallocated columns read
+masked garbage instead of faulting.  Writes go into the pool IN PLACE
+(``index_put_``) where the reference returned a new pool.
 
 The attention read has two backends behind the `decode` kv_io seam:
 ``"gather"`` (`_PagedKV`) gathers the table's reach and runs the dense
@@ -23,9 +24,13 @@ from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
     _check_prefix_window,
     _embed_lookup,
+    _kv_writes,
     _run_blocks,
+    _values,
+    _zeros_kv,
 )
 from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.quant import dequantize_bf16, is_quantized_leaf
 
 __all__ = [
     "BlockAllocator",
@@ -36,10 +41,12 @@ __all__ = [
 
 
 def init_block_pool(config: BurninConfig, num_blocks: int, block_size: int,
-                    device: "str | torch.device" = "cuda"):
-    """Zeroed block pool: ``{"k","v"}`` of ``(L, NB, W, H, d_head)`` bf16.
-    Zeros, not uninitialized memory: scratch block 0 is read (masked) by
-    frozen rows, and masked garbage must still be finite."""
+                    kv_int8: bool = False, device: "str | torch.device" = "cuda"):
+    """Zeroed block pool: ``{"k","v"}`` of ``(L, NB, W, H, d_head)`` bf16,
+    or with ``kv_int8`` the pair ``{"q": int8 (L, NB, W, H, d_head), "s":
+    f32 (L, NB, W, H, 1)}`` each (`decode.init_cache`'s storage).  Zeros,
+    not uninitialized memory: scratch block 0 is read (masked) by frozen
+    rows, and masked garbage must still be finite."""
     c = config
     if num_blocks < 2:
         raise ValueError(
@@ -49,10 +56,7 @@ def init_block_pool(config: BurninConfig, num_blocks: int, block_size: int,
         raise ValueError(f"block_size must be >= 1, got {block_size}")
     dev = resolve_device(device)
     shape = (c.n_layers, num_blocks, block_size, c.n_heads, c.d_head)
-    return {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-    }
+    return {name: _zeros_kv(shape, kv_int8, dev) for name in ("k", "v")}
 
 
 class _PagedKV:
@@ -68,20 +72,28 @@ class _PagedKV:
         self.W = block_size
 
     def read(self, cbuf):
-        g = cbuf[self.table.long()]  # (B, NW, W, H, K)
-        return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+        """The table's reach as bf16 (B, NW*W, H, K): an int8 pool's
+        values and scales gathered, then dequantized."""
+        def gather(buf):
+            g = buf[self.table.long()]  # (B, NW, W, H, K')
+            return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+
+        if is_quantized_leaf(cbuf):
+            return dequantize_bf16({"q": gather(cbuf["q"]), "s": gather(cbuf["s"])})
+        return gather(cbuf)
 
     def write(self, cbuf, new, p0):
-        new = new.to(torch.bfloat16)
-        rows = torch.arange(new.shape[0], device=new.device)
-        if torch.is_tensor(p0) and p0.dim() >= 1:
+        """``new`` into the table's blocks, in place; an int8 pool gets it
+        quantized (values and scales) once, here."""
+        per_row = torch.is_tensor(p0) and p0.dim() >= 1
+        if per_row:
             if new.shape[1] != 1:
                 raise ValueError(
                     f"per-row paged writes are single-token (S=1), got S={new.shape[1]}"
                 )
             p0 = p0.long()
+            rows = torch.arange(new.shape[0], device=new.device)
             blk = self.table[rows, p0 // self.W].long()  # (B,)
-            cbuf.index_put_((blk, p0 % self.W), new[:, 0])
         else:
             if new.shape[1] != self.W:
                 raise ValueError(
@@ -91,15 +103,21 @@ class _PagedKV:
             # A scalar p0 is a window start on the W grid: the write fills
             # block column p0 // W of every row.
             blk = self.table[:, p0 // self.W].long()
-            cbuf.index_put_((blk,), new)
+        for buf, upd in _kv_writes(cbuf, new):
+            if per_row:
+                buf.index_put_((blk, p0 % self.W), upd[:, 0])
+            else:
+                buf.index_put_((blk,), upd)
         return cbuf
 
 
 class _PagedKernelKV(_PagedKV):
     """The kernel backend: writes scatter exactly like `_PagedKV`, but
-    there is no read — ``attend`` hands the whole contraction to
-    `kernels.paged_attention` (decode steps only: one query per row at
-    its own position, the mask the dense path would build from ``pos``)."""
+    there is no read — ``attend`` hands the whole contraction, and the
+    layer's pool leaves as they are stored (bf16, or int8 ``{"q","s"}``
+    pairs), to `kernels.paged_attention` (decode steps only: one query
+    per row at its own position, the mask the dense path would build
+    from ``pos``)."""
 
     def __init__(self, table, block_size: int, pos):
         super().__init__(table, block_size)
@@ -129,7 +147,7 @@ def paged_decode_step_rows(params, tok, pool, table, pos, config: BurninConfig,
     plain version on CPU tensors).  ``table``/``pos`` are int32."""
     if backend not in ("gather", "cuda"):
         raise ValueError(f"backend must be 'gather' or 'cuda', got {backend!r}")
-    W = pool["k"].shape[2]
+    W = _pool_block_size(pool)
     x = _embed_lookup(params["embed"], tok)[:, None, :]
     if not config.rope:
         x = x + params["pos"][pos][:, None, :]
@@ -138,6 +156,11 @@ def paged_decode_step_rows(params, tok, pool, table, pos, config: BurninConfig,
     kv_io = _PagedKernelKV(table, W, pos) if backend == "cuda" else _PagedKV(table, W)
     logits, pool = _run_blocks(params, x, pool, pos, mask, config, kv_io=kv_io)
     return logits[:, 0], pool
+
+
+def _pool_block_size(pool) -> int:
+    """Block width W of a pool in either storage format."""
+    return _values(pool["k"]).shape[2]
 
 
 def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int):

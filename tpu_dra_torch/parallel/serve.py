@@ -47,6 +47,7 @@ from tpu_dra_torch.parallel.paged import (
     make_paged_prefill,
     paged_decode_step_rows,
 )
+from tpu_dra_torch.parallel.quant import is_quantized
 from tpu_dra_torch.parallel.weights import cast_matrices
 
 __all__ = ["Request", "ServeEngine"]
@@ -85,10 +86,13 @@ class ServeEngine:
     ceil((prompt_slots + max_new_cap) / W) + 1``).  ``prefix_window``:
     the block size W, which must divide ``prompt_slots`` (default: the
     largest divisor of ``prompt_slots`` up to a quarter of it).
+    ``kv_int8``: the pool stores int8 values with one f32 scale per
+    token and head (each written row quantized once, at insert).
 
     ``device``: where the pool and the computation live (default
-    ``"cuda"``; raises when CUDA is absent).  ``params`` must be on it;
-    the engine serves from a copy whose layer matrices are bf16."""
+    ``"cuda"``; raises when CUDA is absent).  ``params`` must be on it,
+    plain or int8 (`quant.quantize_params`); the engine serves from a
+    copy whose plain layer matrices are bf16, int8 pairs as they are."""
 
     def __init__(
         self,
@@ -103,6 +107,7 @@ class ServeEngine:
         attn_backend: str = "auto",
         kv_blocks: "int | None" = None,
         prefix_window: "int | None" = None,
+        kv_int8: bool = False,
         device: "str | torch.device" = "cuda",
     ):
         c = config
@@ -124,10 +129,9 @@ class ServeEngine:
                 "attn_backend='cuda' runs the CUDA kernel: it needs a CUDA "
                 f"engine, this one is on {dev}"
             )
-        if params["embed"].device.type != dev.type:
-            raise ValueError(
-                f"params are on {params['embed'].device}, the engine on {dev}"
-            )
+        embed = params["embed"]["q"] if is_quantized(params) else params["embed"]
+        if embed.device.type != dev.type:
+            raise ValueError(f"params are on {embed.device}, the engine on {dev}")
         if prefix_window is not None:
             w = prefix_window
         else:
@@ -157,7 +161,7 @@ class ServeEngine:
                 f"kv_blocks must be >= {floor} (one worst-case request + scratch), got {nb}"
             )
         self._balloc = BlockAllocator(nb)
-        self._pool = init_block_pool(c, nb, w, device=dev)
+        self._pool = init_block_pool(c, nb, w, kv_int8, device=dev)
         self._prefill = make_paged_prefill(c, prompt_slots, w)
         self._pick = _make_pick(False)
         # Host row state: the request, its position (== valid tokens in

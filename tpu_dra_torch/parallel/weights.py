@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.quant import is_quantized_leaf
 
 __all__ = ["MATRICES", "cast_matrices", "params_from_numpy", "state_from_numpy"]
 
@@ -26,10 +27,12 @@ MATRICES = ("wqkv", "wo", "w1", "w2")
 
 def cast_matrices(params):
     """``params`` with the layer matrices as bf16 copies (a new tree; the
-    other leaves are shared, bf16 matrices are passed through)."""
+    other leaves are shared; bf16 matrices and int8 ``{"q","s"}`` pairs
+    are passed through)."""
     layers = dict(params["layers"])
     for name in MATRICES:
-        layers[name] = layers[name].to(torch.bfloat16)
+        if not is_quantized_leaf(layers[name]):
+            layers[name] = layers[name].to(torch.bfloat16)
     return {**params, "layers": layers}
 
 
@@ -38,7 +41,9 @@ def params_from_numpy(tree, device: "str | torch.device" = "cuda"):
     same keys and stacked ``(L, ...)`` leaves — ``wqkv (L,d,3,H,K)``,
     ``wo (L,H,K,d)``, ``w1 (L,d,f)``, ``w2 (L,f,d)``, ``ln1``/``ln2
     (L,d)``, ``embed (V,d)``, ``pos (seq,d)``, ``ln_f (d)`` — with the
-    layer matrices as bf16 (`cast_matrices`) and everything else f32."""
+    layer matrices as bf16 (`cast_matrices`) and everything else f32.
+    A quantized tree (the reference's ``quantize_params``) keeps each
+    ``{"q","s"}`` leaf as its int8 values and f32 scales."""
     return cast_matrices(_f32_tree(tree, resolve_device(device)))
 
 
@@ -52,6 +57,9 @@ def _f32_tree(tree, dev):
 
 
 def _f32(a, dev):
+    """One leaf as f32, or a ``{"q","s"}`` pair as int8 and f32."""
+    if is_quantized_leaf(a):
+        return {"q": torch.tensor(a["q"], dtype=torch.int8, device=dev), "s": _f32(a["s"], dev)}
     return torch.tensor(a, dtype=torch.float32, device=dev)
 
 
