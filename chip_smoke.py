@@ -11,16 +11,20 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    checkout, one ``nvcc`` per source, all started together;
 3. kernels: the paged-attention kernel held against its plain PyTorch
    version at the serving engine's shapes and at one odd small shape;
-   masked-tail poisoning must not change the output; the kernel and the
-   plain version timed with CUDA events (median of 100 launches, L2
-   flushed between launches) beside the least time the card could take;
-   then the same for its int8 form, over pools quantized with
-   ``quant.quantize_tensor`` (one scale per position and head), whose
-   scratch block and masked tails are poisoned with q = 127, s = NaN;
+   a second call and masked-tail poisoning must leave the output
+   bitwise unchanged; the kernel and the plain version timed with CUDA
+   events (median of 100 launches, L2 flushed between launches) beside
+   the least time the card could take, and the kernel again with every
+   row at the table's last slot and with every row at position 0 (its
+   fixed cost); then the same checks for its int8 form, over pools
+   quantized with ``quant.quantize_tensor`` (one scale per position and
+   head), whose scratch block and masked tails are poisoned with q = 127,
+   s = NaN;
 4. flash kernel: the flash-attention forward held against its plain
    version at the trainer's shapes ((16, 1024, 32, 128) bf16, causal,
    q/k/v views of one qkv tensor) and against the reference attention,
-   then at odd shapes (non-causal, d 64, f32, a ragged sequence); timed
+   then at odd shapes (non-causal, d 64, f32, a ragged sequence), a
+   second call bitwise equal to the first at each; timed
    beside its bound, its plain version and
    ``scaled_dot_product_attention`` (a yardstick, never on the path),
    with the backward the trainer runs through it timed too; the gradient
@@ -172,8 +176,9 @@ def poison_int8(k_pool, v_pool, table, pos):
 
 
 def check_kernel(case, plain, kernel, label, poison=poison_bf16):
-    """Kernel against the plain version within PAGED_TOL, then the
-    poisoned scratch block and masked tails must leave it bitwise equal."""
+    """Kernel against the plain version within PAGED_TOL; a second call
+    and the poisoned scratch block and masked tails must leave it bitwise
+    equal."""
     import torch
 
     q, k_pool, v_pool, table, pos = case
@@ -185,12 +190,14 @@ def check_kernel(case, plain, kernel, label, poison=poison_bf16):
     err = (got.float() - want).abs().max().item()
     if not torch.allclose(got.float(), want, **PAGED_TOL):
         raise AssertionError(f"{label}: kernel vs plain max abs err {err} (tol {PAGED_TOL})")
+    if not torch.equal(kernel(q, k_pool, v_pool, table, pos), got):
+        raise AssertionError(f"{label}: two calls differ")
     poisoned = kernel(q, *poison(k_pool, v_pool, table, pos), table, pos)
     torch.cuda.synchronize()
     if not torch.equal(poisoned, got):
         raise AssertionError(f"{label}: masked tail or scratch leaked into the output")
-    log(f"kernel {label}: max_abs_err={err} vs plain (tol {PAGED_TOL}); poisoned tail unchanged "
-        "(bitwise)")
+    log(f"kernel {label}: max_abs_err={err} vs plain (tol {PAGED_TOL}); a second call and a "
+        "poisoned tail unchanged (bitwise)")
     return err
 
 
@@ -231,6 +238,15 @@ def phase_kernels(torch, pa):
     full_ms = time_ms(lambda: pa.paged_attention(*full), flush)
     log(f"kernel timing, all 8 rows at position 639: kernel {full_ms:.6f} ms, "
         f"bound {kernel_bound_ms(full)[0]:.6f} ms")
+    # Every row at position 0: the same launch with next to no bytes, so
+    # the kernel's fixed cost (launch, the pos -> table -> pool chain, the
+    # cluster exchanges).
+    empty = make_case(8, 32, 128, 128, 5, 41, [0] * 8, seed=4)
+    empty_ms = time_ms(lambda: pa.paged_attention(*empty), flush)
+    log(f"kernel timing, all 8 rows at position 0: kernel {empty_ms:.6f} ms")
+    clusters, resident = pa.cluster_occupancy(8, 32, 128, 128, 5)
+    log(f"kernel launch at the engine's shapes: {clusters} clusters of 8 blocks; the card holds "
+        f"{resident} at once")
     return {
         "name": "paged_attention",
         "route": "cuda",
@@ -305,7 +321,8 @@ def flash_bound_ms(q, causal):
 
 def check_flash(fa, shape, causal, dtype, block, seed, tol):
     """Kernel against the plain version at ``tol`` (allclose's atol and
-    rtol); returns the max abs error and the inputs."""
+    rtol), and a second call bitwise equal to the first; returns the max
+    abs error and the inputs."""
     import torch
 
     q, k, v = flash_qkv(*shape, dtype, seed)
@@ -318,7 +335,9 @@ def check_flash(fa, shape, causal, dtype, block, seed, tol):
     err = (got.float() - want).abs().max().item()
     if not torch.allclose(got.float(), want, **tol):
         raise AssertionError(f"{label}: kernel vs plain max abs err {err} (tol {tol})")
-    log(f"kernel {label}: max_abs_err={err} vs plain (tol {tol})")
+    if not torch.equal(fa.flash_attention_forward(q, k, v, causal, block, block), got):
+        raise AssertionError(f"{label}: two calls differ")
+    log(f"kernel {label}: max_abs_err={err} vs plain (tol {tol}); a second call equal (bitwise)")
     return err, (q, k, v)
 
 

@@ -31,6 +31,7 @@ from tpu_dra_torch.parallel.kernels import (
     paged_attention,
     paged_attention_plain,
 )
+from tpu_dra_torch.parallel.kernels.paged_attn import cluster_occupancy
 from tpu_dra_torch.parallel.mfu import chip_sized_config
 from tpu_dra_torch.parallel.serve import ServeEngine
 
@@ -108,6 +109,39 @@ def _int8(pool):
     """A pool, one layer's or stacked, as the int8 pair the engine
     stores: one scale per (position, head), over d_head."""
     return quant.quantize_tensor(pool, (pool.dim() - 1,))
+
+
+# Rows the kernel's cluster of 8 blocks splits unevenly or not at all:
+# fewer visible positions than blocks (pos 0, 1 and 7), a row at the
+# table's last slot, a row with nothing visible (pos -1), and head counts
+# that fill a block with 1, 2 or 4 heads.
+EDGE_CASES = {
+    "k64": (5, 4, 64, 4, 3, [0, 1, 7, 11, -1]),
+    "k64_h3": (4, 3, 64, 4, 3, [-1, 1, 7, 11]),
+    "k64_h6": (4, 6, 64, 4, 3, [11, 0, -1, 7]),
+    "k128": (6, 32, 128, 128, 5, [0, 1, 7, 639, -1, 300]),
+}
+
+
+@pytest.mark.cuda
+class TestKernelEdges:
+    @pytest.mark.parametrize("form", ["bf16", "int8"])
+    @pytest.mark.parametrize("name", sorted(EDGE_CASES))
+    def test_matches_plain_repeats_and_zeros_empty_rows(self, name, form, cuda):
+        q, kp, vp, table, pos = _case(cuda, *EDGE_CASES[name])
+        if form == "int8":
+            kp, vp = _int8(kp), _int8(vp)
+        want = paged_attention_plain(q, kp, vp, table, pos).float()
+        got = paged_attention(q, kp, vp, table, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, **PAGED_TOL)
+        assert torch.equal(paged_attention(q, kp, vp, table, pos), got)
+        empty = pos < 0
+        assert empty.any() and torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+    def test_engine_shapes_fit_the_card_in_one_wave(self, cuda):
+        clusters, resident = cluster_occupancy(8, 32, 128, 128, 5)
+        assert 0 < clusters <= resident
 
 
 @pytest.mark.cuda
@@ -216,6 +250,17 @@ FLASH_CASES = {
     "d128_ragged": (1, 200, 2, 128, 8),
 }
 FLASH_TOL = {torch.bfloat16: (2 ** -9, 2 ** -7), torch.float32: (1e-5, 1e-5)}  # (atol, rtol)
+# (b, s, h, d, block): sequences that end inside a 64-row tile (200, 1000)
+# or one past a tile edge (64k + 1), at both head widths; the block sizes
+# are the plain version's tiling (they must divide s).
+FLASH_EDGE_CASES = {
+    "s200_d64": (1, 200, 2, 64, 8),
+    "s200_d128": (1, 200, 2, 128, 8),
+    "s1000_d128": (1, 1000, 2, 128, 8),
+    "s129_d64": (2, 129, 2, 64, 43),
+    "s129_d128": (2, 129, 2, 128, 43),
+    "s65_d128": (1, 65, 3, 128, 13),
+}
 
 
 def _qkv(dev, b, s, h, d, dtype=torch.bfloat16, seed=0):
@@ -242,6 +287,29 @@ class TestFlashKernel:
         assert got.dtype == dtype and got.is_contiguous() and got.shape == q.shape
         atol, rtol = FLASH_TOL[dtype]
         torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+    @pytest.mark.parametrize("layout", ["views", "contiguous"])
+    @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+    @pytest.mark.parametrize("name", sorted(FLASH_EDGE_CASES))
+    def test_bf16_edges_match_plain_and_repeat(self, name, causal, layout, cuda):
+        b, s, h, d, block = FLASH_EDGE_CASES[name]
+        q, k, v = _qkv(cuda, b, s, h, d, seed=7)
+        if layout == "contiguous":
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        want = flash_attention_plain(q, k, v, causal, block, block).float()
+        got = flash_attention_forward(q, k, v, causal, block, block)
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_TOL[torch.bfloat16]
+        torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+        assert torch.equal(flash_attention_forward(q, k, v, causal, block, block), got)
+
+    @pytest.mark.parametrize("d", [64, 128])
+    def test_nan_future_tiles_never_read_at_a_ragged_length(self, d, cuda):
+        q, k, v = _qkv(cuda, 2, 200, 3, d, seed=8)
+        base = flash_attention_forward(q, k, v, True, 8, 8)
+        k, v = k.clone(), v.clone()
+        k[:, 128:], v[:, 128:] = float("nan"), float("nan")
+        assert torch.equal(flash_attention_forward(q, k, v, True, 8, 8)[:, :128], base[:, :128])
 
     def test_contiguous_inputs_match_views(self, cuda):
         q, k, v = _qkv(cuda, 2, 256, 4, 128)

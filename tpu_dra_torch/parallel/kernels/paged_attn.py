@@ -136,6 +136,7 @@ def _signature(n_ptrs: int):
 
 _SIGNATURES = {"paged_attention_bf16": _signature(6), "paged_attention_int8": _signature(8)}
 _SMEM_LIMIT = 227 * 1024  # bytes of shared memory one Hopper block may use
+_MAX_GRID_Y = 65535  # the grid's second dimension: one (row, head) each
 
 
 def _library():
@@ -146,9 +147,22 @@ def _library():
         for name, signature in _SIGNATURES.items():
             getattr(lib, name).argtypes = signature
             getattr(lib, name).restype = ctypes.c_int
-        lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+        lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.paged_attention_clusters.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.paged_attention_clusters.restype = ctypes.c_int
     return lib
+
+
+def cluster_occupancy(B: int, H: int, K: int, W: int, NW: int) -> "tuple[int, int]":
+    """``(clusters, resident)``: how many thread-block clusters the
+    kernel's launch for these dims has, and how many of them the card
+    holds at once (a launch of more runs in waves).  Needs CUDA."""
+    grid = ctypes.c_int(0)
+    resident = _library().paged_attention_clusters(B, H, K, W, NW, ctypes.byref(grid))
+    if resident < 0:
+        raise RuntimeError(f"paged_attention occupancy query failed: CUDA error {-resident}")
+    return grid.value, resident
 
 
 def _launch(q, k_pool, v_pool, table, pos, dims):
@@ -177,12 +191,16 @@ def _launch(q, k_pool, v_pool, table, pos, dims):
             raise ValueError(f"{name} must be {align}-byte aligned for the kernel's loads")
     if K % 8 or (K // 8) & (K // 8 - 1) or K // 8 > 32:
         raise ValueError(f"the kernel takes K in (8, 16, 32, 64, 128, 256), got {K}")
+    if B * H > _MAX_GRID_Y:
+        raise ValueError(
+            f"the kernel takes B * H <= {_MAX_GRID_Y} (one cluster of blocks each), got {B * H}"
+        )
     lib = _library()
-    smem = lib.paged_attention_smem_bytes(K, W, NW)
+    smem = lib.paged_attention_smem_bytes(H, K, W, NW)
     if smem > _SMEM_LIMIT:
         raise ValueError(
-            f"a table reach of {NW * W} positions needs {smem} bytes of "
-            f"shared memory, over the {_SMEM_LIMIT} a block may use"
+            f"a table reach of {NW * W} positions needs {smem} bytes of shared memory "
+            f"in each block of its cluster, over the {_SMEM_LIMIT} a block may use"
         )
     out = torch.empty_like(q)
     fn = lib.paged_attention_int8 if int8 else lib.paged_attention_bf16
