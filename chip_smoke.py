@@ -16,10 +16,11 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    events (median of 100 launches, L2 flushed between launches) beside
    the least time the card could take, and the kernel again with every
    row at the table's last slot and with every row at position 0 (its
-   fixed cost); then the same checks for its int8 form, over pools
-   quantized with ``quant.quantize_tensor`` (one scale per position and
-   head), whose scratch block and masked tails are poisoned with q = 127,
-   s = NaN;
+   fixed cost), and over aliased tables (every row's first 3 blocks the
+   same, as the prefix cache leaves them); then the same checks for its
+   int8 form, over pools quantized with ``quant.quantize_tensor`` (one
+   scale per position and head), whose scratch block and masked tails
+   are poisoned with q = 127, s = NaN;
 4. flash kernel: the flash-attention forward held against its plain
    version at the trainer's shapes ((16, 1024, 32, 128) bf16, causal,
    q/k/v views of one qkv tensor) and against the reference attention,
@@ -40,19 +41,32 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    bitwise and timed on one layer) through the int8 kernel, every launch counted,
    against the int8 gather engine, one int8 decode step's logits through
    both backends, and a profile of 8 int8 decode steps;
-6. train: 6 momentum steps of the flash family at the same width (batch
+6. KV hierarchy, at the same width through the kernel, each path's
+   launches counted (one a layer a step): the prefix cache (16 requests
+   sharing a 384-token prefix, ``prefix_cache_slots=8``; cache on against
+   cache off and against gather, aliases and COW copies made, 384 tokens
+   reused on every hit, refcounts equal owners); the swap tier (a bitwise
+   block round trip through pinned host memory in both pool formats, then
+   4 priority-5 requests preempting 4 priority-0 ones in a 21-block pool;
+   every swapped block restored, tokens against a roomy engine's, the
+   swap traffic in GB/s each way); the handoff (8 requests moved from a
+   prefill engine to a decode engine, alias over one shared pool with no
+   block copied, then dma through a staging host pool; tokens against a
+   mono engine's, blocks conserved across both engines);
+7. train: 6 momentum steps of the flash family at the same width (batch
    16, seq 1024; f32 masters, about 1.75 B parameters) through
    ``burnin.train``: the loss must descend, every flash launch counted;
    then MFU, peak memory, the first loss against the dense path's, the
    kernel's output inside the model's first layer against its plain
    version, and a profile of two steps;
-7. the kernels' JSON line, the card's line, and the result line.
+8. the kernels' JSON line, the card's line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -62,6 +76,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 
 # Paged kernel vs plain, both forms: both read the same bf16 values (an
 # int8 element dequantized to bf16(f32(q) * s) on both sides) and round
@@ -81,6 +96,10 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 # One decode step's rows at the engine's shapes: the first slot, mid-block,
 # a block boundary, the table's last slot.
 ENGINE_POS = [0, 63, 127, 128, 200, 383, 511, 639]
+# The same shapes over aliased tables: every row's first 3 blocks are the
+# same (a 384-token shared prefix), then each row's own; positions past
+# the prefix, from the first private slot to the table's last.
+ALIASED_POS = [384, 400, 447, 500, 511, 512, 600, 639]
 
 
 def log(msg: str) -> None:
@@ -119,9 +138,11 @@ def time_ms(fn, flush, n: int = 100, warmup: int = 10) -> float:
     return statistics.median(times)
 
 
-def make_case(B, H, K, W, NW, NB, pos, seed):
+def make_case(B, H, K, W, NW, NB, pos, seed, shared=0):
     """A random pool and per-row tables: row b owns distinct real blocks
-    for the columns its position reaches, scratch 0 beyond."""
+    for the columns its position reaches, scratch 0 beyond; with
+    ``shared``, every row's first ``shared`` columns name the same blocks
+    (the prefix cache's aliased tables)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -130,11 +151,14 @@ def make_case(B, H, K, W, NW, NB, pos, seed):
     q = torch.randn((B, H, K), generator=g, device="cuda").to(torch.bfloat16)
     perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(seed)) + 1
     table = torch.zeros((B, NW), dtype=torch.int32)
-    used = 0
+    used = shared
     for b, p in enumerate(pos):
         cols = p // W + 1
-        table[b, :cols] = perm[used:used + cols]
-        used += cols
+        if cols <= shared:
+            raise ValueError("each row of an aliased case needs a private block")
+        table[b, :shared] = perm[:shared]
+        table[b, shared:cols] = perm[used:used + cols - shared]
+        used += cols - shared
     if used > NB - 1:
         raise ValueError("case needs more blocks than the pool has")
     return q, k_pool, v_pool, table.cuda(), torch.tensor(pos, dtype=torch.int32, device="cuda")
@@ -203,16 +227,21 @@ def check_kernel(case, plain, kernel, label, poison=poison_bf16):
 
 def kernel_bound_ms(case):
     """The least time for one call: each input byte read once (K and V
-    of the visible positions only: 2 * K bytes a position and head in
-    bf16, K + 4 in int8 with its f32 scale; q, the table, pos), the
-    output written once, at the HBM rate; or the flops at the bf16 peak."""
+    of the visible positions only, a position that several rows' tables
+    name counted once: 2 * K bytes a position and head in bf16, K + 4 in
+    int8 with its f32 scale; q, the table, pos), the output written once,
+    at the HBM rate; or the flops (every row's visible positions) at the
+    bf16 peak."""
     q, k_pool, v_pool, table, pos = case
     B, H, K = q.shape
     int8 = isinstance(k_pool, dict)
     W, NW = (k_pool["q"] if int8 else k_pool).shape[1], table.shape[1]
+    rows = table.tolist()
+    stored = {(rows[b][j // W], j % W) for b, p in enumerate(pos.tolist())
+              for j in range(min(p + 1, NW * W))}
     visible = sum(min(p + 1, NW * W) for p in pos.tolist())
     kv_bytes = K + 4 if int8 else 2 * K
-    nbytes = 2 * visible * H * kv_bytes + 2 * B * H * K * 2 + table.numel() * 4 + B * 4
+    nbytes = 2 * len(stored) * H * kv_bytes + 2 * B * H * K * 2 + table.numel() * 4 + B * 4
     flops = 4 * visible * H * K
     by_bytes = nbytes / H100_BYTES_PER_S * 1e3
     by_ops = flops / H100_BF16_FLOPS * 1e3
@@ -247,6 +276,13 @@ def phase_kernels(torch, pa):
     clusters, resident = pa.cluster_occupancy(8, 32, 128, 128, 5)
     log(f"kernel launch at the engine's shapes: {clusters} clusters of 8 blocks; the card holds "
         f"{resident} at once")
+    aliased = make_case(8, 32, 128, 128, 5, 41, ALIASED_POS, seed=5, shared=3)
+    check_kernel(aliased, pa.paged_attention_plain, pa.paged_attention,
+                 "B8 H32 K128 W128 NW5, 3 shared blocks")
+    aliased_ms = time_ms(lambda: pa.paged_attention(*aliased), flush)
+    log(f"kernel timing over aliased tables (3 shared blocks, positions 384-639): kernel "
+        f"{aliased_ms:.6f} ms, bound {kernel_bound_ms(aliased)[0]:.6f} ms; engine-shape case "
+        f"{kernel_ms:.6f} ms")
     return {
         "name": "paged_attention",
         "route": "cuda",
@@ -280,6 +316,12 @@ def phase_kernels_int8(torch, pa, quant):
     bound_ms, bound_by = kernel_bound_ms(big)
     log(f"int8 kernel timing at the engine's shapes: kernel {kernel_ms:.6f} ms, plain "
         f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+    aliased = int8_case(make_case(8, 32, 128, 128, 5, 41, ALIASED_POS, seed=5, shared=3), quant)
+    check_kernel(aliased, pa.paged_attention_plain, pa.paged_attention,
+                 "int8 B8 H32 K128 W128 NW5, 3 shared blocks", poison_int8)
+    aliased_ms = time_ms(lambda: pa.paged_attention(*aliased), flush)
+    log(f"int8 kernel timing over aliased tables: kernel {aliased_ms:.6f} ms, bound "
+        f"{kernel_bound_ms(aliased)[0]:.6f} ms; engine-shape case {kernel_ms:.6f} ms")
     return {
         "name": "paged_attention_int8",
         "route": "cuda",
@@ -424,29 +466,89 @@ def make_stream(vocab: int):
     return stream
 
 
-def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False):
-    """Drive the stream through one engine tick by tick.  Returns the
-    engine, the finished requests by id, the run's wall seconds and the
-    wall times of ticks that admitted nothing (one decode step each)."""
+@contextlib.contextmanager
+def host_syncs(torch):
+    """Counts the synchronizing CUDA calls made inside the block (a copy
+    to pageable host memory, a stream or device synchronize): PyTorch's
+    sync debug mode warns on each.  After the block, ``[0]`` holds the
+    count and ``[1]`` the lines of Python that made them, with counts."""
+    found = [0, {}]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield found
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchronizing" in str(w.message):
+            where = f"{os.path.basename(w.filename)}:{w.lineno}"
+            found[0] += 1
+            found[1][where] = found[1].get(where, 0) + 1
+
+
+def count_waves(engines):
+    """Counts the admission waves of ``engines`` from here on: the
+    `_admit` calls that admitted a request (each ends in one fetch).  The
+    count is in ``[0]``."""
+    waves = [0]
+    for eng in engines:
+        def admit(_real=eng._admit):
+            n = _real()
+            waves[0] += n > 0
+            return n
+
+        eng._admit = admit
+    return waves
+
+
+def check_host_syncs(syncs, waves: int, engines, label: str, dma: int = 0) -> str:
+    """The engine's host-sync contract: one blocking fetch a decode step
+    and one an admission wave; a preemption and a dma handoff add one
+    each; prefix hits and swap-ins add none.  ``syncs`` is what
+    `host_syncs` found.  Returns the count as text."""
+    count, where = syncs
+    steps = sum(e.device_steps for e in engines)
+    preempted = sum(e.kv_block_stats["preemptions_total"] for e in engines)
+    want = steps + waves + preempted + dma
+    if count != want:
+        raise AssertionError(f"{label}: {count} host syncs ({where}), the contract gives {want} = "
+                             f"{steps} steps + {waves} waves + {preempted} preemptions + {dma} "
+                             "dma handoffs")
+    return (f"{count} host syncs = {steps} steps + {waves} admission waves + {preempted} "
+            f"preemptions + {dma} dma handoffs")
+
+
+def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=False,
+          **engine_kw):
+    """Drive the stream through one engine tick by tick, holding it to
+    the host-sync contract unless it is a ``warm_up`` run (the first
+    serving run of a process makes one more sync, inside torch's own
+    first-use setup).  Returns the engine, the finished requests by id,
+    the run's wall seconds, the wall times of ticks that admitted nothing
+    (one decode step each) and the host-sync count as text."""
     import torch
 
     eng = ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
-                      attn_backend=backend, kv_int8=kv_int8)
+                      attn_backend=backend, kv_int8=kv_int8, **engine_kw)
     ids = [eng.submit(p, b) for p, b in stream]
+    waves = count_waves([eng])
     step_walls = []
     done = {}
     t0 = time.perf_counter()
-    while not eng.idle:
-        queued = eng.queued
-        t = time.perf_counter()
-        done.update((r.id, r) for r in eng.tick())
-        if eng.queued == queued:
-            step_walls.append(time.perf_counter() - t)
+    with host_syncs(torch) as syncs:
+        while eng.pending:
+            queued = eng.queue_depth
+            t = time.perf_counter()
+            done.update((r.id, r) for r in eng.tick())
+            if eng.queue_depth == queued:
+                step_walls.append(time.perf_counter() - t)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if sorted(done) != sorted(ids):
         raise AssertionError(f"{backend}: finished {sorted(done)} of {sorted(ids)}")
-    return eng, done, wall, step_walls
+    synced = "" if warm_up else check_host_syncs(syncs, waves[0], [eng], f"{backend} engine")
+    return eng, done, wall, step_walls, synced
 
 
 def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8, kv_int8=False):
@@ -546,12 +648,12 @@ def serve_main_path(ServeEngine, pa, quant, params, cfg, stream, form, kv_int8=F
     a layer a step.  Returns the finished requests by id, the launches
     and the pool's bytes."""
     # Warm-up (cuBLAS handles, the caching allocator) off the record.
-    serve(ServeEngine, params, cfg, stream[:2], "cuda", kv_int8)[0].close()
+    serve(ServeEngine, params, cfg, stream[:2], "cuda", kv_int8, warm_up=True)[0].close()
 
     pa.paged_attention.launches = 0  # count only the main path's launches
-    eng, done, wall, steps = serve(ServeEngine, params, cfg, stream, "cuda", kv_int8)
+    eng, done, wall, steps, synced = serve(ServeEngine, params, cfg, stream, "cuda", kv_int8)
     launches = pa.paged_attention.launches
-    nb = eng.kv_stats()["blocks_total"]
+    nb = eng.kv_block_stats["blocks_total"]
     if (eng.block_size, nb) != (128, 41):
         raise AssertionError(f"expected W=128 and 41 blocks, got {eng.block_size}, {nb}")
     for r in done.values():
@@ -559,8 +661,8 @@ def serve_main_path(ServeEngine, pa, quant, params, cfg, stream, form, kv_int8=F
             raise AssertionError(f"request {r.id}: {r.finish_reason} after {len(r.tokens)}")
         if not all(0 <= t < cfg.vocab for t in r.tokens):
             raise AssertionError(f"request {r.id}: token out of range")
-    if eng.kv_stats()["blocks_free"] != nb - 1:
-        raise AssertionError(f"blocks not conserved: {eng.kv_stats()}")
+    if eng.kv_block_stats["blocks_free"] != nb - 1:
+        raise AssertionError(f"blocks not conserved: {eng.kv_block_stats}")
     if launches != eng.device_steps * cfg.n_layers:
         raise AssertionError(
             f"kernel launches {launches} != device steps {eng.device_steps} x {cfg.n_layers} layers"
@@ -570,14 +672,14 @@ def serve_main_path(ServeEngine, pa, quant, params, cfg, stream, form, kv_int8=F
     step_ms = statistics.median(steps) * 1e3
     log(f"engine {form} cuda: {len(done)} requests, {n_tok} tokens, {eng.device_steps} steps, "
         f"{launches} kernel launches; {n_tok / wall:.3f} tokens/s, TTFT p50 "
-        f"{ttft * 1e3:.3f} ms, step p50 {step_ms:.3f} ms (ticks without admission)")
+        f"{ttft * 1e3:.3f} ms, step p50 {step_ms:.3f} ms (ticks without admission); {synced}")
     pool_bytes = quant.tree_bytes(eng._pool)
     eng.close()
     return done, launches, pool_bytes
 
 
 def serve_gather(ServeEngine, params, cfg, stream, form, kv_int8=False):
-    g_eng, g_done, g_wall, g_steps = serve(ServeEngine, params, cfg, stream, "gather", kv_int8)
+    g_eng, g_done, g_wall, g_steps, _ = serve(ServeEngine, params, cfg, stream, "gather", kv_int8)
     g_tok = sum(len(r.tokens) for r in g_done.values())
     log(f"engine {form} gather: {g_tok / g_wall:.3f} tokens/s, step p50 "
         f"{statistics.median(g_steps) * 1e3:.3f} ms")
@@ -585,10 +687,11 @@ def serve_gather(ServeEngine, params, cfg, stream, form, kv_int8=False):
     return g_done
 
 
-def check_near_ties(torch, done, g_done, logits_at, form):
-    """Where greedy tokens first differ, the gather path must have been at
-    a near-tie: its top-2 margin within 2 bf16 ulps of the row's largest
-    logit (2**-6 relative), recomputed by ``logits_at(sequence)``."""
+def check_near_ties(torch, done, g_done, logits_at, label):
+    """Where greedy tokens first differ, the second run (``g_done``, by
+    the same ids) must have been at a near-tie: its top-2 margin within 2
+    bf16 ulps of the row's largest logit (2**-6 relative), recomputed by
+    ``logits_at(sequence)``."""
     diverged = 0
     for rid, r in done.items():
         a, b = r.tokens, g_done[rid].tokens
@@ -602,11 +705,25 @@ def check_near_ties(torch, done, g_done, logits_at, form):
         margin = (top2[0] - top2[1]).item()
         tol = 2 ** -6 * row.abs().max().item()
         log(f"request {rid}: tokens differ first at {i} ({a[i]} vs {b[i]}); "
-            f"gather-path margin {margin} (near-tie tolerance {tol})")
+            f"margin {margin} (near-tie tolerance {tol})")
         if margin > tol:
-            raise AssertionError(f"request {rid}: tokens differ at {i} with margin {margin} > {tol}")
-    log(f"engine {form} cuda vs gather: {len(done) - diverged} of {len(done)} requests "
+            raise AssertionError(
+                f"{label}, request {rid}: tokens differ at {i} with margin {margin} > {tol}")
+    log(f"engine {label}: {len(done) - diverged} of {len(done)} requests "
         f"token-identical, {diverged} first differ at a near-tie")
+
+
+def dense_logits_at(cfg_mod, params, cfg):
+    """``logits_at(sequence)``: the dense forward's logits at the last
+    position of a sequence (zero-padded to the context)."""
+    import torch
+
+    def logits_at(seq):
+        toks = torch.zeros((1, cfg.seq), dtype=torch.int32, device="cuda")
+        toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
+        return cfg_mod.forward(params, toks, cfg)[0, len(seq) - 1]
+
+    return logits_at
 
 
 def check_step_logits(torch, paged, params, cfg, pool, form):
@@ -641,12 +758,8 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     g_done = serve_gather(serve_mod.ServeEngine, params, cfg, stream, "bf16")
     profile_decode(torch, serve_mod.ServeEngine, params, cfg)
 
-    def dense_logits_at(seq):
-        toks = torch.zeros((1, cfg.seq), dtype=torch.int32, device="cuda")
-        toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
-        return cfg_mod.forward(params, toks, cfg)[0, len(seq) - 1]
-
-    check_near_ties(torch, done, g_done, dense_logits_at, "bf16")
+    check_near_ties(torch, done, g_done, dense_logits_at(cfg_mod, params, cfg),
+                    "bf16 cuda vs gather")
 
     pool = paged.init_block_pool(cfg, 41, 128, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -732,7 +845,7 @@ def phase_engine_int8(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
         lens = torch.tensor([len(seq)], dtype=torch.int32, device="cuda")
         return prefill(params, toks, lens, pool, table)[0][0]
 
-    check_near_ties(torch, done, g_done, int8_logits_at, "int8")
+    check_near_ties(torch, done, g_done, int8_logits_at, "int8 cuda vs gather")
 
     pool = paged.init_block_pool(cfg, 41, 128, kv_int8=True, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -744,6 +857,309 @@ def phase_engine_int8(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     check_step_logits(torch, paged, params, cfg, pool, "int8")
     del pool
     profile_decode(torch, serve_mod.ServeEngine, params, cfg, kv_int8=True)
+    return launches
+
+
+def prefix_stream(vocab: int):
+    """16 requests sharing one 384-token prefix (3 full blocks), each
+    followed by its own 16-128 random tokens, budgets 16-64; numpy seed 1."""
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    shared = [int(t) for t in rng.randint(0, vocab, 384)]
+    return [
+        (shared + [int(t) for t in rng.randint(0, vocab, rng.randint(16, 129))],
+         int(rng.randint(16, 65)))
+        for _ in range(16)
+    ]
+
+
+def check_blocks_conserved(engines, label: str) -> None:
+    """Every block's refcount equals its owners: the live table cells,
+    the resident prefix entries and the parked alias payloads of
+    ``engines`` (which share one allocator), scratch its own; freed rows
+    point at scratch only; free + allocated + scratch == the pool."""
+    balloc = engines[0]._balloc
+    owners = {0: 1}
+    for eng in engines:
+        if eng._balloc is not balloc:
+            raise AssertionError(f"{label}: engines checked together must share an allocator")
+        for row, req in enumerate(eng._row_req):
+            if req is None and eng._table[row].any():
+                raise AssertionError(f"{label}: freed row {row} still names blocks")
+        cells = [int(b) for b in eng._table.reshape(-1) if b]
+        entries = eng._prefix.export_blocks() if eng._prefix is not None else []
+        cells += [b for e in entries for b in e["blocks"]]
+        cells += [b for st in eng._handoff_state.values() if st["mode"] == "alias"
+                  for b in st["blocks"]]
+        for b in cells:
+            owners[b] = owners.get(b, 0) + 1
+    stats = balloc.stats()
+    if stats["blocks_free"] + stats["blocks_allocated"] + 1 != stats["blocks_total"]:
+        raise AssertionError(f"{label}: blocks not partitioned: {stats}")
+    bad = [(b, balloc.refcount(b), owners.get(b, 0)) for b in range(balloc.num_blocks)
+           if balloc.refcount(b) != owners.get(b, 0)]
+    if bad:
+        raise AssertionError(f"{label}: (block, refcount, owners) disagree: {bad[:8]}")
+
+
+def phase_prefix(torch, serve_mod, pa, params, cfg, logits_at):
+    """The shared-prefix stream with the cache on through the kernel (the
+    path, its launches counted), then with the cache off through the
+    kernel and on through gather: tokens equal up to near-ties, aliases
+    and COW copies made, 384 tokens reused on every hit, refcounts equal
+    owners.  Returns the launches."""
+    stream = prefix_stream(cfg.vocab)
+    pa.paged_attention.launches = 0  # count only this path's launches
+    eng, on, on_wall, _, synced = serve(serve_mod.ServeEngine, params, cfg, stream, "cuda",
+                                        prefix_cache_slots=8)
+    launches = pa.paged_attention.launches
+    kv, pf = eng.kv_block_stats, eng.prefix_stats
+    if kv["blocks_total"] != 81:
+        raise AssertionError(f"prefix: expected the default pool of 81 blocks, got {kv}")
+    if launches != eng.device_steps * cfg.n_layers:
+        raise AssertionError(f"prefix: launches {launches} != {eng.device_steps} steps x layers")
+    if not (kv["alias_blocks_total"] > 0 and kv["cow_blocks_total"] > 0):
+        raise AssertionError(f"prefix: no alias or no COW: {kv}")
+    ordered = [on[i] for i in sorted(on)]
+    reused = [r.prefix_reused for r in ordered]
+    if any(n not in (0, 384) for n in reused) or sum(n == 384 for n in reused[1:]) < 12:
+        raise AssertionError(f"prefix: prefix_reused per request {reused}")
+    check_blocks_conserved([eng], "prefix")
+    log(f"prefix cache on (cuda): {len(on)} requests, {eng.device_steps} steps, {launches} kernel "
+        f"launches; prefill tokens computed {pf['prefill_tokens_computed']}, reused "
+        f"{pf['prefill_tokens_reused']}; hits {pf['hits']}, misses {pf['misses']}, "
+        f"evictions {pf['evictions']}; blocks aliased {kv['alias_blocks_total']}, COW "
+        f"{kv['cow_blocks_total']}, allocated {kv['alloc_blocks_total']}; {synced}")
+    eng.close()
+    off_eng, off, off_wall, _, _ = serve(serve_mod.ServeEngine, params, cfg, stream, "cuda")
+    off_eng.close()
+    g_eng, g_on, _, _, _ = serve(serve_mod.ServeEngine, params, cfg, stream, "gather",
+                                 prefix_cache_slots=8)
+    g_eng.close()
+    for label, runs in (("cache on", (on, on_wall)), ("cache off", (off, off_wall))):
+        done, wall = runs
+        n_tok = sum(len(r.tokens) for r in done.values())
+        ttft = statistics.median(r.ttft_s for r in done.values())
+        log(f"prefix stream, {label} (cuda): {n_tok / wall:.3f} tokens/s, TTFT p50 "
+            f"{ttft * 1e3:.3f} ms (host clocks)")
+    check_near_ties(torch, on, off, logits_at, "prefix cuda, cache on vs off")
+    check_near_ties(torch, on, g_on, logits_at, "prefix cache on, cuda vs gather")
+    return launches
+
+
+def round_trip_check(torch, paged, quant, cfg):
+    """A block copied to pinned host memory and written into another
+    block, as a swap or a dma handoff moves it, comes back bitwise, in
+    both pool formats."""
+    def leaves(tree):
+        return [t for leaf in tree.values()
+                for t in (leaf.values() if isinstance(leaf, dict) else [leaf])]
+
+    for kv_int8 in (False, True):
+        pool = paged.init_block_pool(cfg, 3, 128, kv_int8=kv_int8, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(4)
+        for leaf in pool.values():
+            x = torch.randn((leaf["q"] if kv_int8 else leaf).shape, generator=g, device="cuda")
+            if kv_int8:
+                row = quant.quantize_tensor(x, (4,))
+                leaf["q"].copy_(row["q"])
+                leaf["s"].copy_(row["s"])
+            else:
+                leaf.copy_(x)
+        want = paged.read_block(pool, 1)
+        host = paged._tree_map(
+            lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t), want)
+        paged.write_block(pool, 2, host)
+        torch.cuda.synchronize()
+        got = paged.read_block(pool, 2)
+        if not all(torch.equal(x, y) for x, y in zip(leaves(want), leaves(got))):
+            raise AssertionError(f"round trip ({'int8' if kv_int8 else 'bf16'}) not bitwise")
+    log("read_block -> pinned host -> write_block into another block: bitwise equal, bf16 and int8")
+
+
+def phase_swap(torch, serve_mod, pa, paged, quant, params, cfg, logits_at):
+    """4 priority-0 long requests fill a 21-block pool; after 4 ticks, 4
+    priority-5 requests arrive and preempt through the 40-block host
+    tier.  Tokens equal a roomy engine's at priority 0 up to near-ties;
+    every swapped block comes back.  Returns the launches."""
+    import numpy as np
+
+    round_trip_check(torch, paged, quant, cfg)
+    rng = np.random.RandomState(2)
+    low = [([int(t) for t in rng.randint(0, cfg.vocab, rng.randint(448, 513))], 64)
+           for _ in range(4)]
+    high = [([int(t) for t in rng.randint(0, cfg.vocab, rng.randint(200, 257))], 32)
+            for _ in range(4)]
+    eng = serve_mod.ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
+                                attn_backend="cuda", kv_blocks=21)
+    if eng.kv_block_stats["host_capacity"] != 40:
+        raise AssertionError(f"swap: host tier {eng.kv_block_stats}")
+    # Each direction's block copies timed: device to host on the host
+    # clock (the engine syncs them: pinned allocations included), host to
+    # device by CUDA events around the queued uploads (no sync added).
+    fetched, uploads = [0, 0.0], []
+    fetch, restore = eng._fetch_blocks, eng._restore_blocks
+
+    def timed_fetch(blocks):
+        t = time.perf_counter()
+        out = fetch(blocks)
+        fetched[0] += len(blocks)
+        fetched[1] += time.perf_counter() - t
+        return out
+
+    def timed_restore(blocks, slots, host):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        restore(blocks, slots, host)
+        end.record()
+        uploads.append((len(blocks), start, end))
+
+    eng._fetch_blocks, eng._restore_blocks = timed_fetch, timed_restore
+    waves = count_waves([eng])
+    pa.paged_attention.launches = 0  # count only this path's launches
+    ids = [eng.submit(p, b, priority=0) for p, b in low]
+    with host_syncs(torch) as syncs:
+        for _ in range(4):
+            eng.tick()
+        ids += [eng.submit(p, b, priority=5) for p, b in high]
+        while eng.pending:
+            eng.tick()
+    torch.cuda.synchronize()
+    launches = pa.paged_attention.launches
+    synced = check_host_syncs(syncs, waves[0], [eng], "swap")
+    kv = eng.kv_block_stats
+    if launches != eng.device_steps * cfg.n_layers:
+        raise AssertionError(f"swap: launches {launches} != {eng.device_steps} steps x layers")
+    if kv["preemptions_total"] < 1 or kv["swap_in_blocks_total"] != kv["swap_out_blocks_total"]:
+        raise AssertionError(f"swap: {kv}")
+    if kv["blocks_host"] != 0 or kv["blocks_free"] != kv["blocks_total"] - 1:
+        raise AssertionError(f"swap: blocks left behind: {kv}")
+    done = {i: eng.request(rid) for i, rid in enumerate(ids)}
+    block_bytes = quant.tree_bytes(paged.read_block(eng._pool, 1))
+    dma_s = sum(r.swap_dma_s for r in done.values())
+    blocks = kv["swap_out_blocks_total"] + kv["swap_in_blocks_total"]
+    up_s = sum(start.elapsed_time(end) for _, start, end in uploads) / 1e3
+    up_blocks = sum(n for n, _, _ in uploads)
+    # Device to host again with the pinned buffers the run freed (the
+    # caching host allocator reuses them): the copies without allocation.
+    n_out, out_s = fetched
+    t = time.perf_counter()
+    fetch(list(range(1, n_out + 1)))
+    warm_s = time.perf_counter() - t
+    log(f"swap: {kv['preemptions_total']} preemptions, {kv['swap_out_blocks_total']} blocks out, "
+        f"{kv['swap_in_blocks_total']} in ({block_bytes} bytes a block), {eng.device_steps} "
+        f"steps, {launches} kernel launches; {synced}; swap traffic both ways "
+        f"{blocks * block_bytes / dma_s / 1e9:.3f} GB/s over the requests' swap_dma_s; device "
+        f"to host {n_out * block_bytes / out_s / 1e9:.3f} GB/s in the run (pinned buffers "
+        f"allocated), {n_out * block_bytes / warm_s / 1e9:.3f} GB/s with them reused; host to "
+        f"device {up_blocks * block_bytes / up_s / 1e9:.3f} GB/s")
+    eng.close()
+    roomy = serve_mod.ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
+                                  attn_backend="cuda")
+    rids = [roomy.submit(p, b) for p, b in low + high]
+    roomy.run()
+    want = {i: roomy.request(rid) for i, rid in enumerate(rids)}
+    roomy.close()
+    check_near_ties(torch, done, want, logits_at, "swap: preempted vs roomy engine")
+    return launches
+
+
+def drive_handoff(pre, dec, mode, staging):
+    """Tick the prefill engine, move every row it holds to the decode
+    engine, tick that; blocks conserved after every round, until both
+    drain."""
+    while pre.pending or dec.pending:
+        pre.tick()
+        for row in range(pre.slots):
+            if pre._row_req[row] is not None:
+                dec.handoff_in(pre.handoff_out(row, mode=mode, staging=staging))
+        dec.tick()
+        if mode == "alias":
+            check_blocks_conserved([pre, dec], "handoff alias")
+        else:
+            check_blocks_conserved([pre], "handoff dma, prefill")
+            check_blocks_conserved([dec], "handoff dma, decode")
+
+
+def phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at):
+    """8 requests admitted on a prefill engine (4 slots), moved after the
+    tick that admitted them, finished on a decode engine (8 slots): alias
+    over one shared allocator and pool, then dma through a staging host
+    pool.  Tokens equal a mono engine's up to near-ties, alias copies no
+    block, blocks conserved.  Returns the launches of both runs."""
+    stream = make_stream(cfg.vocab)[:8]
+    mono, mono_done, _, _, _ = serve(serve_mod.ServeEngine, params, cfg, stream, "cuda")
+    mono.close()
+    spec = dict(prompt_slots=512, max_new_cap=64, attn_backend="cuda")
+    launches = 0
+    for mode in ("alias", "dma"):
+        # Alias: the prefill engine's own pool is a floor-sized stand-in
+        # that the decode engine's replaces.
+        pre = serve_mod.ServeEngine(params, cfg, slots=4,
+                                    kv_blocks=6 if mode == "alias" else None, **spec)
+        dec = serve_mod.ServeEngine(params, cfg, slots=8, **spec)
+        staging = None
+        if mode == "alias":  # one allocator and one pool dict for both
+            pre._balloc, pre._pool = dec._balloc, dec._pool
+        else:
+            staging = swap_mod.HostBlockPool(4 * pre._table_cols)
+        copies = []
+        real = {name: getattr(serve_mod, name) for name in ("copy_block", "write_block")}
+        for name, fn in real.items():
+            setattr(serve_mod, name, lambda *a, _fn=fn, _name=name: copies.append(_name) or _fn(*a))
+        waves = count_waves([pre, dec])
+        pa.paged_attention.launches = 0  # count only this path's launches
+        t = time.perf_counter()
+        try:
+            reqs = [pre.request(pre.submit(p, b)) for p, b in stream]
+            with host_syncs(torch) as syncs:
+                drive_handoff(pre, dec, mode, staging)
+        finally:
+            for name, fn in real.items():
+                setattr(serve_mod, name, fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        synced = check_host_syncs(syncs, waves[0], [pre, dec], f"handoff {mode}",
+                                  dma=len(stream) if mode == "dma" else 0)
+        launches += pa.paged_attention.launches
+        steps = pre.device_steps + dec.device_steps
+        if pa.paged_attention.launches != steps * cfg.n_layers:
+            raise AssertionError(f"handoff {mode}: launches != {steps} steps x layers")
+        kv = dec.kv_block_stats
+        if kv[f"handoffs_{mode}_total"] != len(stream) or any(r.handoffs != 1 for r in reqs):
+            raise AssertionError(f"handoff {mode}: {kv}")
+        zero_copy = not copies and kv["alias_blocks_total"] == kv["handoff_in_blocks_total"]
+        if mode == "alias" and not zero_copy:
+            raise AssertionError(f"handoff alias: {len(copies)} block copies, {kv}")
+        if staging is not None and staging.used_count:
+            raise AssertionError(f"handoff dma: {staging.used_count} staging slots left")
+        log(f"handoff {mode}: {len(reqs)} requests, {kv['handoff_in_blocks_total']} blocks moved, "
+            f"{len(copies)} copy_block/write_block calls, {steps} steps, "
+            f"{pa.paged_attention.launches} kernel launches, {wall:.3f} s; {synced}")
+        check_near_ties(torch, dict(enumerate(reqs)), mono_done, logits_at,
+                        f"handoff {mode} vs mono engine")
+        pre.close()
+        dec.close()
+    return launches
+
+
+def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, weights, quant, pa, paged):
+    """The KV hierarchy at the serving width: prefix cache, swap tier,
+    handoff, each timed.  Returns the kernel's launches on their paths."""
+    cfg = cfg_mod.BurninConfig(**SERVE_WIDTH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = weights.cast_matrices(cfg_mod.init_params(cfg, gen, device="cuda"))
+    logits_at = dense_logits_at(cfg_mod, params, cfg)
+    launches = {}
+    for name, run in (
+        ("prefix", lambda: phase_prefix(torch, serve_mod, pa, params, cfg, logits_at)),
+        ("swap", lambda: phase_swap(torch, serve_mod, pa, paged, quant, params, cfg, logits_at)),
+        ("handoff", lambda: phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at)),
+    ):
+        t = time.perf_counter()
+        launches[name] = run()
+        log(f"phase {name}: {time.perf_counter() - t:.3f} s")
     return launches
 
 
@@ -856,7 +1272,9 @@ def main() -> int:
     started = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from tpu_dra_torch.parallel import burnin, flash, mfu, paged, quant, ring, serve, weights
+        from tpu_dra_torch.parallel import (
+            burnin, flash, mfu, paged, quant, ring, serve, swap, weights,
+        )
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
         from tpu_dra_torch.parallel.kernels import paged_attn as pa
@@ -897,6 +1315,9 @@ def main() -> int:
         t = time.perf_counter()
         int8_row["launches"] = phase_engine_int8(torch, burnin, serve, weights, quant, pa, paged)
         log(f"phase int8 engine: {time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+        hierarchy = phase_kv_hierarchy(torch, burnin, serve, swap, weights, quant, pa, paged)
+        log(f"phase KV hierarchy: {time.perf_counter() - t:.3f} s; kernel launches {hierarchy}")
         t = time.perf_counter()
         flash_row["launches"] = phase_train(torch, burnin, mfu, fa, flash)
         log(f"phase train: {time.perf_counter() - t:.3f} s")

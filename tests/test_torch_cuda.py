@@ -8,7 +8,8 @@ the reference package, so it also runs on a GPU host that has no JAX:
 held against its plain PyTorch version, which the CPU tests hold against
 the reference; the engine's kernel path against its gather path, with
 bf16 and with int8 pools and weights; the flash gradient against the
-reference attention's.
+reference attention's; the kernel over tables whose rows share blocks
+(the prefix cache's); the engine with the prefix cache on.
 
 Tolerances: paged kernel vs plain about one bf16 ulp of the value
 (``atol = 2**-9``, ``rtol = 2**-7``): both sides read the same bf16 values
@@ -144,6 +145,47 @@ class TestKernelEdges:
         assert 0 < clusters <= resident
 
 
+# Rows whose tables start with the same blocks and then diverge, as the
+# prefix cache leaves them: (B, H, K, W, NW, shared blocks, positions),
+# every position past the shared blocks.
+ALIASED_CASES = {
+    "k64": (4, 4, 64, 4, 4, 2, [8, 9, 12, 15]),
+    "k128": (8, 32, 128, 128, 5, 3, [384, 400, 447, 500, 511, 512, 600, 639]),
+}
+
+
+def _aliased_case(dev, B, H, K, W, NW, shared, pos, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    nb = shared + sum(p // W + 1 - shared for p in pos) + 1
+    k_pool = torch.randn((nb, W, H, K), generator=g).to(torch.bfloat16)
+    v_pool = torch.randn((nb, W, H, K), generator=g).to(torch.bfloat16)
+    q = torch.randn((B, H, K), generator=g).to(torch.bfloat16)
+    blocks = iter((torch.randperm(nb - 1, generator=g) + 1).tolist())
+    common = [next(blocks) for _ in range(shared)]
+    table = torch.zeros((B, NW), dtype=torch.int32)
+    for b, p in enumerate(pos):
+        table[b, :shared] = torch.tensor(common)
+        for j in range(shared, p // W + 1):
+            table[b, j] = next(blocks)
+    args = (q, k_pool, v_pool, table, torch.tensor(pos, dtype=torch.int32))
+    return tuple(t.to(dev) for t in args)
+
+
+@pytest.mark.cuda
+class TestKernelOverAliasedTables:
+    @pytest.mark.parametrize("form", ["bf16", "int8"])
+    @pytest.mark.parametrize("name", sorted(ALIASED_CASES))
+    def test_matches_plain_and_repeats(self, name, form, cuda):
+        q, kp, vp, table, pos = _aliased_case(cuda, *ALIASED_CASES[name])
+        if form == "int8":
+            kp, vp = _int8(kp), _int8(vp)
+        want = paged_attention_plain(q, kp, vp, table, pos).float()
+        got = paged_attention(q, kp, vp, table, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want, **PAGED_TOL)
+        assert torch.equal(paged_attention(q, kp, vp, table, pos), got)
+
+
 @pytest.mark.cuda
 class TestInt8Kernel:
     @pytest.mark.parametrize("name", sorted(CASES))
@@ -223,7 +265,26 @@ def _engine_launches(params, kv_int8):
     assert paged_attention.launches - before == eng.device_steps * _CFG.n_layers
     assert [len(r.tokens) for r in sorted(done, key=lambda r: r.id)] == [6, 2, 4, 6]
     assert all(r.finish_reason == "budget" for r in done)
-    assert eng.kv_stats()["blocks_free"] == eng.kv_stats()["blocks_total"] - 1
+    assert eng.kv_block_stats["blocks_free"] == eng.kv_block_stats["blocks_total"] - 1
+
+
+def _prefix_engine_launches(params):
+    """A cache-on engine drains a shared-prefix stream through the
+    kernel: one launch a layer a step, aliases and COW copies made, the
+    blocks left are the resident entries'."""
+    eng = ServeEngine(params, _CFG, slots=2, prompt_slots=8, max_new_cap=5,
+                      prefix_cache_slots=4)
+    shared = [5, 9, 2, 7, 11, 3]
+    for t in range(5):
+        eng.submit(shared + [t + 1], 4)
+    before = paged_attention.launches
+    done = eng.run()
+    assert paged_attention.launches - before == eng.device_steps * _CFG.n_layers
+    assert [len(r.tokens) for r in done] == [4] * 5
+    kv = eng.kv_block_stats
+    assert kv["alias_blocks_total"] > 0 and kv["cow_blocks_total"] > 0
+    held = {b for e in eng._prefix.export_blocks() for b in e["blocks"]}
+    assert kv["blocks_allocated"] == len(held)
 
 
 @pytest.mark.cuda
@@ -240,6 +301,9 @@ class TestEngine:
     def test_int8_engine_launches_once_per_layer_and_step(self, cuda):
         params = quant.quantize_params(burnin.init_params(_CFG, device=cuda))
         _engine_launches(params, kv_int8=True)
+
+    def test_prefix_engine_launches_once_per_layer_and_step(self, cuda):
+        _prefix_engine_launches(burnin.init_params(_CFG, device=cuda))
 
 
 # (b, s, h, d, block): both head widths the kernel takes, a sequence that

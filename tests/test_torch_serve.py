@@ -70,7 +70,7 @@ class TestEngineParity:
         reasons = {reason for _, reason in want}
         assert reasons == {"eos", "budget"}
         # Blocks are conserved: everything back on the free list.
-        stats = eng.kv_stats()
+        stats = eng.kv_block_stats
         assert stats["blocks_free"] == stats["blocks_total"] - 1
         assert stats["blocks_allocated"] == 0
         assert not eng._table.any()
@@ -124,7 +124,7 @@ class TestInt8EngineParity:
             row = np.asarray(logits[0, -1], np.float32)
             top2 = np.sort(row)[-2:]
             assert top2[1] - top2[0] <= 2 ** -6 * np.abs(row).max(), (prompt, i)
-        stats = eng.kv_stats()
+        stats = eng.kv_block_stats
         assert stats["blocks_free"] == stats["blocks_total"] - 1
 
 
@@ -156,7 +156,7 @@ class TestEngineRules:
         ref = JaxEngine(both_params(CONFIGS["dense"][0])[0], CONFIGS["dense"][0],
                         slots=3, prompt_slots=8, max_new_cap=6)
         assert eng.block_size == ref._block_size
-        assert eng.kv_stats()["blocks_total"] == ref._balloc.num_blocks
+        assert eng.kv_block_stats["blocks_total"] == ref._balloc.num_blocks
         with pytest.raises(ValueError, match="kv_blocks"):
             ServeEngine(params, cfg, slots=3, prompt_slots=8, max_new_cap=6,
                         kv_blocks=7, device="cpu")
@@ -170,9 +170,9 @@ class TestEngineRules:
         for _ in range(3):
             eng.submit([1, 2, 3, 4, 5, 6, 7, 8], 6)
         eng.tick()
-        assert eng.queued == 2
+        assert eng.queue_depth == 2
         assert sum(r is not None for r in eng._row_req) == 1
-        assert len(eng.run()) == 3 and eng.kv_stats()["blocks_free"] == 7
+        assert len(eng.run()) == 3 and eng.kv_block_stats["blocks_free"] == 7
 
     @pytest.mark.parametrize(
         "prompt,budget,match",

@@ -14,9 +14,18 @@ The attention read has two backends behind the `decode` kv_io seam:
 ``"gather"`` (`_PagedKV`) gathers the table's reach and runs the dense
 masked attention; ``"cuda"`` (`_PagedKernelKV`) hands the contraction to
 `kernels.paged_attention`, which walks the pool block by block.
+
+Whole blocks move through three plain indexing primitives (the
+reference's are single-block ``dynamic_slice`` updates, not kernels):
+`read_block` (a COPY of one block, every layer — the swap-out and dma
+handoff payload), `write_block` (its inverse) and `copy_block` (the COW
+privatization).  The rule they serve: a block with more than one owner
+is never written.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -34,9 +43,12 @@ from tpu_dra_torch.parallel.quant import dequantize_bf16, is_quantized_leaf
 
 __all__ = [
     "BlockAllocator",
+    "copy_block",
     "init_block_pool",
     "make_paged_prefill",
     "paged_decode_step_rows",
+    "read_block",
+    "write_block",
 ]
 
 
@@ -205,14 +217,59 @@ def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int):
     return prefill
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of pool-shaped nested dicts (``{"k",
+    "v"}`` of tensors or of int8 ``{"q","s"}`` pairs), keeping the nesting."""
+    if isinstance(trees[0], dict):
+        return {key: _tree_map(fn, *(t[key] for t in trees)) for key in trees[0]}
+    return fn(*trees)
+
+
+def read_block(pool, src: int):
+    """A COPY of physical block ``src``, every layer, either storage
+    format: leaves keep the blocks axis, ``(L, 1, W, H, K')``, so
+    `write_block` takes the tree back verbatim.  A copy, not a view: the
+    pool is written in place, and a payload parked in the host tier must
+    not change when its block is reallocated and rewritten."""
+    return _tree_map(lambda b: b[:, src:src + 1].clone(), pool)
+
+
+def write_block(pool, dst: int, data):
+    """Write a `read_block`-shaped tree into physical block ``dst``, in
+    place (host payloads upload on the pool's stream); returns the pool.
+    The round trip is bitwise, so a restored row decodes as if it had
+    never left."""
+    _tree_map(lambda b, d: b[:, dst:dst + 1].copy_(d, non_blocking=True), pool, data)
+    return pool
+
+
+def copy_block(pool, dst: int, src: int):
+    """Copy physical block ``src`` into block ``dst`` (every layer, both
+    formats), in place; returns the pool.  The COW primitive: the
+    engine privatizes the partial last prompt block a parked entry
+    shares with its live request, so shared blocks are never written."""
+    _tree_map(lambda b: b[:, dst].copy_(b[:, src]), pool)
+    return pool
+
+
 class BlockAllocator:
     """Host-side free list + per-block refcounts over a block pool (the
-    reference's allocator without its telemetry records).
+    reference's allocator without its block-age metric).
 
     Block 0 is the SCRATCH block: never handed out, permanently
-    referenced.  ``alloc`` hands out blocks at refcount 1; ``ref`` adds
-    an owner; ``unref`` drops one and returns the block to the free list
-    at zero.  The free list is LIFO with low ids first out."""
+    referenced.  ``alloc`` hands out blocks at refcount 1 (the caller's
+    table cell); ``ref`` adds an owner (a prefix entry aliasing the
+    block, or a second table cell); ``unref`` drops one and returns the
+    block to the free list at zero.  The free list is LIFO with low ids
+    first out.
+
+    Every allocated block carries a host record, kept only on the
+    alloc/ref/unref paths (admission and finish, never per token): birth
+    time on the monotonic clock, birth and last-touch step (the caller's
+    device-step counter), and origin (``computed``, ``cow``, ``swapin``,
+    ``handoff``).  The block-granular LRU
+    (`prefixcache.PagedPrefixCache.evict_one`) and the swap victim policy
+    (`swap.AgeHeatPolicy`) rank coldness by them."""
 
     def __init__(self, num_blocks: int):
         if num_blocks < 2:
@@ -223,6 +280,11 @@ class BlockAllocator:
         self._ref = [0] * num_blocks
         self._ref[0] = 1  # scratch: immortal, never in the free list
         self._free = list(range(num_blocks - 1, 0, -1))
+        # Per-block records (row 0 unused), parallel lists written in place.
+        self._birth_mono = [0.0] * num_blocks
+        self._birth_step = [0] * num_blocks
+        self._touch_step = [0] * num_blocks
+        self._origin = [""] * num_blocks
 
     @property
     def free_count(self) -> int:
@@ -230,7 +292,8 @@ class BlockAllocator:
 
     @property
     def allocated_count(self) -> int:
-        """Blocks owned by at least one table cell (scratch excluded)."""
+        """Blocks owned by at least one table cell or entry (scratch
+        excluded)."""
         return self.num_blocks - 1 - len(self._free)
 
     @property
@@ -241,32 +304,49 @@ class BlockAllocator:
     def refcount(self, block: int) -> int:
         return self._ref[block]
 
-    def alloc(self, n: int) -> "list[int] | None":
+    def last_touch_step(self, block: int) -> int:
+        """Device step of the block's last alloc / ref / unref: the heat
+        signal the LRU trim and the swap policy rank by."""
+        return self._touch_step[block]
+
+    def alloc(self, n: int, *, step: int = 0,
+              origin: str = "computed") -> "list[int] | None":
         """``n`` fresh blocks at refcount 1, or None (and no allocation)
-        when fewer than ``n`` are free."""
+        when fewer than ``n`` are free; ``step``/``origin`` stamp the
+        blocks' records."""
         if n < 0:
             raise ValueError(f"cannot allocate {n} blocks")
         if n > len(self._free):
             return None
         out = [self._free.pop() for _ in range(n)]
+        now = time.monotonic()
         for b in out:
+            self._birth_mono[b] = now
+            self._birth_step[b] = step
+            self._touch_step[b] = step
+            self._origin[b] = origin
             self._ref[b] = 1
         return out
 
-    def ref(self, blocks) -> None:
+    def ref(self, blocks, *, step: "int | None" = None) -> None:
         for b in blocks:
             if b == 0 or self._ref[b] <= 0:
                 raise RuntimeError(f"ref of unowned block {b} (scratch or free)")
         for b in blocks:
             self._ref[b] += 1
+            if step is not None:
+                self._touch_step[b] = step
 
-    def unref(self, blocks) -> None:
+    def unref(self, blocks, *, step: "int | None" = None) -> None:
         for b in blocks:
             if b == 0 or self._ref[b] <= 0:
                 raise RuntimeError(f"unref of unowned block {b} (scratch or free)")
             self._ref[b] -= 1
+            if step is not None:
+                self._touch_step[b] = step
             if self._ref[b] == 0:
                 self._free.append(b)
+                self._origin[b] = ""
 
     def free_runs(self) -> "list[int]":
         """Lengths of the contiguous free-block runs, in block-id order
@@ -282,6 +362,25 @@ class BlockAllocator:
         if run:
             runs.append(run)
         return runs
+
+    def block_records(self, current_step: int = 0) -> "list[dict]":
+        """One record per ALLOCATED block (scratch and free excluded):
+        refcount, origin, birth/last-touch step, idle steps at
+        ``current_step``, and age on the monotonic clock."""
+        now = time.monotonic()
+        return [
+            {
+                "block": b,
+                "refcount": self._ref[b],
+                "origin": self._origin[b],
+                "birth_step": self._birth_step[b],
+                "last_touch_step": self._touch_step[b],
+                "idle_steps": max(0, current_step - self._touch_step[b]),
+                "age_s": round(max(0.0, now - self._birth_mono[b]), 6),
+            }
+            for b in range(1, self.num_blocks)
+            if self._ref[b] > 0
+        ]
 
     def stats(self) -> "dict[str, int]":
         return {

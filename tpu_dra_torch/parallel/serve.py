@@ -1,29 +1,57 @@
 """Continuous-batching serving engine over the paged decode step.
 
-Counterpart of the core of `tpu_dra.parallel.serve.ServeEngine`: the
-paged KV layout, greedy decoding, continuous scheduling.  Every batch
-ROW has its own lifecycle —
+Counterpart of `tpu_dra.parallel.serve.ServeEngine` (paged layout): the
+paged KV pool and its memory hierarchy, greedy decoding, continuous
+scheduling.  Every batch ROW has its own lifecycle —
 
-    submit -> queue -> admit into a free row (paged prefill of the
-    prompt into freshly allocated blocks) -> per-row decode steps ->
-    finish (eos / budget) -> row and blocks freed -> next request admitted
+    submit -> queue -> admit into a free row (alias the resident prefix
+    blocks, allocate the rest, prefill the suffix windows into them) ->
+    per-row decode steps -> finish (eos / budget) -> row and blocks
+    freed -> next request admitted
 
 — while the device runs one fixed-batch decode step for all rows.  Rows
 without a request keep stepping with a frozen position (there is no
 ragged batch): their table rows point at scratch block 0, so their
 writes land there and nowhere else.
 
-Admission is FIFO with the block-demand gate: the queue head is admitted
-only when its worst-case block count (prompt plus budget) is free, so a
-full pool delays admission instead of corrupting it.  There is exactly
-ONE blocking device-to-host fetch per decode step and one per admission
-wave (all of a wave's first tokens come back together).  The host state
-the device needs (tokens, positions, the active mask, the block tables)
-goes up through a pinned staging buffer, without a host sync.
+The KV memory hierarchy:
 
-Not ported yet: telemetry and the obs registrations, the prefix cache,
-the host swap tier and preemption, disaggregated handoff, sampling and
-logprobs, priorities, stop sequences, fused ticks and the rows layout.
+- **Shared-prefix cache** (``prefix_cache_slots > 0``): a radix index
+  over admitted prompts (`prefixcache.PagedPrefixCache`) whose entries
+  hold refcounted block lists into THE pool.  A hit aliases the
+  window-aligned prefix blocks into the new table (zero device copies)
+  and prefills only the windows after them; parking a prompt is free
+  (the entry refs the blocks admission just wrote); the partial last
+  prompt block, shared by the entry and its live request, is privatized
+  by an eager copy-on-write (`paged.copy_block`) before the first decode
+  step writes into it.  A block with more than one owner is never
+  written.
+- **Admission**: the head is the highest-priority waiting request
+  (strict FIFO within a priority).  It admits when its worst-case block
+  demand (minus the alias credit) fits the free list, escalating through
+  the block-granular LRU trim of unpinned entries and then — with a host
+  tier — the PREEMPTION of a strictly-lower-priority mid-decode row:
+  its blocks are copied to pinned host memory (`swap.HostBlockPool`),
+  its row and blocks freed, and it swaps back in bitwise once blocks
+  free.  When all three rungs fail the head parks in the queue.
+- **Handoff**: `handoff_out` ships a row's block table to another
+  engine's `handoff_in`, as references (``"alias"``, engines sharing one
+  allocator and pool dict) or as block copies through a staging
+  `HostBlockPool` (``"dma"``); the receiving engine restores the row at
+  its next admission with position and pending token frozen.
+
+There is exactly ONE blocking device-to-host fetch per decode step and
+one per admission wave (all of a wave's first tokens come back
+together).  Prefix hits add none; a preemption and a dma handoff add one
+each (their block copies to host).  The host state the device needs
+(tokens, positions, the active mask, the block tables, the padded
+prompts) goes up through pinned staging buffers, without a host sync.
+
+Not ported yet: telemetry (spans, metrics, the step flight recorder, the
+obs registrations, SLO counters), sampling, logprobs and stop sequences,
+fused ticks, the rows layout, the prefill/decode tiers and
+`DisaggServer`, and warm restart (`export_prefix_index`, `warm_start`,
+`prefix_digest`).
 """
 
 from __future__ import annotations
@@ -43,11 +71,17 @@ from tpu_dra_torch.parallel.decode import (
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.paged import (
     BlockAllocator,
+    _tree_map,
+    copy_block,
     init_block_pool,
     make_paged_prefill,
     paged_decode_step_rows,
+    read_block,
+    write_block,
 )
+from tpu_dra_torch.parallel.prefixcache import PagedPrefixCache
 from tpu_dra_torch.parallel.quant import is_quantized
+from tpu_dra_torch.parallel.swap import AgeHeatPolicy, HostBlockPool
 from tpu_dra_torch.parallel.weights import cast_matrices
 
 __all__ = ["Request", "ServeEngine"]
@@ -60,11 +94,48 @@ class Request:
     id: int
     prompt: "list[int]"
     max_new: int
+    # Admission priority: higher admits first, equal priorities strictly
+    # FIFO; a waiting request may preempt a strictly-lower-priority row.
+    priority: int = 0
     tokens: "list[int]" = field(default_factory=list)  # generated only
     done: bool = False
     finish_reason: str = ""  # "eos" | "budget"
+    # Prefix cache: the submit-time opt-out, and the prompt tokens whose
+    # prefill admission skipped by aliasing resident blocks.
+    use_prefix_cache: bool = True
+    prefix_reused: int = 0
+    # Blocks this request's table held while mid-decode (aliased ones too).
+    kv_blocks: int = 0
+    # Preemption: how often this request was swapped out, by which
+    # request ids, whether it is parked on host now, the blocks copied
+    # each way, the seconds from swap-out start to swap-in completion,
+    # and the block-copy share of them (both directions).
+    preemptions: int = 0
+    preempted_by: "list[int]" = field(default_factory=list)
+    swapped: bool = False
+    swap_out_blocks: int = 0
+    swap_in_blocks: int = 0
+    swapped_s: float = 0.0
+    swap_dma_s: float = 0.0
+    # Handoff: moves between engines, the blocks moved, the mode of the
+    # last move ("alias" | "dma"), and the seconds parked between them.
+    handoffs: int = 0
+    handoff_blocks: int = 0
+    handoff_mode: str = ""
+    handoff_s: float = 0.0
     submitted_at: float = 0.0  # host perf_counter
     ttft_s: float = 0.0  # submit -> first token, queueing included
+    # Timeline on the host perf_counter clock: enqueued (== submitted_at)
+    # <= admitted <= first token <= finished; token_deltas holds the
+    # arrival gap before each token after the first.
+    enqueued_at: float = 0.0
+    admitted_at: float = 0.0
+    first_token_at: float = 0.0
+    finished_at: float = 0.0
+    token_deltas: "list[float]" = field(default_factory=list)
+    _last_token_at: float = field(default=0.0, repr=False)
+    _swapped_at: float = field(default=0.0, repr=False)
+    _handoff_at: float = field(default=0.0, repr=False)
 
 
 class ServeEngine:
@@ -81,13 +152,23 @@ class ServeEngine:
     paged-attention CUDA kernel, ``"gather"`` gathers the table's reach
     for the dense attention, ``"auto"`` (default) picks ``"cuda"`` on a
     CUDA engine and ``"gather"`` on a CPU one.  ``"cuda"`` on a CPU
-    engine raises.  ``kv_blocks``: blocks in the pool, scratch included
-    (default: every slot can hold a worst-case request, ``slots *
-    ceil((prompt_slots + max_new_cap) / W) + 1``).  ``prefix_window``:
-    the block size W, which must divide ``prompt_slots`` (default: the
-    largest divisor of ``prompt_slots`` up to a quarter of it).
-    ``kv_int8``: the pool stores int8 values with one f32 scale per
-    token and head (each written row quantized once, at insert).
+    engine raises.  ``prefix_window``: the block size W, which must
+    divide ``prompt_slots`` (default: the largest divisor of
+    ``prompt_slots`` up to a quarter of it).  ``kv_int8``: the pool
+    stores int8 values with one f32 scale per token and head (each
+    written row quantized once, at insert).
+
+    ``prefix_cache_slots``: resident entries of the shared-prefix cache
+    (0, the default, turns it off).  ``kv_blocks``: blocks in the pool,
+    scratch included (default: every slot can hold a worst-case request,
+    plus, with the cache on, room for the entries' prompt blocks and one
+    COW block a slot — ``slots * ceil((prompt_slots + max_new_cap) / W)
+    + 1 + prefix_cache_slots * prompt_slots / W + slots``); it must hold
+    one worst-case request, its COW block with the cache on, and scratch.
+    ``host_kv_blocks``: slots of the host swap tier (default twice the
+    usable pool, allocated as used; 0 turns preemption off).
+    ``swap_policy``: the victim picker (`swap.VictimPolicy`; default
+    `swap.AgeHeatPolicy`).
 
     ``device``: where the pool and the computation live (default
     ``"cuda"``; raises when CUDA is absent).  ``params`` must be on it,
@@ -106,6 +187,9 @@ class ServeEngine:
         steps_per_tick: int = 1,
         attn_backend: str = "auto",
         kv_blocks: "int | None" = None,
+        host_kv_blocks: "int | None" = None,
+        swap_policy=None,
+        prefix_cache_slots: int = 0,
         prefix_window: "int | None" = None,
         kv_int8: bool = False,
         device: "str | torch.device" = "cuda",
@@ -118,6 +202,10 @@ class ServeEngine:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if steps_per_tick < 1:
             raise ValueError(f"steps_per_tick must be >= 1, got {steps_per_tick}")
+        if prefix_cache_slots < 0:
+            raise ValueError(f"prefix_cache_slots must be >= 0, got {prefix_cache_slots}")
+        if host_kv_blocks is not None and host_kv_blocks < 0:
+            raise ValueError(f"host_kv_blocks must be >= 0, got {host_kv_blocks}")
         if attn_backend not in ("auto", "gather", "cuda"):
             raise ValueError(
                 f"attn_backend must be 'auto', 'gather' or 'cuda', got {attn_backend!r}"
@@ -154,8 +242,14 @@ class ServeEngine:
         # Table width: enough columns for the longest legal request.
         # Shorter requests leave trailing columns at 0 (scratch).
         self._table_cols = -(-(prompt_slots + max_new_cap) // w)
-        nb = kv_blocks if kv_blocks is not None else slots * self._table_cols + 1
-        floor = self._table_cols + 1  # one worst-case request + scratch
+        # With the cache on, room for the entries' prompt blocks and one
+        # COW block a slot (a COW block only exists with a cache).
+        cache_extra = prefix_cache_slots * (prompt_slots // w) + slots if prefix_cache_slots else 0
+        nb = kv_blocks if kv_blocks is not None else slots * self._table_cols + 1 + cache_extra
+        # One worst-case request (its columns, its COW block when a cache
+        # could park it) + scratch: below this some legal submit could
+        # never admit.
+        floor = self._table_cols + 1 + (1 if prefix_cache_slots else 0)
         if nb < floor:
             raise ValueError(
                 f"kv_blocks must be >= {floor} (one worst-case request + scratch), got {nb}"
@@ -164,12 +258,31 @@ class ServeEngine:
         self._pool = init_block_pool(c, nb, w, kv_int8, device=dev)
         self._prefill = make_paged_prefill(c, prompt_slots, w)
         self._pick = _make_pick(False)
+        self._prefix = (
+            PagedPrefixCache(prefix_cache_slots, self._balloc, block_size=w)
+            if prefix_cache_slots else None
+        )
+        self._kv_counts = {"alias_blocks": 0, "cow_blocks": 0, "alloc_blocks": 0}
+        self._prefill_tokens = {"computed": 0, "reused": 0}
+        # The host swap tier, and the state of swapped-out requests:
+        # req.id -> host slots in table-column order, the frozen position
+        # and the pending next token.
+        self._host_pool = HostBlockPool(2 * (nb - 1) if host_kv_blocks is None else host_kv_blocks)
+        self._swap_policy = swap_policy or AgeHeatPolicy()
+        self._swap_state: "dict[int, dict]" = {}
+        self._swap_counts = {"out_blocks": 0, "in_blocks": 0, "preemptions": 0}
+        # Handed-in requests parked until their restoring admission:
+        # req.id -> mode, blocks or staging slots, frozen pos/tok.
+        self._handoff_state: "dict[int, dict]" = {}
+        self._handoff_counts = {"out_blocks": 0, "in_blocks": 0, "alias": 0, "dma": 0}
         # Host row state: the request, its position (== valid tokens in
-        # the row), the token it feeds next, its block table.
+        # the row), the token it feeds next, its block table, and the
+        # prefix entries it pins (the one it read, the one it wrote).
         self._row_req: "list[Request | None]" = [None] * slots
         self._pos = [0] * slots
         self._tok = [0] * slots
         self._table = np.zeros((slots, self._table_cols), np.int32)
+        self._row_pins: "list[list]" = [[] for _ in range(slots)]
         # Pinned host staging (plain memory on a CPU engine), uploaded
         # without a host sync: one buffer for the per-step state — tok,
         # pos, active, then the tables — and one admission row per slot
@@ -185,16 +298,40 @@ class ServeEngine:
         )
         self._queue: "list[Request]" = []
         self._done: "list[Request]" = []
+        self._by_id: "dict[int, Request]" = {}
         self._next_id = 0
         self._closed = False
         self._device_steps = 0
 
     # -- submission ------------------------------------------------------
-    def submit(self, prompt: "list[int]", max_new: "int | None" = None) -> int:
+    def submit(self, prompt: "list[int]", max_new: "int | None" = None, *,
+               use_prefix_cache: bool = True, enqueued_at: "float | None" = None,
+               priority: int = 0) -> int:
         """Queue a request; returns its id.  Admission happens on `tick`.
-        A bad prompt or budget raises here, never mid-tick."""
+        ``use_prefix_cache=False`` opts the request out of the cache (no
+        reuse, no parking).  ``enqueued_at`` backdates the timeline's
+        enqueue point (a ``perf_counter`` stamp, only ever moved earlier).
+        ``priority``: the admission head is the highest-priority waiting
+        request.  A bad request raises here, never mid-tick."""
         self._check_open()
+        budget = self.validate_request(prompt, max_new, priority)
+        now = time.perf_counter()
+        t0 = now if enqueued_at is None else min(float(enqueued_at), now)
+        req = Request(
+            id=self._next_id, prompt=list(prompt), max_new=budget, priority=priority,
+            use_prefix_cache=bool(use_prefix_cache), submitted_at=t0, enqueued_at=t0,
+        )
+        self._next_id += 1
+        self._queue.append(req)
+        self._by_id[req.id] = req
+        return req.id
+
+    def validate_request(self, prompt: "list[int]", max_new: "int | None" = None,
+                         priority: int = 0) -> int:
+        """`submit`'s checks, without submitting; returns the budget."""
         for t in prompt:
+            # A bool would embed as 0/1 and an out-of-range id would index
+            # past the table: both must fail here.
             if isinstance(t, bool) or not isinstance(t, int) or not 0 <= t < self.config.vocab:
                 raise ValueError(
                     f"prompt token ids must be ints in [0, {self.config.vocab}), got {t!r}"
@@ -206,29 +343,340 @@ class ServeEngine:
         budget = self.max_new_cap if max_new is None else max_new
         if not 1 <= budget <= self.max_new_cap:
             raise ValueError(f"max_new must be in [1, {self.max_new_cap}], got {budget}")
+        if (
+            isinstance(priority, bool)
+            or not isinstance(priority, int)
+            or not -(2**31) <= priority < 2**31
+        ):
+            raise ValueError(f"priority must be an int (int32 range), got {priority!r}")
+        return budget
+
+    # -- admission control -----------------------------------------------
+    def _paged_demand(self, req: Request, use: int) -> "tuple[int, int]":
+        """Worst-case fresh blocks to admit ``req`` with a usable resident
+        prefix of ``use`` tokens: ``(need, total_cols)`` — its table
+        columns minus the aliased full windows, plus the COW block when
+        the prompt may park with a partial last block (one too many when
+        the exact prompt is already resident: conservative, never
+        optimistic)."""
+        length = len(req.prompt)
+        w = self.block_size
+        total_cols = -(-(length + req.max_new) // w)
+        cacheable = self._prefix is not None and req.use_prefix_cache
+        cow = 1 if (cacheable and length >= w and length % w) else 0
+        return total_cols - use // w + cow, total_cols
+
+    def _ensure_admittable(self, req: Request) -> bool:
+        """Block-demand admission control for the head, three rungs: it
+        fits the free list; else trim the coldest unpinned prefix
+        entry's tail block (`PagedPrefixCache.evict_one`); else preempt a
+        strictly-lower-priority row to the host tier (`_try_preempt`).
+        False parks the head.  Re-peeks after every rung: a trim can
+        shrink the alias credit the demand counted on."""
+        while True:
+            if req.swapped:
+                # Exact: the blocks it held, no alias credit, no COW.
+                need = len(self._swap_state[req.id]["host_slots"])
+            elif req.id in self._handoff_state:
+                # Alias payloads own their blocks already; a dma payload
+                # needs a block per staged slot.
+                ho = self._handoff_state[req.id]
+                need = 0 if ho["mode"] == "alias" else len(ho["slots"])
+            else:
+                use = (
+                    self._prefix.peek(req.prompt, min_use=self.block_size)
+                    if self._prefix is not None and req.use_prefix_cache
+                    else 0
+                )
+                need, _ = self._paged_demand(req, use)
+            if self._balloc.free_count >= need:
+                return True
+            if self._prefix is not None and self._prefix.evict_one(
+                current_step=self._device_steps
+            ):
+                continue
+            if self._try_preempt(req):
+                continue
+            return False
+
+    def _try_preempt(self, req: Request) -> bool:
+        """Swap one mid-decode row out to make room for ``req``.
+        Candidates: rows whose request has strictly lower priority, has
+        its first token (a row of the current wave is still in flight),
+        and whose blocks fit the host tier's free slots; the victim
+        policy picks among them.  False sends the caller to parking."""
+        if self._host_pool.capacity == 0:
+            return False
+        records = None
+        candidates = []
+        for row, victim in enumerate(self._row_req):
+            if victim is None or victim.priority >= req.priority or not victim.tokens:
+                continue
+            blocks = [int(b) for b in self._table[row] if b]
+            if len(blocks) > self._host_pool.free_count:
+                continue
+            if records is None:
+                records = {
+                    r["block"]: r
+                    for r in self._balloc.block_records(current_step=self._device_steps)
+                }
+            candidates.append(
+                {"row": row, "priority": victim.priority, "blocks": blocks, "records": records}
+            )
+        if not candidates:
+            return False
+        free = {b for b in range(1, self._balloc.num_blocks) if self._balloc.refcount(b) == 0}
+        row = self._swap_policy.pick(candidates, free_blocks=free,
+                                     num_blocks=self._balloc.num_blocks)
+        if row is None or self._row_req[row] is None:
+            return False
+        self._swap_out(row, by=req)
+        return True
+
+    # -- block copies to and from host memory ----------------------------
+    def _fetch_blocks(self, blocks: "list[int]") -> list:
+        """Host copies of ``blocks``, one `read_block` payload each: on a
+        CUDA engine each leaf is copied into pinned memory on the pool's
+        stream, then ONE sync ends them all (the payloads are complete
+        before the caller lets the blocks go); on a CPU engine
+        `read_block`'s copy already is the payload."""
+        if self.device.type != "cuda":
+            return [read_block(self._pool, b) for b in blocks]
+
+        def to_host(t):
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+
+        payloads = [_tree_map(to_host, read_block(self._pool, b)) for b in blocks]
+        torch.cuda.current_stream(self.device).synchronize()
+        return payloads
+
+    def _restore_blocks(self, blocks: "list[int]", slots: "list[int]", host: HostBlockPool):
+        """Write each host slot's payload into its block and free the
+        slot.  The uploads are queued on the pool's stream without a
+        sync; a freed slot's pinned buffer is not reused while its upload
+        still reads it, because the caching host allocator records the
+        copy's stream and holds the buffer until the copy has run."""
+        for b, slot in zip(blocks, slots):
+            write_block(self._pool, b, host.load(slot))
+            host.free(slot)
+
+    # -- swap -------------------------------------------------------------
+    def _swap_out(self, row: int, by: Request) -> None:
+        """Preempt row ``row``: copy its blocks to host slots, drop the
+        table's references, zero the row onto scratch, release its
+        prefix pins, and re-queue the request with its position and
+        pending token frozen (`_swap_in` restores it bitwise)."""
+        req = self._row_req[row]
         now = time.perf_counter()
-        req = Request(id=self._next_id, prompt=list(prompt), max_new=budget, submitted_at=now)
+        blocks = [int(b) for b in self._table[row] if b]
+        host_slots = []
+        for data in self._fetch_blocks(blocks):
+            slot = self._host_pool.store(data)
+            if slot is None:  # _try_preempt checked the headroom
+                raise RuntimeError("host swap accounting violated: pool filled mid-swap")
+            host_slots.append(slot)
+        req.swap_dma_s += time.perf_counter() - now
+        self._balloc.unref(blocks, step=self._device_steps)
+        # Zero onto scratch before the blocks can be reallocated: the
+        # frozen row keeps stepping.
+        self._table[row, :] = 0
+        for entry in self._row_pins[row]:
+            self._prefix.release(entry)
+        self._row_pins[row] = []
+        self._swap_state[req.id] = {
+            "host_slots": host_slots, "pos": self._pos[row], "tok": self._tok[row],
+        }
+        self._row_req[row] = None
+        req.swapped = True
+        req.preemptions += 1
+        req.preempted_by.append(by.id)
+        req.swap_out_blocks += len(blocks)
+        req._swapped_at = now
+        # Head selection orders by (priority, enqueued_at): the victim
+        # resumes ahead of younger requests of its class.
+        self._queue.append(req)
+        self._swap_counts["out_blocks"] += len(blocks)
+        self._swap_counts["preemptions"] += 1
+
+    def _swap_in(self, req: Request, row: int) -> None:
+        """Restore a swapped-out request into free row ``row``: fresh
+        blocks, each host payload written back, the table row rebuilt,
+        position and pending token unfrozen.  The caller cleared the
+        demand."""
+        now = time.perf_counter()
+        state = self._swap_state.pop(req.id)
+        host_slots = state["host_slots"]
+        own = self._balloc.alloc(len(host_slots), step=self._device_steps, origin="swapin")
+        if own is None:
+            raise RuntimeError(
+                "swap-in accounting violated: demand was cleared but the allocator came up short"
+            )
+        self._restore_blocks(own, host_slots, self._host_pool)
+        self._kv_counts["alloc_blocks"] += len(own)
+        self._set_row(row, req, own, state["pos"], state["tok"])
+        restored = time.perf_counter()
+        req.swapped = False
+        req.swapped_s += restored - req._swapped_at
+        req.swap_dma_s += restored - now
+        req.swap_in_blocks += len(own)
+        # The parked stall is counted once, in swapped_s: the next token's
+        # arrival gap starts here.
+        req._last_token_at = restored
+        self._swap_counts["in_blocks"] += len(own)
+
+    def _set_row(self, row: int, req: Request, cols: "list[int]", pos: int, tok: int) -> None:
+        """Seat a restored request in ``row``: its table, its frozen
+        position and pending token, no pins."""
+        self._table[row, :] = 0
+        self._table[row, :len(cols)] = cols
+        self._row_req[row] = req
+        self._row_pins[row] = []
+        self._pos[row] = pos
+        self._tok[row] = tok
+
+    # -- handoff between engines -----------------------------------------
+    def handoff_out(self, row: int, *, mode: str,
+                    staging: "HostBlockPool | None" = None) -> "dict | None":
+        """Ship row ``row``'s KV off this engine as a block-table payload
+        for another engine's `handoff_in`.  ``mode="alias"`` moves the
+        table's block references into the payload (only between engines
+        sharing one allocator and pool dict); ``mode="dma"`` copies each
+        block into ``staging`` and drops the references.  Returns the
+        payload, or None when ``staging`` cannot hold the row (nothing
+        stored, the row stays live).  The request leaves this engine: row
+        freed, pins released, `request` forgets it."""
+        self._check_open()
+        if mode not in ("alias", "dma"):
+            raise ValueError(f"mode must be 'alias' or 'dma', got {mode!r}")
+        if mode == "dma" and staging is None:
+            raise ValueError("mode='dma' requires a staging HostBlockPool")
+        req = self._row_req[row]
+        if req is None:
+            raise ValueError(f"row {row} holds no in-flight request")
+        now = time.perf_counter()
+        blocks = [int(b) for b in self._table[row] if b]
+        payload = {
+            "request": req, "mode": mode, "pos": self._pos[row], "tok": self._tok[row],
+        }
+        if mode == "alias":
+            # The references move with the payload: no unref, no copy.
+            payload["blocks"] = blocks
+        else:
+            if staging.free_count < len(blocks):
+                return None
+            payload["slots"] = [staging.store(data) for data in self._fetch_blocks(blocks)]
+            payload["staging"] = staging
+            self._balloc.unref(blocks, step=self._device_steps)
+        self._table[row, :] = 0
+        for entry in self._row_pins[row]:
+            self._prefix.release(entry)
+        self._row_pins[row] = []
+        self._row_req[row] = None
+        self._by_id.pop(req.id, None)
+        req.handoffs += 1
+        req.handoff_blocks += len(blocks)
+        req._handoff_at = now
+        self._handoff_counts["out_blocks"] += len(blocks)
+        return payload
+
+    def handoff_in(self, payload: dict) -> int:
+        """Accept a `handoff_out` payload: adopt the request under a
+        fresh local id, park its block table (or staged slots) and queue
+        it; the next admission restores it (`_handoff_restore`) under the
+        same block-demand gate as every head.  Returns the local id."""
+        self._check_open()
+        req = payload["request"]
+        mode = payload["mode"]
+        cols = payload["blocks"] if mode == "alias" else payload["slots"]
+        if len(cols) > self._table_cols:
+            raise ValueError(
+                f"handoff payload needs {len(cols)} blocks but this engine's table rows "
+                f"hold {self._table_cols}"
+            )
+        req.id = self._next_id
         self._next_id += 1
+        self._by_id[req.id] = req
+        self._handoff_state[req.id] = {
+            "mode": mode,
+            "blocks": payload.get("blocks", []),
+            "slots": payload.get("slots", []),
+            "staging": payload.get("staging"),
+            "pos": payload["pos"],
+            "tok": payload["tok"],
+        }
         self._queue.append(req)
         return req.id
 
+    def _handoff_restore(self, req: Request, row: int) -> None:
+        """Rebuild a handed-in request in free row ``row``: alias mode
+        adopts the payload's references into the table (no device
+        touch); dma mode writes each staged payload into fresh blocks.
+        The caller cleared the demand."""
+        state = self._handoff_state.pop(req.id)
+        mode = state["mode"]
+        if mode == "alias":
+            cols = list(state["blocks"])
+            self._kv_counts["alias_blocks"] += len(cols)
+        else:
+            cols = self._balloc.alloc(len(state["slots"]), step=self._device_steps,
+                                      origin="handoff")
+            if cols is None:
+                raise RuntimeError(
+                    "handoff accounting violated: demand was cleared but the allocator "
+                    "came up short"
+                )
+            self._restore_blocks(cols, state["slots"], state["staging"])
+            self._kv_counts["alloc_blocks"] += len(cols)
+        self._set_row(row, req, cols, state["pos"], state["tok"])
+        restored = time.perf_counter()
+        req.handoff_s += restored - req._handoff_at
+        req.handoff_mode = mode
+        req._last_token_at = restored
+        self._handoff_counts[mode] += 1
+        self._handoff_counts["in_blocks"] += len(cols)
+
     # -- the engine loop -------------------------------------------------
     def _admit_paged(self, req: Request, row: int):
-        """One paged admission: allocate the request's blocks, write its
-        table row, prefill the prompt into them.  Returns the logits at
-        the prompt's last position (1, vocab), left on the device."""
+        """One paged admission: match -> alias the window-aligned prefix
+        blocks -> allocate the rest -> prefill the windows from the first
+        unaliased one -> park the prompt as an entry -> COW the shared
+        partial last block.  Returns ``(last, pins)``: the logits at the
+        prompt's last position (1, vocab), left on the device, and the
+        entries the row pins.  The caller cleared the demand."""
         w = self.block_size
         length = len(req.prompt)
+        cacheable = self._prefix is not None and req.use_prefix_cache
+        entry, m, m_raw = (
+            self._prefix.match(req.prompt, min_use=w) if cacheable else (None, 0, 0)
+        )
+        pins = []
         total_cols = -(-(length + req.max_new) // w)
-        cols = self._balloc.alloc(total_cols)
-        if cols is None:  # the admission gate holds this invariant
+        fw = 0
+        cols: "list[int]" = []
+        if entry is not None:
+            self._prefix.acquire(entry)
+            pins.append(entry)
+            # Alias only whole windows: the first computed window starts
+            # on the grid, so reused == positions whose compute was skipped.
+            fw = m // w
+            cols = list(entry.blocks[:fw])
+            self._balloc.ref(cols, step=self._device_steps)
+            self._kv_counts["alias_blocks"] += fw
+            req.prefix_reused = fw * w
+        self._prefill_tokens["reused"] += fw * w
+        self._prefill_tokens["computed"] += length - fw * w
+        own = self._balloc.alloc(total_cols - fw, step=self._device_steps)
+        if own is None:  # _ensure_admittable holds this invariant
             raise RuntimeError(
                 "paged admission accounting violated: demand was cleared "
                 "but the allocator came up short"
             )
+        cols += own
+        self._kv_counts["alloc_blocks"] += len(own)
         self._table[row, :] = 0
         self._table[row, :total_cols] = cols
-        # One upload: the padded prompt, the table row, the length.
+        # One upload: the padded prompt, the table row, the length.  The
+        # windows before fw are aliased and never written.
         P = self.prompt_slots
         stage = self._prompt_stage[row].numpy()
         stage[:] = 0
@@ -238,54 +686,108 @@ class ServeEngine:
         staged = self._prompt_stage[row].to(self.device, non_blocking=True)
         last, self._pool = self._prefill(
             self.params, staged[None, :P], staged[-1:], self._pool,
-            staged[None, P:P + self._table_cols],
+            staged[None, P:P + self._table_cols], first_window=fw,
         )
-        return last
+        if cacheable and length >= w and (m_raw < length or entry is None or entry.length < length):
+            # Park the prompt's blocks, unless the exact prompt is already
+            # resident at full length or is shorter than a window; a
+            # trimmed entry of this very prompt re-extends here.
+            prompt_cols = -(-length // w)
+            new_entry = self._prefix.insert(req.prompt, cols[:prompt_cols])
+            if new_entry is not None:
+                pins.append(new_entry)
+                if length % w:
+                    # COW: the partial last prompt block is now shared and
+                    # the first decode token will write into it: the table
+                    # gets a private copy, the entry keeps the original.
+                    lb = prompt_cols - 1
+                    nb = self._balloc.alloc(1, step=self._device_steps, origin="cow")
+                    if nb is None:
+                        raise RuntimeError(
+                            "paged admission accounting violated: no block left for the COW copy"
+                        )
+                    copy_block(self._pool, nb[0], cols[lb])
+                    self._balloc.unref([cols[lb]], step=self._device_steps)
+                    self._table[row, lb] = nb[0]
+                    self._kv_counts["cow_blocks"] += 1
+        req.kv_blocks = total_cols
+        return last, pins
+
+    def _head_index(self) -> int:
+        """The admission head's queue index: highest priority first,
+        earliest enqueue among equals (a swapped-out victim keeps its
+        original stamp, so it resumes ahead of younger equals)."""
+        best = 0
+        for i in range(1, len(self._queue)):
+            r, b = self._queue[i], self._queue[best]
+            if (r.priority, -r.enqueued_at) > (b.priority, -b.enqueued_at):
+                best = i
+        return best
 
     def _admit(self) -> int:
-        """Fill free rows from the FIFO queue; returns how many were
-        admitted.  The head is admitted only when its worst-case block
-        demand fits the free list; otherwise admission stops for this
-        wave.  The wave's first tokens come back in ONE fetch."""
-        wave: "list[tuple[int, Request, torch.Tensor]]" = []
+        """Fill free rows from the queue, head first, while the head's
+        block demand clears `_ensure_admittable`; returns how many
+        requests were admitted.  A swapped-out or handed-in head is
+        restored instead and joins no wave (its next token is frozen on
+        the host).  The wave's first tokens come back in ONE fetch."""
+        wave: "list[tuple[int, torch.Tensor]]" = []
         while self._queue and any(r is None for r in self._row_req):
-            head = self._queue[0]
-            need = -(-(len(head.prompt) + head.max_new) // self.block_size)
-            if self._balloc.free_count < need:
+            head = self._head_index()
+            if not self._ensure_admittable(self._queue[head]):
                 break
+            # Scan for the row after admission control: a preemption may
+            # have freed a lower-numbered one.
             row = self._row_req.index(None)
-            req = self._queue.pop(0)
-            last = self._admit_paged(req, row)
+            req = self._queue.pop(head)
+            if req.swapped:
+                self._swap_in(req, row)
+                continue
+            if req.id in self._handoff_state:
+                self._handoff_restore(req, row)
+                continue
+            req.admitted_at = time.perf_counter()
+            last, pins = self._admit_paged(req, row)
             self._row_req[row] = req
             self._pos[row] = len(req.prompt)
-            wave.append((row, req, last[0]))
+            self._row_pins[row] = pins
+            wave.append((row, last[0]))
         if wave:
-            toks = self._pick(torch.stack([last for _, _, last in wave])).tolist()
-            for (row, _, _), tok in zip(wave, toks):
+            toks = self._pick(torch.stack([last for _, last in wave])).tolist()
+            for (row, _), tok in zip(wave, toks):
                 self._tok[row] = tok
                 self._note_token(row, tok)
         return len(wave)
 
     def _note_token(self, row: int, token: int) -> None:
         req = self._row_req[row]
+        now = time.perf_counter()
         req.tokens.append(token)
         if len(req.tokens) == 1:
-            req.ttft_s = time.perf_counter() - req.submitted_at
+            req.first_token_at = now
+            req.ttft_s = now - req.submitted_at
+        else:
+            req.token_deltas.append(now - req._last_token_at)
+        req._last_token_at = now
         if self.eos_token is not None and token == self.eos_token:
             req.done, req.finish_reason = True, "eos"
         elif len(req.tokens) >= req.max_new:
             req.done, req.finish_reason = True, "budget"
         if req.done:
-            self._finish(row, req)
+            self._finish(row, req, now)
 
-    def _finish(self, row: int, req: Request) -> None:
+    def _finish(self, row: int, req: Request, now: float) -> None:
         """Release a finished request's row: drop its table's block
         references and point the row at scratch, so its frozen writes can
-        never reach a block a later admission reallocates."""
+        never reach a block a later admission reallocates (blocks a
+        resident entry holds stay allocated); release its pins."""
+        req.finished_at = now
         self._done.append(req)
         self._row_req[row] = None
-        self._balloc.unref([int(b) for b in self._table[row] if b])
+        self._balloc.unref([int(b) for b in self._table[row] if b], step=self._device_steps)
         self._table[row, :] = 0
+        for entry in self._row_pins[row]:
+            self._prefix.release(entry)
+        self._row_pins[row] = []
 
     def _step_once(self) -> None:
         """One decode step for every row, its single blocking fetch, and
@@ -337,35 +839,99 @@ class ServeEngine:
         """Tick until queue and rows are empty; returns all completed
         requests in completion order.  ``until_idle`` bounds the loop."""
         for _ in range(until_idle):
-            if self.idle:
+            if not self.pending:
                 break
             self.tick()
         else:
             raise RuntimeError("engine did not drain within the tick bound")
         return self._done
 
-    @property
-    def idle(self) -> bool:
-        """True when no request is queued or mid-decode."""
-        return not self._queue and all(r is None for r in self._row_req)
+    # -- introspection ---------------------------------------------------
+    def request(self, rid: int) -> "Request | None":
+        """The Request of a submitted id (queued, mid-decode or finished);
+        None for unknown ids and for requests handed off elsewhere."""
+        return self._by_id.get(rid)
 
     @property
-    def queued(self) -> int:
-        """Requests waiting for admission."""
+    def prefix_epoch(self) -> int:
+        """The prefix cache's residency epoch (bumped on every insert,
+        trim or eviction; 0 forever without a cache)."""
+        return self._prefix.epoch if self._prefix is not None else 0
+
+    def peek_prefix(self, prompt: "list[int]") -> int:
+        """Usable resident-prefix length for ``prompt`` now (0 on a miss
+        or without a cache), moving no counter or recency."""
+        if self._prefix is None:
+            return 0
+        return self._prefix.peek(prompt, min_use=self.block_size)
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for a row (swapped-out and handed-in ones too)."""
         return len(self._queue)
+
+    @property
+    def occupancy(self) -> int:
+        """Rows currently mid-decode."""
+        return sum(r is not None for r in self._row_req)
+
+    @property
+    def pending(self) -> int:
+        """Requests queued or mid-decode."""
+        return len(self._queue) + self.occupancy
+
+    @property
+    def kv_layout(self) -> str:
+        """The KV storage layout: always ``"paged"`` (the rows layout is
+        not ported)."""
+        return "paged"
 
     @property
     def device_steps(self) -> int:
         """Decode steps run so far (each steps every row)."""
         return self._device_steps
 
-    def kv_stats(self) -> "dict[str, int]":
-        """The block allocator's counts (`BlockAllocator.stats`)."""
-        return self._balloc.stats()
+    @property
+    def kv_block_stats(self) -> "dict[str, int]":
+        """The allocator's live counts (blocks_total/free/allocated/
+        aliased), the cumulative admission counters (blocks aliased,
+        COW-copied, freshly allocated), the host tier (blocks parked now,
+        capacity, swap traffic, preemptions) and the handoff traffic."""
+        stats = self._balloc.stats()
+        stats["alias_blocks_total"] = self._kv_counts["alias_blocks"]
+        stats["cow_blocks_total"] = self._kv_counts["cow_blocks"]
+        stats["alloc_blocks_total"] = self._kv_counts["alloc_blocks"]
+        stats["blocks_host"] = self._host_pool.used_count
+        stats["host_capacity"] = self._host_pool.capacity
+        stats["swap_out_blocks_total"] = self._swap_counts["out_blocks"]
+        stats["swap_in_blocks_total"] = self._swap_counts["in_blocks"]
+        stats["preemptions_total"] = self._swap_counts["preemptions"]
+        stats["handoff_out_blocks_total"] = self._handoff_counts["out_blocks"]
+        stats["handoff_in_blocks_total"] = self._handoff_counts["in_blocks"]
+        stats["handoffs_alias_total"] = self._handoff_counts["alias"]
+        stats["handoffs_dma_total"] = self._handoff_counts["dma"]
+        return stats
+
+    @property
+    def prefix_stats(self) -> "dict[str, int]":
+        """The prefix cache's counters (hits, misses, evictions,
+        resident, pool_slots, epoch, trimmed_blocks; zeros without a
+        cache) and the admission prefill split: tokens computed, and
+        tokens reused (aliased instead of prefilled)."""
+        stats = (
+            self._prefix.stats()
+            if self._prefix is not None
+            else {"hits": 0, "misses": 0, "evictions": 0, "resident": 0, "pool_slots": 0,
+                  "epoch": 0}
+        )
+        stats["prefill_tokens_computed"] = self._prefill_tokens["computed"]
+        stats["prefill_tokens_reused"] = self._prefill_tokens["reused"]
+        return stats
 
     def close(self) -> None:
-        """Mark the engine closed and drop its pool; later `submit` and
-        `tick` raise.  Idempotent; finished requests stay readable."""
+        """Mark the engine closed and drop its reference to the pool (an
+        engine sharing the pool keeps its own); later `submit` and `tick`
+        raise.  Idempotent; finished requests stay readable."""
         self._closed = True
         self._pool = None
 
