@@ -52,7 +52,17 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    swap traffic in GB/s each way); the handoff (8 requests moved from a
    prefill engine to a decode engine, alias over one shared pool with no
    block copied, then dma through a staging host pool; tokens against a
-   mono engine's, blocks conserved across both engines);
+   mono engine's, blocks conserved across both engines); the disaggregated
+   server (the main stream through ``DisaggServer``'s prefill and decode
+   tiers, alias over one shared 41-block pool, then dma through the default
+   staging pool: K1 launched by the decode tier only, none by the prefill
+   tier, no block copied under alias, blocks conserved every tick, host
+   syncs as the contract gives them, one weight storage for both tiers,
+   tokens against a mono engine's); warm restart (the shared-prefix stream
+   through a cold engine, its index exported, a fresh engine warm-started
+   from it: 384 tokens reused on every request from the first admission,
+   tokens against the cold engine's, the digest claiming 384 tokens of
+   every prompt);
 7. train: 6 momentum steps of the flash family at the same width (batch
    16, seq 1024; f32 masters, about 1.75 B parameters) through
    ``burnin.train``: the loss must descend, every flash launch counted;
@@ -68,6 +78,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -520,17 +531,20 @@ def check_host_syncs(syncs, waves: int, engines, label: str, dma: int = 0) -> st
 
 
 def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=False,
-          **engine_kw):
+          before=None, **engine_kw):
     """Drive the stream through one engine tick by tick, holding it to
     the host-sync contract unless it is a ``warm_up`` run (the first
     serving run of a process makes one more sync, inside torch's own
-    first-use setup).  Returns the engine, the finished requests by id,
-    the run's wall seconds, the wall times of ticks that admitted nothing
+    first-use setup).  ``before(engine)`` runs ahead of the submissions
+    (a warm start).  Returns the engine, the finished requests by id, the
+    run's wall seconds, the wall times of ticks that admitted nothing
     (one decode step each) and the host-sync count as text."""
     import torch
 
     eng = ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
                       attn_backend=backend, kv_int8=kv_int8, **engine_kw)
+    if before is not None:
+        before(eng)
     ids = [eng.submit(p, b) for p, b in stream]
     waves = count_waves([eng])
     step_walls = []
@@ -1144,9 +1158,200 @@ def phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at):
     return launches
 
 
-def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, weights, quant, pa, paged):
-    """The KV hierarchy at the serving width: prefix cache, swap tier,
-    handoff, each timed.  Returns the kernel's launches on their paths."""
+def timed_steps(eng):
+    """Wraps ``eng``'s decode step to record each one's host wall time
+    (the step ends in its blocking fetch).  Returns the list it fills."""
+    walls = []
+
+    def step(_real=eng._step_once):
+        t = time.perf_counter()
+        _real()
+        walls.append(time.perf_counter() - t)
+
+    eng._step_once = step
+    return walls
+
+
+def serving_line(done, wall, step_walls) -> str:
+    n_tok = sum(len(r.tokens) for r in done.values())
+    ttft = statistics.median(r.ttft_s for r in done.values())
+    return (f"{n_tok / wall:.3f} tokens/s, TTFT p50 {ttft * 1e3:.3f} ms, decode step p50 "
+            f"{statistics.median(step_walls) * 1e3:.3f} ms (host clocks)")
+
+
+def phase_disagg(torch, disagg_mod, serve_mod, pa, params, cfg, logits_at):
+    """The main 16-request stream through `DisaggServer`: both tiers 8
+    slots (prompt_slots 512, max_new_cap 64, block 128) through the
+    kernel, the decode tier 41 blocks; first with alias handoff, then dma
+    through the default staging pool (one worst-case row).  Tokens equal
+    the mono engine's up to near-ties; K1 launched by the decode tier
+    only (steps x layers), none by the prefill tier, which makes no
+    decode step; no block copied or written under alias; blocks
+    conserved after every tick; host syncs as the contract gives them
+    (one a prefill-tier wave, one a decode step, one a dma handoff, none
+    an alias one); one weight storage for both tiers.  Returns the
+    launches of each mode."""
+    stream = make_stream(cfg.vocab)
+    mono = serve_mod.ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
+                                 attn_backend="cuda")
+    mono_steps = timed_steps(mono)
+    ids = [mono.submit(p, b) for p, b in stream]
+    t = time.perf_counter()
+    mono.run()
+    torch.cuda.synchronize()
+    mono_wall = time.perf_counter() - t
+    mono_done = {i: mono.request(rid) for i, rid in enumerate(ids)}
+    log(f"disagg baseline, mono engine: {serving_line(mono_done, mono_wall, mono_steps)}")
+    mono.close()
+    spec = dict(slots=8, prompt_slots=512, max_new_cap=64, attn_backend="cuda")
+    launches = {}
+    for mode in ("alias", "dma"):
+        srv = disagg_mod.DisaggServer(params, cfg, prefill=dict(spec),
+                                      decode=dict(spec, kv_blocks=41), handoff=mode)
+        pre, dec = srv.tiers["prefill"], srv.tiers["decode"]
+        ptrs = {params["layers"]["wqkv"].data_ptr(), pre.params["layers"]["wqkv"].data_ptr(),
+                dec.params["layers"]["wqkv"].data_ptr()}
+        if len(ptrs) != 1:
+            raise AssertionError(f"disagg {mode}: the tiers do not share one wqkv storage")
+        if (pre.block_size, dec.kv_block_stats["blocks_total"]) != (128, 41):
+            raise AssertionError(f"disagg {mode}: block {pre.block_size}, {dec.kv_block_stats}")
+        if mode == "alias" and not (pre._pool is dec._pool and pre._balloc is dec._balloc):
+            raise AssertionError("disagg alias: the tiers do not share one pool")
+        copies = []
+        real = {name: getattr(serve_mod, name) for name in ("copy_block", "write_block")}
+        for name, fn in real.items():
+            setattr(serve_mod, name, lambda *a, _fn=fn, _name=name: copies.append(_name) or _fn(*a))
+        prefill_launches = [0]
+
+        def prefill_tick(_real=pre.tick):
+            before = pa.paged_attention.launches
+            out = _real()
+            prefill_launches[0] += pa.paged_attention.launches - before
+            return out
+
+        pre.tick = prefill_tick
+        dec_steps = timed_steps(dec)
+        waves = count_waves([pre, dec])
+        pa.paged_attention.launches = 0  # count only this path's launches
+        t = time.perf_counter()
+        try:
+            dids = [srv.submit(p, b) for p, b in stream]
+            with host_syncs(torch) as syncs:
+                while srv.pending:
+                    srv.tick()
+                    if mode == "alias":
+                        check_blocks_conserved([pre, dec], "disagg alias")
+                    else:
+                        check_blocks_conserved([pre], "disagg dma, prefill")
+                        check_blocks_conserved([dec], "disagg dma, decode")
+        finally:
+            for name, fn in real.items():
+                setattr(serve_mod, name, fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = launches[f"disagg {mode}"] = pa.paged_attention.launches
+        stats = srv.disagg_stats()
+        handed = stats["prefill"]["handoff_out_requests"]
+        synced = check_host_syncs(syncs, waves[0], [pre, dec], f"disagg {mode}",
+                                  dma=handed if mode == "dma" else 0)
+        if pre.device_steps != 0 or prefill_launches[0] != 0:
+            raise AssertionError(f"disagg {mode}: the prefill tier made {pre.device_steps} decode "
+                                 f"steps and {prefill_launches[0]} kernel launches")
+        if n != dec.device_steps * cfg.n_layers:
+            raise AssertionError(f"disagg {mode}: launches {n} != {dec.device_steps} decode steps "
+                                 f"x {cfg.n_layers} layers")
+        if (handed, stats["decode"][f"handoffs_{mode}"]) != (len(stream), len(stream)):
+            raise AssertionError(f"disagg {mode}: {stats}")
+        kv = dec.kv_block_stats
+        if mode == "alias" and (copies or kv["alias_blocks_total"] != kv["handoff_in_blocks_total"]
+                                or kv["alloc_blocks_total"] != 0):
+            raise AssertionError(f"disagg alias: {len(copies)} block copies, {kv}")
+        if kv["blocks_free"] != kv["blocks_total"] - 1 or (srv.staging and srv.staging.used_count):
+            raise AssertionError(f"disagg {mode}: blocks left behind: {kv}, {stats}")
+        done = {i: srv.result(d) for i, d in enumerate(dids)}
+        for i, r in done.items():
+            if r.finish_reason != "budget" or len(r.tokens) != stream[i][1] or r.handoffs != 1:
+                raise AssertionError(f"disagg {mode}, request {i}: {r.finish_reason}, "
+                                     f"{len(r.tokens)} tokens, {r.handoffs} handoffs")
+        log(f"disagg {mode}: {len(done)} requests, {kv['handoff_in_blocks_total']} blocks handed "
+            f"off, {len(copies)} copy_block/write_block calls, {stats['deferred_handoffs']} "
+            f"deferred handoffs; prefill tier {pre.device_steps} decode steps, "
+            f"{prefill_launches[0]} kernel launches; decode tier {dec.device_steps} steps, {n} "
+            f"kernel launches; {synced}; {serving_line(done, wall, dec_steps)}")
+        check_near_ties(torch, done, mono_done, logits_at, f"disagg {mode} vs mono engine")
+        srv.close()
+    return launches
+
+
+def phase_warm_restart(torch, serve_mod, pa, params, cfg, logits_at):
+    """The shared-prefix stream through a cold engine with
+    ``prefix_cache_slots=8``; its index exported, the engine closed, a
+    fresh engine warm-started from the index, the stream again.  The warm
+    engine reuses 384 tokens on every request from its first admission
+    on (the cold engine none on its first); tokens equal the cold
+    engine's up to near-ties; the warm engine's digest claims 384 tokens
+    of every prompt.  Returns the warm run's launches."""
+    stream = prefix_stream(cfg.vocab)
+    cold, cold_done, cold_wall, _, _ = serve(serve_mod.ServeEngine, params, cfg, stream, "cuda",
+                                             prefix_cache_slots=8)
+    index = cold.export_prefix_index()
+    cold.close()
+    if not index["entries"] or index["prefix_window"] != 128:
+        raise AssertionError(f"warm restart: index of {len(index['entries'])} entries, window "
+                             f"{index['prefix_window']}")
+    warm_s, warmed = [], []
+
+    def warm_start(eng):
+        t = time.perf_counter()
+        warmed.append(eng.warm_start(index))
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t)
+
+    pa.paged_attention.launches = 0  # count only this path's launches
+    warm, warm_done, warm_wall, _, synced = serve(serve_mod.ServeEngine, params, cfg, stream,
+                                                  "cuda", before=warm_start, prefix_cache_slots=8)
+    launches = pa.paged_attention.launches
+    if launches != warm.device_steps * cfg.n_layers:
+        raise AssertionError(f"warm restart: launches {launches} != {warm.device_steps} steps x "
+                             "layers")
+    order = sorted(warm_done, key=lambda i: warm_done[i].admitted_at)
+    warm_reused = [warm_done[i].prefix_reused for i in order]
+    cold_first = min(cold_done.values(), key=lambda r: r.admitted_at)
+    if warmed[0] != len(index["entries"]) or any(n != 384 for n in warm_reused):
+        raise AssertionError(f"warm restart: {warmed[0]} of {len(index['entries'])} runs warmed, "
+                             f"reuse in admission order {warm_reused}")
+    if cold_first.prefix_reused != 0:
+        raise AssertionError(f"warm restart: the cold engine's first admission reused "
+                             f"{cold_first.prefix_reused}")
+    claims = [warm.prefix_digest().lookup(p)[0] for p, _ in stream]
+    if any(n != 384 for n in claims):
+        raise AssertionError(f"warm restart: the digest claims {claims}")
+    check_blocks_conserved([warm], "warm restart")
+    pf = warm.prefix_stats
+    cold_wave = sum(r.admitted_at <= cold_first.first_token_at and r.prefix_reused == 384
+                    for r in cold_done.values())
+    log(f"warm restart: {warmed[0]} runs warmed in {warm_s[0] * 1e3:.3f} ms; warm engine "
+        f"{warm.device_steps} steps, {launches} kernel launches, 384 tokens reused on "
+        f"{len(warm_reused)} of {len(warm_reused)} requests, prefill tokens computed "
+        f"{pf['prefill_tokens_computed']} (the warm start's included), reused "
+        f"{pf['prefill_tokens_reused']}; the cold engine's first admission reused 0, and "
+        f"{cold_wave} more of its first wave aliased it; the digest claims 384 of every prompt; "
+        f"{synced}")
+    for label, done, wall in (("cold", cold_done, cold_wall), ("warm", warm_done, warm_wall)):
+        n_tok = sum(len(r.tokens) for r in done.values())
+        ttft = statistics.median(r.ttft_s for r in done.values())
+        log(f"warm restart, {label} engine: {n_tok / wall:.3f} tokens/s, TTFT p50 "
+            f"{ttft * 1e3:.3f} ms (host clocks)")
+    warm.close()
+    check_near_ties(torch, warm_done, cold_done, logits_at, "warm restart vs cold engine")
+    return launches
+
+
+def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, disagg_mod, weights, quant, pa,
+                       paged):
+    """The KV hierarchy and the tiers at the serving width: prefix cache,
+    swap tier, handoff, the disaggregated server, warm restart, each
+    timed.  Returns the kernel's launches on their paths."""
     cfg = cfg_mod.BurninConfig(**SERVE_WIDTH)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = weights.cast_matrices(cfg_mod.init_params(cfg, gen, device="cuda"))
@@ -1156,9 +1361,14 @@ def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, weights, quant, pa, 
         ("prefix", lambda: phase_prefix(torch, serve_mod, pa, params, cfg, logits_at)),
         ("swap", lambda: phase_swap(torch, serve_mod, pa, paged, quant, params, cfg, logits_at)),
         ("handoff", lambda: phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at)),
+        ("disagg", lambda: phase_disagg(torch, disagg_mod, serve_mod, pa, params, cfg,
+                                        logits_at)),
+        ("warm restart", lambda: phase_warm_restart(torch, serve_mod, pa, params, cfg,
+                                                    logits_at)),
     ):
         t = time.perf_counter()
-        launches[name] = run()
+        out = run()
+        launches.update(out if isinstance(out, dict) else {name: out})
         log(f"phase {name}: {time.perf_counter() - t:.3f} s")
     return launches
 
@@ -1172,6 +1382,9 @@ def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
     log(f"train config: vocab {cfg.vocab}, d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
         f"{cfg.d_ff}, {cfg.n_layers} layers, seq {cfg.seq}, batch {cfg.batch}, "
         f"{mfu.param_count(cfg)} params, {cfg.optimizer} lr {cfg.learning_rate}")
+    # The serving phases' engines hold the serving weights in reference
+    # cycles (their wrapped methods); collect them before the peak counts.
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_forward.launches = 0  # count only the main path's launches
@@ -1273,7 +1486,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from tpu_dra_torch.parallel import (
-            burnin, flash, mfu, paged, quant, ring, serve, swap, weights,
+            burnin, disagg, flash, mfu, paged, quant, ring, serve, swap, weights,
         )
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
@@ -1316,7 +1529,8 @@ def main() -> int:
         int8_row["launches"] = phase_engine_int8(torch, burnin, serve, weights, quant, pa, paged)
         log(f"phase int8 engine: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        hierarchy = phase_kv_hierarchy(torch, burnin, serve, swap, weights, quant, pa, paged)
+        hierarchy = phase_kv_hierarchy(torch, burnin, serve, swap, disagg, weights, quant, pa,
+                                       paged)
         log(f"phase KV hierarchy: {time.perf_counter() - t:.3f} s; kernel launches {hierarchy}")
         t = time.perf_counter()
         flash_row["launches"] = phase_train(torch, burnin, mfu, fa, flash)

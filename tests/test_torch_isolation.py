@@ -45,10 +45,11 @@ def _modules():
 
 def test_port_has_the_slice_modules():
     mods = set(_modules())
-    for name in ("burnin", "decode", "flash", "mfu", "paged", "prefixcache", "quant", "ring",
-                 "serve", "swap", "weights", "kernels.flash_attn", "kernels.paged_attn"):
+    for name in ("burnin", "decode", "disagg", "flash", "mfu", "paged", "prefixcache", "quant",
+                 "ring", "serve", "swap", "weights", "kernels.flash_attn", "kernels.paged_attn"):
         assert f"tpu_dra_torch.parallel.{name}" in mods
-    assert "tpu_dra_torch.models" in mods
+    for name in ("tpu_dra_torch.models", "tpu_dra_torch.fleet", "tpu_dra_torch.fleet.digest"):
+        assert name in mods
 
 
 @pytest.mark.parametrize(

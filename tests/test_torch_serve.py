@@ -193,3 +193,135 @@ class TestEngineRules:
             eng.submit([1], 1)
         with pytest.raises(RuntimeError, match="closed"):
             eng.tick()
+
+
+def _pair(**kw):
+    """A reference engine (gather) and the port's, same weights and knobs."""
+    jcfg, tcfg = CONFIGS["dense"]
+    jparams, tparams = both_params(jcfg)
+    spec = dict(slots=2, prompt_slots=8, max_new_cap=6, **kw)
+    return (JaxEngine(jparams, jcfg, attn_backend="gather", **spec),
+            ServeEngine(tparams, tcfg, device="cpu", **spec))
+
+
+def _finished(eng, reqs):
+    """``reqs`` ((prompt, budget, stop_sequences) triples) through ``eng``:
+    each request's tokens and finish reason, in submit order."""
+    ids = [eng.submit(p, b, stop_sequences=s) for p, b, s in reqs]
+    eng.run()
+    return [(list(eng.request(i).tokens), eng.request(i).finish_reason) for i in ids]
+
+
+class TestStopSequences:
+    def test_stop_eos_and_budget_in_the_reference_order(self):
+        """Stops taken from the plain run's own tokens: one ends a request
+        early, one lands on the last budgeted token (stop outranks
+        budget), one is the eos itself (eos outranks stop), one never
+        matches; tokens and reasons equal the reference's."""
+        prompts = [[3, 1, 4, 1, 5], [2, 7, 1, 8], [6, 6, 2], [9, 9, 9, 9, 1, 2]]
+        jeng, teng = _pair()
+        plain = _finished(teng, [(p, 6, None) for p in prompts])
+        assert plain == _finished(jeng, [(p, 6, None) for p in prompts])
+        toks = [t for t, _ in plain]
+        eos = toks[2][3]
+        stops = [
+            [toks[0][1:3]],                   # ends early on "stop"
+            [[63, 62], toks[1][-2:]],          # the last budgeted token
+            [[eos]],                           # eos wins
+            [[61, 60, 59]],                    # never matches
+        ]
+        reqs = [(p, 6, s) for p, s in zip(prompts, stops)]
+        jeng, teng = _pair(eos_token=eos)
+        got, want = _finished(teng, reqs), _finished(jeng, reqs)
+        assert got == want
+        assert got[0][1] == "stop" and len(got[0][0]) <= 3
+        assert got[0][0][-2:] == toks[0][1:3] and got[0][0] == toks[0][:len(got[0][0])]
+        assert got[1][1] == "stop" and got[2][1] == "eos"
+        assert got[3][1] in ("budget", "eos")
+        for eng in (teng, jeng):
+            eng.close()
+
+
+class TestValidateRequest:
+    @pytest.mark.parametrize(
+        "args",
+        [
+            ([1, 2], None, None, None, 0),
+            ([1, 2], 3, 7, [[4, 5], (6,)], 2),
+            ([1, 2], 3, 2**31, None, 0),
+            ([1, 2], 3, -(2**31) - 1, None, 0),
+            ([1, 2], 3, None, [[]], 0),
+            ([1, 2], 3, None, [[1, True]], 0),
+            ([1, 2], 3, None, ["ab"], 0),
+            ([1, 2], 3, None, None, True),
+            ([], 3, None, None, 0),
+            ([1, 64], 3, None, None, 0),
+            ([1, 2], 7, None, None, 0),
+        ],
+    )
+    def test_tuple_and_errors_equal_the_reference(self, args):
+        jeng, teng = _pair()
+        try:
+            want = jeng.validate_request(*args)
+        except ValueError as e:
+            with pytest.raises(ValueError) as got:
+                teng.validate_request(*args)
+            assert str(got.value) == str(e)
+        else:
+            assert teng.validate_request(*args) == want
+            assert isinstance(want, tuple) and len(want) == 2
+            rid = teng.submit(*args[:4], priority=args[4])
+            req = teng.request(rid)
+            assert (req.max_new, req.stop_sequences) == want
+            assert req.seed == (rid if args[2] is None else args[2])
+            assert req.replica == teng.name
+        jeng.close()
+
+
+class TestSloVerdicts:
+    def test_a_zero_target_is_refused_as_the_reference_refuses_it(self):
+        for knob in ("ttft_slo_s", "tpot_slo_s"):
+            with pytest.raises(ValueError) as want:
+                _pair(**{knob: 0})
+            with pytest.raises(ValueError) as got:
+                ServeEngine(both_params(CONFIGS["dense"][0])[1], CONFIGS["dense"][1], slots=2,
+                            prompt_slots=8, max_new_cap=6, device="cpu", **{knob: 0})
+            assert str(got.value) == str(want.value)
+
+    @pytest.mark.parametrize("target", [1e-9, 1e9], ids=["missed", "met"])
+    def test_verdict_counts_equal_the_reference(self, target):
+        reqs = [([1, 2, 3], 1, None), ([4, 5], 4, None), ([6, 7, 8, 9], 3, None),
+                ([3, 3], 6, None), ([5], 2, None)]
+        jeng, teng = _pair(ttft_slo_s=target, tpot_slo_s=target)
+        _finished(jeng, reqs)
+        _finished(teng, reqs)
+        assert teng.slo_counts == jeng.slo_counts
+        assert teng.slo_counts == ((len(reqs), 0) if target > 1 else (0, len(reqs)))
+        for rid in range(len(reqs)):
+            assert teng.request(rid).slo == jeng.request(rid).slo
+        one = teng.request(0)  # a one-token request has no TPOT verdict
+        assert "tpot" not in one.slo and one.tpot_s == 0.0
+        jeng.close()
+
+
+class TestPrefillTier:
+    def test_a_prefill_engine_makes_no_device_step(self):
+        jeng, teng = _pair(tier="prefill", prefix_window=2)
+        reqs = [([5, 9, 2, 7], 4), ([1, 2, 3], 1), ([7, 8], 3)]
+        for eng in (jeng, teng):
+            for p, b in reqs:
+                eng.submit(p, b)
+        for _ in range(3):
+            jdone, tdone = jeng.tick(), teng.tick()
+            assert [r.tokens for r in tdone] == [list(r.tokens) for r in jdone]
+            assert (teng.queue_depth, teng.occupancy) == (jeng.queue_depth, jeng.occupancy)
+        assert teng.device_steps == jeng.device_steps == 0
+        # Rows hold their first token, frozen; the one-token request
+        # finished in its admission wave.
+        assert teng.occupancy == 2 and teng.queue_depth == 0
+        assert teng.request(1).finish_reason == "budget" and len(teng.request(1).tokens) == 1
+        assert [len(teng.request(i).tokens) for i in (0, 2)] == [1, 1]
+        assert [teng.request(i).tokens for i in range(3)] == [
+            list(jeng.request(i).tokens) for i in range(3)]
+        assert teng.tier == "prefill" and ServeEngine.__init__.__kwdefaults__["tier"] == "mono"
+        jeng.close()

@@ -261,6 +261,30 @@ class _RadixIndex:
         upper.children[node.edge[0]] = node
         return upper
 
+    # -- warm-restart checkpoint (host side only) ------------------------
+    @staticmethod
+    def _tokens_of(node: "_Node") -> "list[int]":
+        """The full token run a terminal node indexes (root to node)."""
+        parts: "list[list[int]]" = []
+        while node is not None and node.parent is not None:
+            parts.append(node.edge)
+            node = node.parent
+        out: "list[int]" = []
+        for edge in reversed(parts):
+            out.extend(edge)
+        return out
+
+    def export_index(self) -> "list[dict]":
+        """The index as plain JSON-able data, hottest first (by hits,
+        then recency): each entry's token run, hits and last use.  No KV
+        rides along: a restarted engine re-prefills the runs
+        (`ServeEngine.warm_start`)."""
+        entries = sorted(self._entries, key=lambda e: (-e.hits, -e.last_used))
+        return [
+            {"tokens": self._tokens_of(e.node), "hits": e.hits, "last_used": e.last_used}
+            for e in entries
+        ]
+
     # -- introspection ---------------------------------------------------
     @property
     def resident(self) -> int:

@@ -47,21 +47,26 @@ each (their block copies to host).  The host state the device needs
 (tokens, positions, the active mask, the block tables, the padded
 prompts) goes up through pinned staging buffers, without a host sync.
 
+The engine surface a fleet and a `disagg.DisaggServer` call: ``name``
+and ``tier``, `validate_request` returning the budget and the stop
+sequences, seeds, stop sequences, SLO verdicts and `slo_counts`, and warm
+restart (`export_prefix_index`, `warm_start`, `prefix_digest`).
+
 Not ported yet: telemetry (spans, metrics, the step flight recorder, the
-obs registrations, SLO counters), sampling, logprobs and stop sequences,
-fused ticks, the rows layout, the prefill/decode tiers and
-`DisaggServer`, and warm restart (`export_prefix_index`, `warm_start`,
-`prefix_digest`).
+obs registrations), sampling and logprobs, fused ticks and the rows
+layout.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from tpu_dra_torch.fleet.digest import ReplicaDigest, build_digest, empty_digest
 from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
     _check_prefix_window,
@@ -86,6 +91,9 @@ from tpu_dra_torch.parallel.weights import cast_matrices
 
 __all__ = ["Request", "ServeEngine"]
 
+# Default engine names.
+_ENGINE_IDS = itertools.count()
+
 
 @dataclass
 class Request:
@@ -94,12 +102,18 @@ class Request:
     id: int
     prompt: "list[int]"
     max_new: int
+    # The sampling key (default: the request id).  Greedy output ignores
+    # it; it is stored so that a caller's seed survives a handoff.
+    seed: int = 0
     # Admission priority: higher admits first, equal priorities strictly
     # FIFO; a waiting request may preempt a strictly-lower-priority row.
     priority: int = 0
+    # Token runs that end the request when generated (the matched suffix
+    # stays in ``tokens``).
+    stop_sequences: "list[list[int]]" = field(default_factory=list)
     tokens: "list[int]" = field(default_factory=list)  # generated only
     done: bool = False
-    finish_reason: str = ""  # "eos" | "budget"
+    finish_reason: str = ""  # "eos" | "stop" | "budget"
     # Prefix cache: the submit-time opt-out, and the prompt tokens whose
     # prefill admission skipped by aliasing resident blocks.
     use_prefix_cache: bool = True
@@ -125,14 +139,28 @@ class Request:
     handoff_s: float = 0.0
     submitted_at: float = 0.0  # host perf_counter
     ttft_s: float = 0.0  # submit -> first token, queueing included
+    # The engine that serves the request (`ServeEngine.name`, stamped at
+    # submit and at handoff_in): ids are unique per engine only, so
+    # (replica, id) is the fleet-wide key.
+    replica: str = ""
     # Timeline on the host perf_counter clock: enqueued (== submitted_at)
-    # <= admitted <= first token <= finished; token_deltas holds the
-    # arrival gap before each token after the first.
+    # <= admitted <= first token <= finished; queue_wait_s = admitted -
+    # enqueued; tpot_s is the mean of token_deltas, the arrival gap before
+    # each token after the first (0.0 until a second token lands).
     enqueued_at: float = 0.0
     admitted_at: float = 0.0
     first_token_at: float = 0.0
     finished_at: float = 0.0
+    queue_wait_s: float = 0.0
+    tpot_s: float = 0.0
     token_deltas: "list[float]" = field(default_factory=list)
+    # SLO verdicts stamped at finish on an engine with targets:
+    # {"ttft" | "tpot" | "request": "met" | "missed"}; "request" is met
+    # when every evaluated target was (the goodput bit).
+    slo: "dict[str, str]" = field(default_factory=dict)
+    # The submitting tier's trace context, stored as given (the port
+    # emits no spans).
+    trace_parent: "object | None" = field(default=None, repr=False)
     _last_token_at: float = field(default=0.0, repr=False)
     _swapped_at: float = field(default=0.0, repr=False)
     _handoff_at: float = field(default=0.0, repr=False)
@@ -170,10 +198,20 @@ class ServeEngine:
     ``swap_policy``: the victim picker (`swap.VictimPolicy`; default
     `swap.AgeHeatPolicy`).
 
+    ``ttft_slo_s`` / ``tpot_slo_s``: optional latency targets; every
+    finished request gets met/missed verdicts (``Request.slo``) and the
+    request verdict adds to `slo_counts`.  ``name``: the engine's
+    identity as a fleet replica (default ``engine-<n>``).  ``tier``:
+    ``"mono"`` (default), or one tier of a `disagg.DisaggServer`: a
+    ``"prefill"`` engine admits, prefills and fetches first tokens but
+    runs no decode step (its rows wait, frozen, for `handoff_out`); a
+    ``"decode"`` engine serves like a mono one.
+
     ``device``: where the pool and the computation live (default
     ``"cuda"``; raises when CUDA is absent).  ``params`` must be on it,
     plain or int8 (`quant.quantize_params`); the engine serves from a
-    copy whose plain layer matrices are bf16, int8 pairs as they are."""
+    copy whose plain layer matrices are bf16, int8 pairs as they are
+    (bf16 matrices are shared with ``params``, not copied)."""
 
     def __init__(
         self,
@@ -192,9 +230,15 @@ class ServeEngine:
         prefix_cache_slots: int = 0,
         prefix_window: "int | None" = None,
         kv_int8: bool = False,
+        ttft_slo_s: "float | None" = None,
+        tpot_slo_s: "float | None" = None,
+        name: "str | None" = None,
+        tier: str = "mono",
         device: "str | torch.device" = "cuda",
     ):
         c = config
+        if tier not in ("mono", "prefill", "decode"):
+            raise ValueError(f"tier must be 'mono', 'prefill', or 'decode', got {tier!r}")
         dev = resolve_device(device)
         # Every row must fit prompt + its budget in the context.
         _check_window(c, prompt_slots, max_new_cap, "prompt_slots")
@@ -206,6 +250,9 @@ class ServeEngine:
             raise ValueError(f"prefix_cache_slots must be >= 0, got {prefix_cache_slots}")
         if host_kv_blocks is not None and host_kv_blocks < 0:
             raise ValueError(f"host_kv_blocks must be >= 0, got {host_kv_blocks}")
+        for knob, value in (("ttft_slo_s", ttft_slo_s), ("tpot_slo_s", tpot_slo_s)):
+            if value is not None and not value > 0:
+                raise ValueError(f"{knob} must be > 0, got {value}")
         if attn_backend not in ("auto", "gather", "cuda"):
             raise ValueError(
                 f"attn_backend must be 'auto', 'gather' or 'cuda', got {attn_backend!r}"
@@ -239,6 +286,13 @@ class ServeEngine:
         self.steps_per_tick = steps_per_tick
         self.attn_backend = attn_backend
         self.block_size = w
+        self.kv_int8 = kv_int8
+        self.tier = tier
+        self.name = name or f"engine-{next(_ENGINE_IDS)}"
+        self.ttft_slo_s = ttft_slo_s
+        self.tpot_slo_s = tpot_slo_s
+        self._slo_met = 0
+        self._slo_missed = 0
         # Table width: enough columns for the longest legal request.
         # Shorter requests leave trailing columns at 0 (scratch).
         self._table_cols = -(-(prompt_slots + max_new_cap) // w)
@@ -274,7 +328,10 @@ class ServeEngine:
         # Handed-in requests parked until their restoring admission:
         # req.id -> mode, blocks or staging slots, frozen pos/tok.
         self._handoff_state: "dict[int, dict]" = {}
-        self._handoff_counts = {"out_blocks": 0, "in_blocks": 0, "alias": 0, "dma": 0}
+        self._handoff_counts = {
+            "out_requests": 0, "out_blocks": 0, "in_requests": 0, "in_blocks": 0,
+            "alias": 0, "dma": 0,
+        }
         # Host row state: the request, its position (== valid tokens in
         # the row), the token it feeds next, its block table, and the
         # prefix entries it pins (the one it read, the one it wrote).
@@ -304,22 +361,32 @@ class ServeEngine:
         self._device_steps = 0
 
     # -- submission ------------------------------------------------------
-    def submit(self, prompt: "list[int]", max_new: "int | None" = None, *,
+    def submit(self, prompt: "list[int]", max_new: "int | None" = None,
+               seed: "int | None" = None,
+               stop_sequences: "list[list[int]] | None" = None, *,
                use_prefix_cache: bool = True, enqueued_at: "float | None" = None,
-               priority: int = 0) -> int:
+               priority: int = 0, trace_parent: "object | None" = None) -> int:
         """Queue a request; returns its id.  Admission happens on `tick`.
-        ``use_prefix_cache=False`` opts the request out of the cache (no
-        reuse, no parking).  ``enqueued_at`` backdates the timeline's
-        enqueue point (a ``perf_counter`` stamp, only ever moved earlier).
-        ``priority``: the admission head is the highest-priority waiting
-        request.  A bad request raises here, never mid-tick."""
+        ``seed``: the request's sampling key (default: its id; greedy
+        output does not depend on it).  ``stop_sequences``: token runs
+        that end the request when generated (finish_reason ``"stop"``,
+        the matched suffix kept in ``tokens``).  ``use_prefix_cache=False``
+        opts the request out of the cache (no reuse, no parking).
+        ``enqueued_at`` backdates the timeline's enqueue point (a
+        ``perf_counter`` stamp, only ever moved earlier).  ``priority``:
+        the admission head is the highest-priority waiting request.
+        ``trace_parent``: the submitting tier's trace context, stored on
+        the request as given.  A bad request raises here, never
+        mid-tick."""
         self._check_open()
-        budget = self.validate_request(prompt, max_new, priority)
+        budget, stops = self.validate_request(prompt, max_new, seed, stop_sequences, priority)
         now = time.perf_counter()
         t0 = now if enqueued_at is None else min(float(enqueued_at), now)
         req = Request(
-            id=self._next_id, prompt=list(prompt), max_new=budget, priority=priority,
-            use_prefix_cache=bool(use_prefix_cache), submitted_at=t0, enqueued_at=t0,
+            id=self._next_id, prompt=list(prompt), max_new=budget,
+            seed=self._next_id if seed is None else seed, priority=priority,
+            stop_sequences=stops, use_prefix_cache=bool(use_prefix_cache),
+            submitted_at=t0, enqueued_at=t0, replica=self.name, trace_parent=trace_parent,
         )
         self._next_id += 1
         self._queue.append(req)
@@ -327,8 +394,12 @@ class ServeEngine:
         return req.id
 
     def validate_request(self, prompt: "list[int]", max_new: "int | None" = None,
-                         priority: int = 0) -> int:
-        """`submit`'s checks, without submitting; returns the budget."""
+                         seed: "int | None" = None,
+                         stop_sequences: "list[list[int]] | None" = None,
+                         priority: int = 0) -> "tuple[int, list[list[int]]]":
+        """`submit`'s checks, without submitting; returns the budget and
+        the stop sequences as lists.  A front end that may hold a request
+        in its own queue validates here, at arrival."""
         for t in prompt:
             # A bool would embed as 0/1 and an out-of-range id would index
             # past the table: both must fail here.
@@ -343,13 +414,22 @@ class ServeEngine:
         budget = self.max_new_cap if max_new is None else max_new
         if not 1 <= budget <= self.max_new_cap:
             raise ValueError(f"max_new must be in [1, {self.max_new_cap}], got {budget}")
+        if seed is not None and not -(2**31) <= seed < 2**31:
+            raise ValueError(f"seed must fit int32, got {seed}")
         if (
             isinstance(priority, bool)
             or not isinstance(priority, int)
             or not -(2**31) <= priority < 2**31
         ):
             raise ValueError(f"priority must be an int (int32 range), got {priority!r}")
-        return budget
+        stops = [list(s) for s in (stop_sequences or [])]
+        if any(not s for s in stops):
+            raise ValueError("stop sequences must be non-empty")
+        if any(not isinstance(t, int) or isinstance(t, bool) for s in stops for t in s):
+            # A str would split into 1-char strings that never equal a
+            # token, and a bool would equal token 0 or 1.
+            raise ValueError("stop sequences must contain int token ids")
+        return budget, stops
 
     # -- admission control -----------------------------------------------
     def _paged_demand(self, req: Request, use: int) -> "tuple[int, int]":
@@ -556,7 +636,8 @@ class ServeEngine:
         now = time.perf_counter()
         blocks = [int(b) for b in self._table[row] if b]
         payload = {
-            "request": req, "mode": mode, "pos": self._pos[row], "tok": self._tok[row],
+            "request": req, "mode": mode, "source": self.name,
+            "pos": self._pos[row], "tok": self._tok[row],
         }
         if mode == "alias":
             # The references move with the payload: no unref, no copy.
@@ -576,6 +657,7 @@ class ServeEngine:
         req.handoffs += 1
         req.handoff_blocks += len(blocks)
         req._handoff_at = now
+        self._handoff_counts["out_requests"] += 1
         self._handoff_counts["out_blocks"] += len(blocks)
         return payload
 
@@ -595,6 +677,7 @@ class ServeEngine:
             )
         req.id = self._next_id
         self._next_id += 1
+        req.replica = self.name
         self._by_id[req.id] = req
         self._handoff_state[req.id] = {
             "mode": mode,
@@ -633,6 +716,7 @@ class ServeEngine:
         req.handoff_mode = mode
         req._last_token_at = restored
         self._handoff_counts[mode] += 1
+        self._handoff_counts["in_requests"] += 1
         self._handoff_counts["in_blocks"] += len(cols)
 
     # -- the engine loop -------------------------------------------------
@@ -675,19 +759,8 @@ class ServeEngine:
         self._kv_counts["alloc_blocks"] += len(own)
         self._table[row, :] = 0
         self._table[row, :total_cols] = cols
-        # One upload: the padded prompt, the table row, the length.  The
-        # windows before fw are aliased and never written.
-        P = self.prompt_slots
-        stage = self._prompt_stage[row].numpy()
-        stage[:] = 0
-        stage[:length] = req.prompt
-        stage[P:P + self._table_cols] = self._table[row]
-        stage[-1] = length
-        staged = self._prompt_stage[row].to(self.device, non_blocking=True)
-        last, self._pool = self._prefill(
-            self.params, staged[None, :P], staged[-1:], self._pool,
-            staged[None, P:P + self._table_cols], first_window=fw,
-        )
+        # The windows before fw are aliased and never written.
+        last = self._prefill_into(self._prompt_stage[row], req.prompt, self._table[row], fw)
         if cacheable and length >= w and (m_raw < length or entry is None or entry.length < length):
             # Park the prompt's blocks, unless the exact prompt is already
             # resident at full length or is shorter than a window; a
@@ -712,6 +785,25 @@ class ServeEngine:
                     self._kv_counts["cow_blocks"] += 1
         req.kv_blocks = total_cols
         return last, pins
+
+    def _prefill_into(self, stage: torch.Tensor, prompt: "list[int]", table_row,
+                      first_window: int) -> torch.Tensor:
+        """Prefill ``prompt`` into the blocks ``table_row`` names, from
+        window ``first_window`` on, through ONE upload of ``stage`` (a
+        staging row: the padded prompt, the table row, the length).
+        Returns the logits at the prompt's last position, on the device."""
+        P = self.prompt_slots
+        host = stage.numpy()
+        host[:] = 0
+        host[:len(prompt)] = prompt
+        host[P:P + self._table_cols] = table_row
+        host[-1] = len(prompt)
+        staged = stage.to(self.device, non_blocking=True)
+        last, self._pool = self._prefill(
+            self.params, staged[None, :P], staged[-1:], self._pool,
+            staged[None, P:P + self._table_cols], first_window=first_window,
+        )
+        return last
 
     def _head_index(self) -> int:
         """The admission head's queue index: highest priority first,
@@ -746,6 +838,7 @@ class ServeEngine:
                 self._handoff_restore(req, row)
                 continue
             req.admitted_at = time.perf_counter()
+            req.queue_wait_s = req.admitted_at - req.enqueued_at
             last, pins = self._admit_paged(req, row)
             self._row_req[row] = req
             self._pos[row] = len(req.prompt)
@@ -765,22 +858,40 @@ class ServeEngine:
         if len(req.tokens) == 1:
             req.first_token_at = now
             req.ttft_s = now - req.submitted_at
+            if self.ttft_slo_s is not None:
+                req.slo["ttft"] = "met" if req.ttft_s <= self.ttft_slo_s else "missed"
         else:
             req.token_deltas.append(now - req._last_token_at)
         req._last_token_at = now
         if self.eos_token is not None and token == self.eos_token:
             req.done, req.finish_reason = True, "eos"
+        elif any(req.tokens[-len(s):] == s for s in req.stop_sequences):
+            req.done, req.finish_reason = True, "stop"
         elif len(req.tokens) >= req.max_new:
             req.done, req.finish_reason = True, "budget"
         if req.done:
             self._finish(row, req, now)
 
     def _finish(self, row: int, req: Request, now: float) -> None:
-        """Release a finished request's row: drop its table's block
-        references and point the row at scratch, so its frozen writes can
-        never reach a block a later admission reallocates (blocks a
-        resident entry holds stay allocated); release its pins."""
+        """Close out a finished request: its TPOT and SLO verdicts, then
+        its row: drop the table's block references and point the row at
+        scratch, so its frozen writes can never reach a block a later
+        admission reallocates (blocks a resident entry holds stay
+        allocated); release its pins."""
         req.finished_at = now
+        if req.token_deltas:
+            req.tpot_s = sum(req.token_deltas) / len(req.token_deltas)
+            if self.tpot_slo_s is not None:
+                req.slo["tpot"] = "met" if req.tpot_s <= self.tpot_slo_s else "missed"
+        if self.ttft_slo_s is not None or self.tpot_slo_s is not None:
+            # Every evaluated target met (a one-token request under a
+            # tpot-only target has none evaluated, and counts as met).
+            verdict = "missed" if "missed" in req.slo.values() else "met"
+            req.slo["request"] = verdict
+            if verdict == "met":
+                self._slo_met += 1
+            else:
+                self._slo_missed += 1
         self._done.append(req)
         self._row_req[row] = None
         self._balloc.unref([int(b) for b in self._table[row] if b], step=self._device_steps)
@@ -822,12 +933,15 @@ class ServeEngine:
 
     def tick(self) -> "list[Request]":
         """Admit waiting requests into free rows, then run
-        ``steps_per_tick`` decode steps with join/leave between them.
-        Returns the requests completed during this tick."""
+        ``steps_per_tick`` decode steps with join/leave between them
+        (none on a prefill-tier engine: its admitted rows wait, frozen,
+        for `handoff_out`, and a one-token request finished in its
+        admission wave).  Returns the requests completed during this
+        tick."""
         self._check_open()
         done_before = len(self._done)
         self._admit()
-        for s in range(self.steps_per_tick):
+        for s in range(0 if self.tier == "prefill" else self.steps_per_tick):
             if s:
                 self._admit()
             if all(r is None for r in self._row_req):
@@ -846,11 +960,105 @@ class ServeEngine:
             raise RuntimeError("engine did not drain within the tick bound")
         return self._done
 
+    # -- warm restart ----------------------------------------------------
+    def export_prefix_index(self) -> dict:
+        """The prefix cache's radix index as plain JSON-able data: token
+        runs, hit counts and recency, hottest first; no KV.  A restarted
+        engine passes it to `warm_start`.  Readable after `close`."""
+        if self._prefix is None:
+            raise ValueError(
+                "engine has no prefix cache (prefix_cache_slots=0): nothing to checkpoint"
+            )
+        return {
+            "version": 1,
+            "prefix_window": self.block_size,
+            "entries": self._prefix.export_index(),
+        }
+
+    def warm_start(self, index: dict, *, top_k: "int | None" = None) -> int:
+        """Rebuild prefix-cache residency from an exported index before
+        any traffic: re-prefill the ``top_k`` hottest runs (at most the
+        cache's entry count) into fresh blocks and park each as an entry,
+        its hit count seeded from the index.  The KV is recomputed from
+        the weights, so a warm engine's tokens equal a cold one's.  Runs
+        that no longer fit (shorter than a window, longer than
+        ``prompt_slots``, a token out of vocabulary) are skipped; warming
+        stops when the pool is full.  Returns the runs warmed."""
+        self._check_open()
+        if self._prefix is None:
+            raise ValueError("engine has no prefix cache (prefix_cache_slots=0): cannot warm-start")
+        if self._queue or any(r is not None for r in self._row_req):
+            raise RuntimeError(
+                "warm_start must run before admitting traffic (queue and rows must be empty)"
+            )
+        entries = list(index.get("entries") or ())
+        entries.sort(key=lambda e: (-e.get("hits", 0), -e.get("last_used", 0)))
+        # More than the entry cap would evict warmed hot runs for colder ones.
+        budget = (self._prefix.pool_slots if top_k is None
+                  else min(top_k, self._prefix.pool_slots))
+        w = self.block_size
+        warmed = 0
+        for item in entries:
+            if warmed >= budget:
+                break
+            tokens = item.get("tokens") or []
+            if (
+                not isinstance(tokens, list)
+                or not w <= len(tokens) <= self.prompt_slots
+                or any(isinstance(t, bool) or not isinstance(t, int)
+                       or not 0 <= t < self.config.vocab for t in tokens)
+            ):
+                continue
+            cols = -(-len(tokens) // w)
+            while self._balloc.free_count < cols and self._prefix.evict_one():
+                pass
+            own = self._balloc.alloc(cols)
+            if own is None:
+                break  # the pool is held by pinned entries
+            # A transient table row: no engine row is involved.  Each run
+            # gets its own staging buffer, so no upload can see the next
+            # run's values (the caching host allocator keeps a freed
+            # buffer until its copy has run).
+            table_row = np.zeros((self._table_cols,), np.int32)
+            table_row[:cols] = own
+            stage = torch.zeros(self._prompt_stage.shape[1], dtype=torch.int32,
+                                pin_memory=self.device.type == "cuda")
+            self._prefill_into(stage, tokens, table_row, 0)
+            entry = self._prefix.insert(tokens, own)
+            self._balloc.unref(own)  # the entry holds the blocks now
+            if entry is None:
+                break  # the entry cap is reached with every entry pinned
+            entry.hits = int(item.get("hits", 0))
+            self._prefix.release(entry)  # insert pins; nothing decodes
+            self._prefill_tokens["computed"] += len(tokens)
+            warmed += 1
+        return warmed
+
+    def prefix_digest(self) -> ReplicaDigest:
+        """The resident prefixes as a `fleet.digest.ReplicaDigest`: the
+        hashed window-aligned prefixes of `export_prefix_index`'s runs,
+        which a fleet router matches prompts against.  An engine without
+        a cache gives an empty digest.  Readable after `close`."""
+        if self._prefix is None:
+            return empty_digest(self.name)
+        return build_digest(self.export_prefix_index(), replica=self.name,
+                            epoch=self._prefix.epoch)
+
     # -- introspection ---------------------------------------------------
     def request(self, rid: int) -> "Request | None":
         """The Request of a submitted id (queued, mid-decode or finished);
         None for unknown ids and for requests handed off elsewhere."""
         return self._by_id.get(rid)
+
+    @property
+    def replica_id(self) -> str:
+        """The engine's identity as a fleet replica: its ``name``."""
+        return self.name
+
+    @property
+    def slo_counts(self) -> "tuple[int, int]":
+        """(met, missed) request-SLO verdict totals."""
+        return self._slo_met, self._slo_missed
 
     @property
     def prefix_epoch(self) -> int:
@@ -937,4 +1145,7 @@ class ServeEngine:
 
     def _check_open(self) -> None:
         if self._closed:
-            raise RuntimeError("ServeEngine is closed: no further submissions or ticks")
+            raise RuntimeError(
+                f"ServeEngine {self.name!r} is closed: no further submissions or ticks "
+                "(restart with a fresh engine; warm_start() rebuilds the prefix cache)"
+            )
