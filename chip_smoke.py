@@ -40,8 +40,21 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    ``kv_int8=True`` pool; three eager weight-dequantization routes checked
    bitwise and timed on one layer) through the int8 kernel, every launch counted,
    against the int8 gather engine, one int8 decode step's logits through
-   both backends, and a profile of 8 int8 decode steps;
-6. KV hierarchy, at the same width through the kernel, each path's
+   both backends, and a profile of 8 int8 decode steps; then the stream
+   sampled through the int8 kernel, every launch counted;
+6. sampling: Threefry (`prng`) on the card bitwise against the CPU's;
+   the stream sampled (temperature 0.8, top-k 50, top-p 0.95, logprobs)
+   three ways through the kernel: continuous at 8 slots, fused ticks of 4,
+   continuous at 4 slots; each run's waves, steps, wasted steps, device
+   calls, launches and host syncs the counts the CPU schedule test pins;
+   tokens equal across runs except where their recorded logits differ
+   within 2 bf16 ulps; the filter mask against the CPU's; logprobs against
+   the picks' logits; the sampler's device time and a sampled decode
+   profile;
+7. speculative: 128-token prompts, 64 new tokens, a 2-layer draft of 4 at
+   B=1 and B=4 against `make_generate` (greedy, up to near-ties), its
+   rounds and wall time; sampled; a full-depth draft's acceptance;
+8. KV hierarchy, at the same width through the kernel, each path's
    launches counted (one a layer a step): the prefix cache (16 requests
    sharing a 384-token prefix, ``prefix_cache_slots=8``; cache on against
    cache off and against gather, aliases and COW copies made, 384 tokens
@@ -63,13 +76,14 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    from it: 384 tokens reused on every request from the first admission,
    tokens against the cold engine's, the digest claiming 384 tokens of
    every prompt);
-7. train: 6 momentum steps of the flash family at the same width (batch
+9. train: 6 momentum steps of the flash family at the same width (batch
    16, seq 1024; f32 masters, about 1.75 B parameters) through
    ``burnin.train``: the loss must descend, every flash launch counted;
    then MFU, peak memory, the first loss against the dense path's, the
    kernel's output inside the model's first layer against its plain
    version, and a profile of two steps;
-8. the kernels' JSON line, the card's line, and the result line.
+10. the kernels' JSON line (K1's rows also list each path's launches),
+    the card's line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
 """
@@ -513,21 +527,37 @@ def count_waves(engines):
     return waves
 
 
+def device_calls(eng) -> int:
+    """The engine's decode calls so far: one a step under continuous
+    scheduling, one a fused tick of ``steps_per_tick`` steps."""
+    return eng.device_steps // (eng.steps_per_tick if eng.scheduling == "tick" else 1)
+
+
 def check_host_syncs(syncs, waves: int, engines, label: str, dma: int = 0) -> str:
-    """The engine's host-sync contract: one blocking fetch a decode step
-    and one an admission wave; a preemption and a dma handoff add one
-    each; prefix hits and swap-ins add none.  ``syncs`` is what
-    `host_syncs` found.  Returns the count as text."""
+    """The engine's host-sync contract: one blocking fetch a device call
+    (a decode step, or a fused tick) and one an admission wave; a
+    preemption and a dma handoff add one each; prefix hits and swap-ins
+    add none.  ``syncs`` is what `host_syncs` found.  Returns the count as
+    text."""
     count, where = syncs
-    steps = sum(e.device_steps for e in engines)
+    calls = sum(device_calls(e) for e in engines)
     preempted = sum(e.kv_block_stats["preemptions_total"] for e in engines)
-    want = steps + waves + preempted + dma
+    want = calls + waves + preempted + dma
     if count != want:
         raise AssertionError(f"{label}: {count} host syncs ({where}), the contract gives {want} = "
-                             f"{steps} steps + {waves} waves + {preempted} preemptions + {dma} "
-                             "dma handoffs")
-    return (f"{count} host syncs = {steps} steps + {waves} admission waves + {preempted} "
+                             f"{calls} device calls + {waves} waves + {preempted} preemptions + "
+                             f"{dma} dma handoffs")
+    return (f"{count} host syncs = {calls} device calls + {waves} admission waves + {preempted} "
             f"preemptions + {dma} dma handoffs")
+
+
+# The sampled phase's policy and its three runs of the main stream.
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95, with_logprobs=True)
+SAMPLED_RUNS = {
+    "continuous": dict(slots=8),
+    "tick": dict(slots=8, scheduling="tick", steps_per_tick=4),
+    "continuous 4 slots": dict(slots=4),
+}
 
 
 def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=False,
@@ -541,8 +571,8 @@ def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=Fals
     (one decode step each) and the host-sync count as text."""
     import torch
 
-    eng = ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
-                      attn_backend=backend, kv_int8=kv_int8, **engine_kw)
+    eng = ServeEngine(params, cfg, **{"slots": 8, "prompt_slots": 512, "max_new_cap": 64,
+                                      "attn_backend": backend, "kv_int8": kv_int8, **engine_kw})
     if before is not None:
         before(eng)
     ids = [eng.submit(p, b) for p, b in stream]
@@ -565,13 +595,14 @@ def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=Fals
     return eng, done, wall, step_walls, synced
 
 
-def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8, kv_int8=False):
+def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8, kv_int8=False, **engine_kw):
     """Where a decode step's device time goes: 8 rows mid-decode (contexts
-    256..480 tokens), ``steps`` steps under torch.profiler."""
+    256..480 tokens), ``steps`` steps under torch.profiler.  Returns the
+    kernel time a step in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
-                      attn_backend="cuda", kv_int8=kv_int8)
+                      attn_backend="cuda", kv_int8=kv_int8, **engine_kw)
     for i in range(8):
         eng.submit([(7 * i + j) % cfg.vocab for j in range(256 + 32 * i)], 64)
     eng.tick()  # admits all eight, then one step
@@ -582,10 +613,10 @@ def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8, kv_int8=Fals
             eng.tick()
         torch.cuda.synchronize()
     eng.close()
-    form = "int8" if kv_int8 else "bf16"
-    report_profile(prof, f"chip_smoke_decode_{form}_trace.json",
-                   f"{steps} {form} decode steps of 8 rows", steps,
-                   INT8_DECODE_KINDS if kv_int8 else KERNEL_KINDS)
+    form = ("int8" if kv_int8 else "bf16") + (" sampled" if engine_kw else "")
+    return report_profile(prof, f"chip_smoke_decode_{form.replace(' ', '_')}_trace.json",
+                          f"{steps} {form} decode steps of 8 rows", steps,
+                          INT8_DECODE_KINDS if kv_int8 else KERNEL_KINDS)
 
 
 KERNEL_KINDS = (  # (substring of a kernel's name, kind), first match wins
@@ -593,6 +624,9 @@ KERNEL_KINDS = (  # (substring of a kernel's name, kind), first match wins
     ("flash_fwd_kernel", "flash attention (K2)"),
     ("nvjet", "cuBLAS GEMM"),
     ("gemm", "cuBLAS GEMM"),
+    ("Sort", "sort"),
+    ("sort", "sort"),
+    ("Scan", "scan"),
     ("reduce_kernel", "reduction"),
     ("softmax", "reduction"),
     ("copy", "copy / cast"),
@@ -617,16 +651,12 @@ def report_profile(prof, trace_name, label, steps, kinds=KERNEL_KINDS):
     span from the first kernel's start to the last one's end, all on the
     device's clock in the one profiled run.  The profiler slows the
     host's dispatch, so a host-bound run idles somewhat more here than
-    unprofiled."""
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, trace_name)
-    prof.export_chrome_trace(path)
-    with open(path, encoding="utf-8") as f:
-        kernels = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    unprofiled.  Returns the kernel time a step in ms (None when the
+    trace holds no kernels)."""
+    kernels = trace_kernels(prof, trace_name)
     if not kernels:
         log(f"profile, {label}: the trace holds no device kernels; device time not measured")
-        return
+        return None
     by_name: "dict[str, float]" = {}
     by_kind: "dict[str, float]" = {}
     for e in kernels:
@@ -648,6 +678,18 @@ def report_profile(prof, trace_name, label, steps, kinds=KERNEL_KINDS):
     log("  by kind: " + "; ".join(
         f"{kind} {us / steps / 1e3:.4f} ms/step ({us / 1e3 / busy_ms:.4f})"
         for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    return busy_ms / steps
+
+
+def trace_kernels(prof, trace_name):
+    """The device kernels of a profile, from its chrome trace (written to
+    chiprun_out/)."""
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, trace_name)
+    prof.export_chrome_trace(path)
+    with open(path, encoding="utf-8") as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
 
 
 # The serving width: `tpu_dra/parallel/mfu.py`'s rung for an 80 GB card.
@@ -684,12 +726,37 @@ def serve_main_path(ServeEngine, pa, quant, params, cfg, stream, form, kv_int8=F
     n_tok = sum(len(r.tokens) for r in done.values())
     ttft = statistics.median(r.ttft_s for r in done.values())
     step_ms = statistics.median(steps) * 1e3
+    line = (f"{n_tok / wall:.3f} tokens/s, TTFT p50 {ttft * 1e3:.3f} ms, step p50 "
+            f"{step_ms:.3f} ms (ticks without admission)")
     log(f"engine {form} cuda: {len(done)} requests, {n_tok} tokens, {eng.device_steps} steps, "
-        f"{launches} kernel launches; {n_tok / wall:.3f} tokens/s, TTFT p50 "
-        f"{ttft * 1e3:.3f} ms, step p50 {step_ms:.3f} ms (ticks without admission); {synced}")
+        f"{launches} kernel launches; {line}; {synced}")
     pool_bytes = quant.tree_bytes(eng._pool)
     eng.close()
-    return done, launches, pool_bytes
+    return done, launches, pool_bytes, line
+
+
+def serve_sampled_int8(ServeEngine, pa, params, cfg, stream):
+    """The stream sampled (`SAMPLING`) through the int8 kernel, int8
+    weights and pool: K1's int8 form on the sampled path, its launches
+    counted from 0, steps x layers, the continuous schedule's steps,
+    every logprob finite and at most 0.  Returns the launches."""
+    # The sampler's first use (its own kernels, the caching allocator)
+    # off the record.
+    serve(ServeEngine, params, cfg, stream[:2], "cuda", True, warm_up=True,
+          **SAMPLING)[0].close()
+    pa.paged_attention.launches = 0
+    eng, done, wall, steps, synced = serve(ServeEngine, params, cfg, stream, "cuda", True,
+                                           **SAMPLING)
+    launches = pa.paged_attention.launches
+    if (eng.device_steps, launches) != (SAMPLED_SCHEDULE["continuous"][1],
+                                        eng.device_steps * cfg.n_layers):
+        raise AssertionError(f"int8 sampled: {eng.device_steps} steps, {launches} launches")
+    if not all(math.isfinite(lp) and lp <= 0 for r in done.values() for lp in r.logprobs):
+        raise AssertionError("int8 sampled: a logprob is not finite or above 0")
+    log(f"engine int8 sampled (T 0.8, top_k 50, top_p 0.95): {eng.device_steps} steps, "
+        f"{launches} kernel launches; {serving_line(done, wall, steps)}; {synced}")
+    eng.close()
+    return launches
 
 
 def serve_gather(ServeEngine, params, cfg, stream, form, kv_int8=False):
@@ -767,8 +834,8 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     params = weights.cast_matrices(cfg_mod.init_params(cfg, gen, device="cuda"))
     stream = make_stream(cfg.vocab)
 
-    done, launches, _ = serve_main_path(serve_mod.ServeEngine, pa, quant, params, cfg,
-                                        stream, "bf16")
+    done, launches, _, line = serve_main_path(serve_mod.ServeEngine, pa, quant, params, cfg,
+                                              stream, "bf16")
     g_done = serve_gather(serve_mod.ServeEngine, params, cfg, stream, "bf16")
     profile_decode(torch, serve_mod.ServeEngine, params, cfg)
 
@@ -780,7 +847,7 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     for leaf in pool.values():
         leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * 0.5)
     check_step_logits(torch, paged, params, cfg, pool, "bf16")
-    return launches
+    return launches, line
 
 
 def dequant_routes(torch):
@@ -838,8 +905,9 @@ def phase_engine_int8(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     check_dequant_routes(torch, quant, params, flush=torch.empty(
         64 * 2**20, dtype=torch.uint8, device="cuda").zero_)
 
-    done, launches, pool_bytes = serve_main_path(serve_mod.ServeEngine, pa, quant, params,
-                                                 cfg, stream, "int8", kv_int8=True)
+    done, launches, pool_bytes, _ = serve_main_path(serve_mod.ServeEngine, pa, quant, params,
+                                                    cfg, stream, "int8", kv_int8=True)
+    sampled = serve_sampled_int8(serve_mod.ServeEngine, pa, params, cfg, stream)
     bf16_pool_bytes = quant.tree_bytes(paged.init_block_pool(cfg, 41, 128, device="cuda"))
     log(f"int8 engine bytes on the card: weights {quant.tree_bytes(params)} (bf16 engine "
         f"{bf16_weight_bytes}), pool {pool_bytes} (bf16 pool {bf16_pool_bytes})")
@@ -871,7 +939,7 @@ def phase_engine_int8(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     check_step_logits(torch, paged, params, cfg, pool, "int8")
     del pool
     profile_decode(torch, serve_mod.ServeEngine, params, cfg, kv_int8=True)
-    return launches
+    return launches, sampled
 
 
 def prefix_stream(vocab: int):
@@ -1346,6 +1414,382 @@ def phase_warm_restart(torch, serve_mod, pa, params, cfg, logits_at):
     check_near_ties(torch, warm_done, cold_done, logits_at, "warm restart vs cold engine")
     return launches
 
+# The sampled phase's counts (admission waves, device steps, wasted
+# steps, device calls) for each of SAMPLED_RUNS: its requests finish on
+# their budgets, so they do not depend on the width, and
+# tests/test_torch_sampled_serve.py's TestSmokeSchedule pins them on the
+# CPU.  Host syncs are calls + waves.
+SAMPLED_SCHEDULE = {"continuous": (8, 113, 0, 113), "tick": (8, 116, 29, 29),
+                    "continuous 4 slots": (12, 181, 0, 181)}
+# Two sampled runs of one stream may differ where their logits do: each
+# run's logits are bf16 values that another batch shape (another cuBLAS
+# kernel) may round an ulp apart.  A divergence is accepted when the two
+# runs' logits at that token lie within 2 bf16 ulps of the row's largest
+# logit of each other, and each run's token is its own sampler's pick from
+# its own logits under the request's key.
+SAMPLED_TIE = 2 ** -6
+GUMBEL_RTOL = 2 ** -20  # card vs CPU gumbel: log rounds its own way on each
+
+
+def check_prng_bitwise(torch, prng):
+    """Threefry on the card equals the CPU's bit for bit: the keys of 8
+    rows (``fold_in(key(seed), pos)``), then ``bits``, ``split`` and
+    ``uniform`` over a (8, 32768) draw with one key a row and over one
+    (8 * 32768,) draw with one key; ``gumbel`` within ``2**-20 * max(1,
+    |g|)``."""
+    seeds = torch.arange(8, dtype=torch.int32) * 7919 - 3
+    pos = torch.arange(8, dtype=torch.int32) * 97 + 64
+    cpu_rows = prng.fold_in(prng.key(seeds), pos)
+    gpu_rows = prng.fold_in(prng.key(seeds.cuda()), pos.cuda())
+    if not torch.equal(gpu_rows.cpu(), cpu_rows):
+        raise AssertionError("prng: per-row keys differ between the card and the CPU")
+    tiny = torch.finfo(torch.float32).tiny
+    one = prng.key(1234)
+    worst = 0.0
+    for label, ck, gk, shape in (("(8, 32768), a key a row", cpu_rows, gpu_rows, (32768,)),
+                                 ("(262144,), one key", one, one.cuda(), (8 * 32768,))):
+        draws = {
+            "bits": lambda k: prng.bits(k, shape),
+            "split": lambda k: prng.split(k, 5),
+            "uniform": lambda k: prng.uniform(k, shape, minval=tiny).view(torch.int32),
+        }
+        for name, fn in draws.items():
+            if not torch.equal(fn(gk).cpu(), fn(ck)):
+                raise AssertionError(f"prng {name} {label}: the card's differs from the CPU's")
+        want = prng.gumbel(ck, shape)
+        err = ((prng.gumbel(gk, shape).cpu() - want).abs() / want.abs().clamp(min=1)).max().item()
+        if err > GUMBEL_RTOL:
+            raise AssertionError(f"prng gumbel {label}: relative error {err} > {GUMBEL_RTOL}")
+        worst = max(worst, err)
+    log(f"prng on the card: keys, bits, split and uniform bitwise equal to the CPU's over "
+        f"(8, 32768) with a key a row and (262144,) with one key; gumbel max relative error "
+        f"{worst}")
+
+
+def check_filter_mask(torch, decode, logits):
+    """The card's top-k/top-p keep mask equals the CPU's on one step's
+    logits, except where a token's exclusive top-p mass is within 1e-6 of
+    p (the two cumulative sums round in their own order)."""
+    T, k, p = SAMPLING["temperature"], SAMPLING["top_k"], SAMPLING["top_p"]
+    scaled = logits / T
+    got = torch.isfinite(decode.filter_logits(scaled, top_k=k, top_p=p)).cpu()
+    want = torch.isfinite(decode.filter_logits(scaled.cpu(), top_k=k, top_p=p))
+    srt, order = torch.sort(scaled.cpu().double(), dim=-1, descending=True, stable=True)
+    probs = torch.softmax(srt, dim=-1)
+    before = torch.cumsum(probs, dim=-1) - probs
+    unsure = torch.zeros_like(want).scatter(-1, order, (before - p).abs() <= 1e-6)
+    bad = (got != want) & ~unsure
+    if bad.any():
+        raise AssertionError(f"filter mask: {int(bad.sum())} tokens differ card vs CPU")
+    log(f"filter mask card vs CPU on one step's (8, 32768) logits: equal, {int(got.sum())} kept, "
+        f"{int(unsure.sum())} within 1e-6 of the top-p boundary")
+
+
+def record_picks(eng, picks):
+    """Keeps every pick the engine makes (admission waves and decode
+    steps): device copies of the logits, seeds, positions and tokens, no
+    sync, and which rows held a request (a decode step also picks for
+    idle rows).  `pick_table` indexes them after the run."""
+    in_step = [False]
+
+    def step(_real=eng._step_once):
+        in_step[0] = True
+        try:
+            _real()
+        finally:
+            in_step[0] = False
+
+    def sample(logits, seeds, positions, _real=eng._sample):
+        toks = _real(logits, seeds, positions)
+        live = ([r is not None for r in eng._row_req] if in_step[0]
+                else [True] * logits.shape[0])
+        picks.append((logits.clone(), seeds.clone(), positions.clone(), toks.clone(), live))
+        return toks
+
+    eng._step_once = step
+    eng._sample = sample
+
+
+def pick_table(picks):
+    """``{(seed, position): (logits row, token)}`` of the recorded picks
+    of rows that held a request (a stream's seeds are its request ids, so
+    the key names one token of one request)."""
+    table = {}
+    for logits, seeds, positions, toks, live in picks:
+        for b, (seed, pos, tok) in enumerate(zip(seeds.tolist(), positions.tolist(),
+                                                toks.tolist())):
+            if live[b]:
+                table[(seed, pos)] = (logits[b], tok)
+    return table
+
+
+def check_sampled_runs(torch, prng, decode, base, other, stream, tables, label) -> int:
+    """Per request, ``other``'s tokens equal ``base``'s up to the first
+    divergence; there the two runs' recorded logits must lie within
+    ``SAMPLED_TIE * max|logit|`` of each other and each run's token be its
+    sampler's pick from its own logits under the request's key.  Returns
+    the requests equal throughout."""
+    pick = decode._make_pick(True, SAMPLING["temperature"], SAMPLING["top_k"], SAMPLING["top_p"])
+    equal = 0
+    for rid, r in base.items():
+        a, b = r.tokens, other[rid].tokens
+        i = next((j for j in range(len(a)) if a[j] != b[j]), None)
+        if i is None:
+            equal += 1
+            continue
+        where = (r.seed, len(stream[rid][0]) + i)
+        (la, ta), (lb, tb) = tables[0][where], tables[1][where]
+        key = prng.fold_in(prng.key(r.seed), where[1]).to(la.device)[None]
+        err = (la - lb).abs().max().item()
+        tol = SAMPLED_TIE * la.abs().max().item()
+        picks = (int(pick(la[None], key)[0]), int(pick(lb[None], key)[0]))
+        log(f"{label}, request {rid}: tokens differ first at {i} ({a[i]} vs {b[i]}); the runs' "
+            f"logits there differ by {err} (tolerance {tol}); each run's own pick {picks}")
+        if (ta, tb) != (a[i], b[i]) or err > tol or picks != (a[i], b[i]):
+            raise AssertionError(f"{label}, request {rid}: tokens differ at {i}, not explained "
+                                 "by the runs' logits")
+    return equal
+
+
+def check_logprobs(torch, decode, done, stream, table, positions: int = 8) -> float:
+    """Every logprob finite and at most 0, one a token; at ``positions``
+    recorded picks, equal to log_softmax of that pick's logits at its
+    token within 1e-5.  Returns the worst error."""
+    for r in done.values():
+        if len(r.logprobs) != len(r.tokens) or not all(
+                math.isfinite(lp) and lp <= 0 for lp in r.logprobs):
+            raise AssertionError(f"request {r.id}: logprobs {r.logprobs[:4]}...")
+    worst = 0.0
+    chosen = sorted(table)[::max(1, len(table) // positions)][:positions]
+    for seed, pos in chosen:
+        row, tok = table[(seed, pos)]
+        want = torch.log_softmax(row.float(), dim=-1)[tok].item()
+        worst = max(worst, abs(done[seed].logprobs[pos - len(stream[seed][0])] - want))
+    if len(chosen) < positions or worst > 1e-5:
+        raise AssertionError(f"logprobs vs log_softmax of the pick's logits: {len(chosen)} "
+                             f"positions, max abs err {worst}")
+    return worst
+
+
+def sampler_times(torch, prng, decode, eng, logits, seeds, positions, flush):
+    """The sampler's time a step on one step's (8, 32768) logits: kernel
+    time (a profile of 8 calls), event time (the median of 20, the host's
+    dispatch hidden behind a device spin) and host time (20 calls back to
+    back, then a sync) of the keys and the gumbel draw (Threefry), of the
+    filter (the sort, softmax, cumsum, scatter), and of the whole pick
+    with its logprob.  Returns the whole pick's kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    V = logits.shape[-1]
+    T, k, p = SAMPLING["temperature"], SAMPLING["top_k"], SAMPLING["top_p"]
+    parts = {
+        "keys + gumbel (threefry)": lambda: prng.gumbel(prng.fold_in(prng.key(seeds), positions),
+                                                        (V,)),
+        "filter (sort, softmax, cumsum, scatter)": lambda: decode.filter_logits(
+            logits / T, top_k=k, top_p=p),
+        "whole pick + logprob": lambda: decode._chosen_logprob(
+            logits, eng._sample(logits, seeds, positions)),
+    }
+    out = {}
+    for name, fn in parts.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                fn()
+            torch.cuda.synchronize()
+        kernels = trace_kernels(prof, "chip_smoke_sampler_trace.json")
+        kernel_ms = sum(float(e["dur"]) for e in kernels) / 8 / 1e3 if kernels else float("nan")
+        event_ms = time_ms(fn, flush, n=20, warmup=3)
+        # Host clock over 20 back-to-back calls and one sync: the larger of
+        # the host's dispatch and the device's work, a call.
+        t = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) / 20 * 1e3
+        out[name] = kernel_ms
+        log(f"sampler, {name}: kernel time {kernel_ms:.4f} ms, {len(kernels) // 8} kernels, "
+            f"event time {event_ms:.4f} ms, host time {host_ms:.4f} ms a step of 8 rows")
+    return out["whole pick + logprob"]
+
+
+def phase_sampling(torch, serve_mod, prng, decode, pa, params, cfg, greedy_line):
+    """Sampled serving at full width (bf16, K1): Threefry on the card
+    against the CPU's; the main stream at temperature 0.8, top_k 50, top_p
+    0.95 with logprobs, three ways (continuous at 8 slots, fused ticks of
+    4, continuous at 4 slots), each run's K1 launches counted from 0 and
+    equal to steps x layers, its counts the CPU schedule test's; tokens
+    equal across the runs but where their logits differ (each run's picks
+    recorded); the filter mask against the CPU's; logprobs against the
+    pick's logits; the sampler's device time.  Returns the launches of
+    each run."""
+    stream = make_stream(cfg.vocab)
+    check_prng_bitwise(torch, prng)
+    serve(serve_mod.ServeEngine, params, cfg, stream[:2], "cuda", warm_up=True,
+          **SAMPLING)[0].close()
+    runs, launches, tables = {}, {}, {}
+    for label, kw in SAMPLED_RUNS.items():
+        box = {"picks": []}
+
+        def before(eng, box=box):
+            record_picks(eng, box["picks"])
+            box["walls"] = timed_steps(eng)
+            box["waves"] = count_waves([eng])
+
+        pa.paged_attention.launches = 0  # count only this run's launches
+        eng, done, wall, _, synced = serve(serve_mod.ServeEngine, params, cfg, stream, "cuda",
+                                           before=before, **SAMPLING, **kw)
+        n = launches[f"sampled {label}"] = pa.paged_attention.launches
+        counts = (box["waves"][0], eng.device_steps, eng.wasted_steps, device_calls(eng))
+        if counts != SAMPLED_SCHEDULE[label]:
+            raise AssertionError(f"sampled {label}: (waves, steps, wasted, calls) {counts}, the CPU "
+                                 f"schedule test pins {SAMPLED_SCHEDULE[label]}")
+        if n != eng.device_steps * cfg.n_layers:
+            raise AssertionError(f"sampled {label}: launches {n} != {eng.device_steps} steps x "
+                                 f"{cfg.n_layers} layers")
+        for r in done.values():
+            if r.finish_reason != "budget" or not all(0 <= t < cfg.vocab for t in r.tokens):
+                raise AssertionError(f"sampled {label}, request {r.id}: {r.finish_reason}")
+        per_step = [w / (kw.get("steps_per_tick", 1) if kw.get("scheduling") == "tick" else 1)
+                    for w in box["walls"]]
+        log(f"sampled {label}: {len(done)} requests, waves/steps/wasted/calls {counts}, {n} "
+            f"kernel launches; {serving_line(done, wall, per_step)}; {synced}")
+        runs[label], tables[label] = done, pick_table(box["picks"])
+        if label == "continuous":
+            # A decode step's picks with all 8 rows live (after the first wave).
+            step = next(p for p in box["picks"][1:] if all(p[4]) and len(p[4]) == 8)
+        eng.close()
+    log(f"greedy engine (phase engine): {greedy_line}")
+    base = runs["continuous"]
+    for label in ("tick", "continuous 4 slots"):
+        equal = check_sampled_runs(torch, prng, decode, base, runs[label], stream,
+                                   (tables["continuous"], tables[label]),
+                                   f"sampled {label} vs continuous")
+        log(f"sampled {label} vs continuous: {equal} of {len(base)} requests equal throughout")
+    err = check_logprobs(torch, decode, base, stream, tables["continuous"])
+    log(f"logprobs: all finite and <= 0; at 8 picks vs log_softmax of the pick's logits: "
+        f"max abs err {err}")
+    logits, seeds, positions, _, _ = step
+    check_filter_mask(torch, decode, logits)
+    del tables, runs
+
+    step_ms = profile_decode(torch, serve_mod.ServeEngine, params, cfg, **SAMPLING)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda").zero_
+    eng = serve_mod.ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
+                                **SAMPLING)
+    pick_ms = sampler_times(torch, prng, decode, eng, logits, seeds, positions, flush)
+    eng.close()
+    if step_ms:
+        log(f"sampler share of a sampled decode step's kernel time: {pick_ms:.4f} of "
+            f"{step_ms:.4f} ms ({pick_ms / step_ms:.4f})")
+    return launches
+
+
+def speculative_rounds(spec_mod, fn, *args):
+    """``fn(*args)`` (a with_stats speculative generator) with its verify
+    frontiers recorded: returns its outputs and the accepted draft
+    tokens of every round but the last (whose commit the output cuts)."""
+    frontiers = []
+    real = spec_mod.decode_forward
+
+    def recording(params, tokens, cache, p0, cfg):
+        if tokens.shape[1] > 1 and p0:  # a verify pass (the prefill starts at 0)
+            frontiers.append(p0)
+        return real(params, tokens, cache, p0, cfg)
+
+    spec_mod.decode_forward = recording
+    try:
+        out = fn(*args)
+    finally:
+        spec_mod.decode_forward = real
+    return out, [b - a - 1 for a, b in zip(frontiers, frontiers[1:])]
+
+
+def phase_speculative(torch, decode, spec_mod, prng, params, cfg, logits_at):
+    """Speculative decoding at full width on a contiguous cache (no K1):
+    prompts of 128 tokens, 64 new, a 2-layer draft proposing 4 a round, at
+    B=1 and B=4.  Greedy output equals `make_generate`'s up to the first
+    divergence, which is a near-tie of the dense forward's logits (the
+    verify pass's S=5 products and the decode step's S=1 products are
+    other cuBLAS shapes); rounds, tokens a full-model pass and wall time
+    against `make_generate`'s.  Then sampled at temperature 0.8 (healthy,
+    its acceptance rate), and a full-depth draft, greedy and sampled,
+    whose acceptance rate must be at least 0.95."""
+    import numpy as np
+
+    P, N, K = 128, 64, 4
+    rng = np.random.RandomState(5)
+    prompts = torch.tensor(rng.randint(0, cfg.vocab, (4, P)), dtype=torch.int32, device="cuda")
+    gen = decode.make_generate(cfg, prompt_len=P, steps=N)
+    kw = dict(prompt_len=P, steps=N, draft_len=K, with_stats=True)
+    spec = spec_mod.make_generate_speculative(cfg, draft_layers=2, **kw)
+    gen(params, prompts[:1])  # warm-up: cuBLAS handles and shapes
+    spec(params, prompts[:1])
+    for B in (1, 4):
+        prompt = prompts[:B]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = gen(params, prompt)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t
+        t = time.perf_counter()
+        (got, rounds, ok), accepted = speculative_rounds(spec_mod, spec, params, prompt)
+        spec_wall = time.perf_counter() - t
+        if not bool(ok) or got.shape != (B, P + N):
+            raise AssertionError(f"speculative B={B}: healthy {bool(ok)}, shape {tuple(got.shape)}")
+        want_rows = {b: _Gen(want[b, P:].tolist(), prompt[b].tolist()) for b in range(B)}
+        got_rows = {b: _Gen(got[b, P:].tolist(), prompt[b].tolist()) for b in range(B)}
+        check_near_ties(torch, got_rows, want_rows, logits_at,
+                        f"speculative greedy B={B} vs make_generate")
+        rate = sum(accepted) / (K * len(accepted)) if accepted else float("nan")
+        log(f"speculative greedy B={B}, 2-layer draft: {rounds} rounds, {N / rounds:.3f} tokens "
+            f"a full-model pass, acceptance {rate:.4f}; wall {spec_wall * 1e3:.3f} ms against "
+            f"make_generate's {gen_wall * 1e3:.3f} ms")
+    sampled = spec_mod.make_generate_speculative(cfg, draft_layers=2, temperature=0.8, **kw)
+    (got, rounds, ok), accepted = speculative_rounds(spec_mod, sampled, params, prompts,
+                                                     prng.key(7))
+    if not bool(ok) or not bool(((got >= 0) & (got < cfg.vocab)).all()):
+        raise AssertionError(f"speculative sampled: healthy {bool(ok)} or tokens out of range")
+    log(f"speculative sampled B=4 at T=0.8, 2-layer draft: {rounds} rounds, "
+        f"acceptance {sum(accepted) / (K * len(accepted)):.4f}")
+    for T in (0.0, 0.8):
+        full = spec_mod.make_generate_speculative(cfg, draft_layers=cfg.n_layers, temperature=T,
+                                                  **kw)
+        args = (params, prompts[:1]) + ((prng.key(7),) if T else ())
+        (got, rounds, ok), accepted = speculative_rounds(spec_mod, full, *args)
+        rate = sum(accepted) / (K * len(accepted))
+        if not bool(ok) or rate < 0.95:
+            raise AssertionError(f"speculative full-depth draft T={T}: acceptance {rate} < 0.95 "
+                                 f"or unhealthy ({bool(ok)})")
+        log(f"speculative full-depth draft B=1 T={T}: {rounds} rounds, acceptance {rate:.4f}")
+
+
+def phase_sampled(torch, cfg_mod, serve_mod, prng, decode, spec_mod, weights, pa, greedy_line):
+    """Sampled serving and speculative decoding on the serving width's
+    seeded weights.  Returns K1's launches on the sampled paths."""
+    cfg = cfg_mod.BurninConfig(**SERVE_WIDTH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = weights.cast_matrices(cfg_mod.init_params(cfg, gen, device="cuda"))
+    logits_at = dense_logits_at(cfg_mod, params, cfg)
+    t = time.perf_counter()
+    launches = phase_sampling(torch, serve_mod, prng, decode, pa, params, cfg, greedy_line)
+    log(f"phase sampling: {time.perf_counter() - t:.3f} s")
+    t = time.perf_counter()
+    with torch.no_grad():
+        phase_speculative(torch, decode, spec_mod, prng, params, cfg, logits_at)
+    log(f"phase speculative: {time.perf_counter() - t:.3f} s")
+    return launches
+
+
+@dataclasses.dataclass
+class _Gen:
+    """A generated row in the shape `check_near_ties` reads."""
+
+    tokens: list
+    prompt: list
+
 
 def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, disagg_mod, weights, quant, pa,
                        paged):
@@ -1486,7 +1930,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from tpu_dra_torch.parallel import (
-            burnin, disagg, flash, mfu, paged, quant, ring, serve, swap, weights,
+            burnin, decode, disagg, flash, mfu, paged, prng, quant, ring, serve, speculative,
+            swap, weights,
         )
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
@@ -1523,15 +1968,26 @@ def main() -> int:
         phase_flash_grads(torch, flash, ring)
         log(f"phase flash kernel: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        paged_row["launches"] = phase_engine(torch, burnin, serve, weights, quant, pa, paged)
+        paged_row["launches"], greedy_line = phase_engine(torch, burnin, serve, weights, quant,
+                                                          pa, paged)
         log(f"phase engine: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        int8_row["launches"] = phase_engine_int8(torch, burnin, serve, weights, quant, pa, paged)
+        int8_row["launches"], int8_sampled = phase_engine_int8(torch, burnin, serve, weights,
+                                                               quant, pa, paged)
+        int8_row["launches_by_path"] = {"int8 engine": int8_row["launches"],
+                                        "int8 sampled": int8_sampled}
         log(f"phase int8 engine: {time.perf_counter() - t:.3f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        sampled = phase_sampled(torch, burnin, serve, prng, decode, speculative, weights, pa,
+                                greedy_line)
+        gc.collect()
+        torch.cuda.empty_cache()
         t = time.perf_counter()
         hierarchy = phase_kv_hierarchy(torch, burnin, serve, swap, disagg, weights, quant, pa,
                                        paged)
         log(f"phase KV hierarchy: {time.perf_counter() - t:.3f} s; kernel launches {hierarchy}")
+        paged_row["launches_by_path"] = {"engine": paged_row["launches"], **sampled, **hierarchy}
         t = time.perf_counter()
         flash_row["launches"] = phase_train(torch, burnin, mfu, fa, flash)
         log(f"phase train: {time.perf_counter() - t:.3f} s")

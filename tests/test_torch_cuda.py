@@ -9,7 +9,9 @@ held against its plain PyTorch version, which the CPU tests hold against
 the reference; the engine's kernel path against its gather path, with
 bf16 and with int8 pools and weights; the flash gradient against the
 reference attention's; the kernel over tables whose rows share blocks
-(the prefix cache's); the engine with the prefix cache on.
+(the prefix cache's); the engine with the prefix cache on; Threefry on
+the card bitwise against the CPU's; the sampled engine's three
+schedulings; one greedy speculative run against `make_generate`.
 
 Tolerances: paged kernel vs plain about one bf16 ulp of the value
 (``atol = 2**-9``, ``rtol = 2**-7``): both sides read the same bf16 values
@@ -18,14 +20,16 @@ f32 sums taken in another order; flash kernel vs plain the same one ulp
 (both round one f32 result once), ``1e-5`` for f32 outputs; decode-step
 logits within 2 bf16 ulps of the gather path's magnitude (``rtol =
 2**-6``, ``atol = 2**-6 * max|ref|``); flash gradients ``1e-5`` (both
-differentiate the same oracle)."""
+differentiate the same oracle); sampled runs and speculative tokens equal
+(same card, same batch shape: the same products) or, across batch
+shapes, equal up to a near-tie of ``2**-6 * max|logit|``."""
 
 import dataclasses
 
 import pytest
 import torch
 
-from tpu_dra_torch.parallel import burnin, flash, paged, quant, ring
+from tpu_dra_torch.parallel import burnin, decode, flash, paged, prng, quant, ring, speculative
 from tpu_dra_torch.parallel.kernels import (
     flash_attention_forward,
     flash_attention_plain,
@@ -304,6 +308,72 @@ class TestEngine:
 
     def test_prefix_engine_launches_once_per_layer_and_step(self, cuda):
         _prefix_engine_launches(burnin.init_params(_CFG, device=cuda))
+
+
+@pytest.mark.cuda
+class TestSampling:
+    def test_threefry_on_the_card_is_bitwise_the_cpus(self, cuda):
+        seeds = torch.tensor([0, -1, 7, 2 ** 31 - 1], dtype=torch.int32)
+        pos = torch.tensor([0, 5, 1023, 2 ** 31 - 1], dtype=torch.int32)
+        ck = prng.fold_in(prng.key(seeds), pos)
+        gk = prng.fold_in(prng.key(seeds.to(cuda)), pos.to(cuda))
+        assert torch.equal(gk.cpu(), ck)
+        tiny = torch.finfo(torch.float32).tiny
+        for c, g, shape in ((ck, gk, (1000,)), (prng.key(3), prng.key(3).to(cuda), (4, 1001))):
+            assert torch.equal(prng.bits(g, shape).cpu(), prng.bits(c, shape))
+            assert torch.equal(prng.split(g, 7).cpu(), prng.split(c, 7))
+            assert torch.equal(prng.uniform(g, shape, minval=tiny).cpu(),
+                               prng.uniform(c, shape, minval=tiny))
+
+    def test_sampled_engine_three_ways(self, cuda):
+        """Continuous and fused ticks at 3 slots give the same tokens and
+        logprobs (the same products); 2 slots the same tokens up to a
+        near-tie; every run launches the kernel once a layer a step."""
+        params = burnin.init_params(_CFG, device=cuda)
+        reqs = [(list(range(1, n + 1)), b) for n, b in ((8, 6), (3, 5), (5, 4), (1, 6), (6, 2))]
+        outs = {}
+        for label, kw in (("continuous", dict(slots=3)),
+                          ("tick", dict(slots=3, scheduling="tick", steps_per_tick=4)),
+                          ("2 slots", dict(slots=2))):
+            eng = ServeEngine(params, _CFG, prompt_slots=8, max_new_cap=6, temperature=0.8,
+                              top_k=20, top_p=0.9, with_logprobs=True, **kw)
+            ids = [eng.submit(p, b, seed=17 * i) for i, (p, b) in enumerate(reqs)]
+            before = paged_attention.launches
+            eng.run()
+            assert paged_attention.launches - before == eng.device_steps * _CFG.n_layers
+            outs[label] = [eng.request(i) for i in ids]
+        assert [(r.tokens, r.logprobs) for r in outs["tick"]] == [
+            (r.tokens, r.logprobs) for r in outs["continuous"]]
+        for a, b in zip(outs["2 slots"], outs["continuous"]):
+            assert len(a.tokens) == len(b.tokens)
+            assert all(lp <= 0 for lp in a.logprobs)
+            i = next((j for j in range(len(a.tokens)) if a.tokens[j] != b.tokens[j]), None)
+            if i is not None:
+                seq = torch.tensor([a.prompt + b.tokens[:i]], dtype=torch.int32, device=cuda)
+                cache = decode.init_cache(_CFG, 1, device=cuda)
+                row = decode.decode_forward(params, seq, cache, 0, _CFG)[0][0, -1]
+                g = prng.gumbel(prng.fold_in(prng.key(b.seed), len(a.prompt) + i).to(cuda),
+                                (_CFG.vocab,))
+                z = row / 0.8 + g
+                tol = 2 ** -6 * row.abs().max().item() / 0.8
+                assert abs((z[a.tokens[i]] - z[b.tokens[i]]).item()) <= 2 * tol
+
+    def test_speculative_greedy_equals_make_generate(self, cuda):
+        params = burnin.init_params(_CFG, device=cuda)
+        prompt = torch.tensor([[3, 1, 4, 1, 5, 9, 2, 6], [2, 7, 1, 8, 2, 8, 1, 8]],
+                              dtype=torch.int32, device=cuda)
+        want = decode.make_generate(_CFG, prompt_len=8, steps=12)(params, prompt)
+        got, rounds, ok = speculative.make_generate_speculative(
+            _CFG, prompt_len=8, steps=12, draft_layers=_CFG.n_layers, draft_len=3,
+            with_stats=True)(params, prompt)
+        assert bool(ok) and rounds <= 12
+        for a, b in zip(got.tolist(), want.tolist()):
+            i = next((j for j in range(len(a)) if a[j] != b[j]), None)
+            if i is not None:  # the verify pass's products have another shape
+                seq = torch.tensor([b[:i]], dtype=torch.int32, device=cuda)
+                row = decode.decode_forward(params, seq, decode.init_cache(_CFG, 1, device=cuda),
+                                            0, _CFG)[0][0, -1]
+                assert (row[b[i]] - row[a[i]]).abs().item() <= 2 ** -5 * row.abs().max().item()
 
 
 # (b, s, h, d, block): both head widths the kernel takes, a sequence that

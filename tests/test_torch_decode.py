@@ -119,8 +119,12 @@ class TestHelpers:
         np.testing.assert_allclose(got_lp.numpy(), want_lp, rtol=1e-6, atol=1e-6)
 
     def test_sampling_rejected(self):
-        with pytest.raises(ValueError, match="greedy"):
+        """Sampling is rejected without a temperature above 0, and a
+        sampled pick without a key."""
+        with pytest.raises(ValueError, match="temperature > 0"):
             td._make_pick(True)
+        with pytest.raises(ValueError, match="requires a PRNG key"):
+            td._make_pick(True, 0.8)(torch.zeros((2, 64)))
 
     @pytest.mark.parametrize(
         "first,steps",

@@ -1,11 +1,16 @@
 """KV-cache decode for the burn-in LM: the incremental serving path.
 
-Counterpart of `tpu_dra.parallel.decode` for the greedy, single-device
-path: the cache (bf16, or int8 with a scale per token and head), the
-per-layer decode block, the per-row decode step the engine runs, and the
-greedy pick.  Params may be int8 (`quant.quantize_params`): each layer's
-``{"q","s"}`` leaves are dequantized to bf16 when the layer runs, and
-the embedding table when the logits need it.  Where the reference returns
+Counterpart of `tpu_dra.parallel.decode` on one device: the cache (bf16,
+or int8 with a scale per token and head), the per-layer decode block,
+the per-row decode step the engine runs, the contiguous-cache forward
+(`decode_forward`) and the generation factories over it
+(`make_generate`, `make_generate_padded`), and the decoding policy:
+greedy argmax, or temperature-scaled sampling restricted by top-k/top-p
+(`filter_logits`) and drawn with JAX's own Threefry (`prng`), so that a
+key gives the reference's tokens.  Params may be int8
+(`quant.quantize_params`): each layer's ``{"q","s"}`` leaves are
+dequantized to bf16 when the layer runs, and the embedding table when
+the logits need it.  Where the reference returns
 a new cache, these functions write the cache IN PLACE (``index_put_``
 or slice assignment into the stacked ``(L, ...)`` buffers) and return
 the same object: PyTorch has no donation, and a serving cache is the
@@ -33,6 +38,7 @@ from tpu_dra_torch.parallel.burnin import (
     rope_apply,
     rope_tables,
 )
+from tpu_dra_torch.parallel import prng
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.quant import (
     dequantize,
@@ -42,8 +48,13 @@ from tpu_dra_torch.parallel.quant import (
 )
 
 __all__ = [
+    "decode_forward",
+    "decode_step_padded",
     "decode_step_rows",
+    "filter_logits",
     "init_cache",
+    "make_generate",
+    "make_generate_padded",
 ]
 
 
@@ -220,16 +231,76 @@ def _check_prefix_window(c: BurninConfig, prompt_slots: int, window: int) -> Non
         )
 
 
-def _make_pick(sampled: bool):
-    """The token pick: greedy argmax (the first maximum on ties, as
-    ``jnp.argmax``), int32.  Sampling is not ported yet."""
-    if sampled:
-        raise ValueError("sampled decoding is not ported yet: greedy only")
+def _validate_filters(vocab: int, sampled: bool, top_k: "int | None",
+                      top_p: "float | None") -> None:
+    """Build-time filter checks shared by the generate factories and the
+    engine: a filter with greedy decoding would be ignored, so it is a
+    caller bug."""
+    if top_k is None and top_p is None:
+        return
+    if not sampled:
+        raise ValueError(
+            "top_k/top_p require temperature > 0 (greedy argmax ignores "
+            "the sampling support)"
+        )
+    if top_k is not None and not 1 <= top_k <= vocab:
+        raise ValueError(f"top_k must be in [1, {vocab}], got {top_k}")
+    if top_p is not None and not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
-    def pick(logits):
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+def filter_logits(logits, *, top_k: "int | None" = None,
+                  top_p: "float | None" = None):
+    """Restrict (..., vocab) logits to their sampling support: tokens
+    outside the top-k set and/or the top-p nucleus get -inf.  One stable
+    descending sort feeds both filters (equal logits keep index order,
+    ``jnp.argsort(-x)``'s order, so top_k=1 keeps the token argmax
+    picks); a token stays in the nucleus while the probability mass
+    strictly before it is below p (the top token always stays); the keep
+    mask is scattered back through the sort's permutation."""
+    V = logits.shape[-1]
+    _validate_filters(V, True, top_k, top_p)
+    sorted_logits, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    keep_sorted = torch.ones(logits.shape, dtype=torch.bool, device=logits.device)
+    if top_k is not None:
+        keep_sorted &= torch.arange(V, device=logits.device) < top_k
+    if top_p is not None:
+        probs = torch.softmax(sorted_logits, dim=-1)
+        before = torch.cumsum(probs, dim=-1) - probs  # exclusive
+        keep_sorted &= before < top_p
+    keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+    return torch.where(keep, logits, -torch.inf)
+
+
+def _make_pick(sampled: bool, temperature: float = 0.0,
+               top_k: "int | None" = None, top_p: "float | None" = None):
+    """The token pick ``pick(logits (B, vocab) f32, key=None) -> (B,)
+    int32``: greedy argmax (the first maximum on ties, as
+    ``jnp.argmax``), or the logits divided by ``temperature``, filtered
+    (`filter_logits`) and drawn with `prng.categorical` under ``key``
+    (one key for the batch, or ``(B, 2)`` keys, one a row)."""
+    if sampled and not temperature > 0.0:
+        raise ValueError(f"sampled decoding needs temperature > 0, got {temperature}")
+
+    def pick(logits, key=None):
+        if not sampled:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        if key is None:
+            raise ValueError("temperature > 0 requires a PRNG key: pick(logits, key)")
+        scaled = logits / temperature
+        if top_k is not None or top_p is not None:
+            scaled = filter_logits(scaled, top_k=top_k, top_p=top_p)
+        return prng.categorical(key, scaled).to(torch.int32)
 
     return pick
+
+
+def _make_keys(sampled: bool, key, steps: int, device):
+    """One key a generated token: ``split(key, steps)``, or zeros when
+    greedy (never read)."""
+    if sampled:
+        return prng.split(torch.as_tensor(key, dtype=torch.int64, device=device), steps)
+    return torch.zeros((steps, 2), dtype=torch.int64, device=device)
 
 
 def _chosen_logprob(logits, tok):
@@ -237,3 +308,235 @@ def _chosen_logprob(logits, tok):
     (B, vocab): log-softmax in f32 at the chosen token."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     return lp.gather(-1, tok.long()[:, None])[:, 0]
+
+
+def decode_forward(params, tokens, cache, p0: int, config: BurninConfig):
+    """Forward ``tokens`` (B, S) occupying positions [p0, p0+S) against
+    the cache (written in place).  Returns ``(logits (B, S, vocab) f32,
+    cache)``.  Prefill is ``S = prompt_len, p0 = 0``; a decode step is ``S
+    = 1`` at the current position; the speculative verify pass is ``S =
+    draft_len + 1`` at the frontier."""
+    c = config
+    S = tokens.shape[1]
+    T = _cache_len(cache)
+    x = _embed_lookup(params["embed"], tokens)
+    if not c.rope:
+        x = x + params["pos"][p0:p0 + S][None]
+    dev = tokens.device
+    # Query i sits at position p0 + i and sees slots j <= p0 + i; the
+    # zeroed unwritten tail is masked like training's tril.
+    valid = torch.arange(T, device=dev)[None, :] <= p0 + torch.arange(S, device=dev)[:, None]
+    return _run_blocks(params, x, cache, p0, valid[None, None], c)
+
+
+def _reject_rope_padded(c: BurninConfig) -> None:
+    if c.rope:
+        raise ValueError(
+            "rope is not supported on the padded decode path: its decode "
+            "steps write slot prompt_slots + t while the token's logical "
+            "position is lens[b] + t, and rope keys on logical position "
+            "— serve mixed-length rope requests with the continuous "
+            "-batching engine (contiguous rows: slot == position)"
+        )
+
+
+def decode_step_padded(params, tok, cache, lens, prompt_slots: int, t: int,
+                       config: BurninConfig):
+    """One decode step of a PADDED batch: row ``b``'s prompt filled slots
+    [0, lens[b]) (pads trail up to ``prompt_slots``), generated tokens
+    take the uniform slots ``prompt_slots + 0..t``.  ``tok`` (B,) lands
+    in slot ``prompt_slots + t`` with logical position ``lens[b] + t``;
+    row ``b`` sees its real prompt slots and the decode slots so far,
+    never its pads.  Returns ``(logits (B, vocab), cache)``."""
+    c = config
+    _reject_rope_padded(c)
+    T = _cache_len(cache)
+    pos_emb = params["pos"][(lens + t).long()]  # (B, d): logical, per row
+    x = _embed_lookup(params["embed"], tok)[:, None, :] + pos_emb[:, None, :]
+    slots = torch.arange(T, device=tok.device)[None, :]
+    visible = (slots < lens[:, None]) | ((slots >= prompt_slots) & (slots <= prompt_slots + t))
+    logits, cache = _run_blocks(params, x, cache, prompt_slots + t,
+                                visible[:, None, None, :], c)
+    return logits[:, 0], cache
+
+
+def _check_chunk(c: BurninConfig, prompt_len: int, prefill_chunk: "int | None",
+                 name: str = "prompt_len") -> None:
+    if prefill_chunk is not None and (prefill_chunk < 1 or prompt_len % prefill_chunk != 0):
+        raise ValueError(
+            f"prefill_chunk must divide {name}, got {prefill_chunk} vs {prompt_len}"
+        )
+
+
+def _build_prefill_padded(c: BurninConfig, prompt_slots: int, prefill_chunk: "int | None"):
+    """Padded-batch prefill, one-shot or in ``prefill_chunk``-token
+    windows: ``prefill(params, prompt, lens_c, cache) -> (last (B,
+    vocab), cache)``, ``last`` holding each row's logits at its own last
+    real position ``lens_c[b] - 1`` (the chunked path picks it out of
+    whichever window covers it)."""
+
+    def prefill(params, prompt, lens_c, cache):
+        rows = torch.arange(prompt.shape[0], device=prompt.device)
+        last_pos = lens_c.long() - 1
+        if prefill_chunk is None or prefill_chunk == prompt_slots:
+            logits, cache = decode_forward(params, prompt, cache, 0, c)
+            return logits[rows, last_pos], cache
+        C = prefill_chunk
+        last = torch.zeros((prompt.shape[0], c.vocab), device=prompt.device)
+        for i in range(prompt_slots // C):
+            logits, cache = decode_forward(params, prompt[:, i * C:(i + 1) * C], cache, i * C, c)
+            off = last_pos - i * C  # the row's last real position, window-relative
+            cand = logits[rows, off.clamp(0, C - 1)]
+            last = torch.where(((off >= 0) & (off < C))[:, None], cand, last)
+        return last, cache
+
+    return prefill
+
+
+def _build_prefill(c: BurninConfig, prompt_len: int, prefill_chunk: "int | None"):
+    """Uniform-length prefill, the ``lens == prompt_len`` case of
+    `_build_prefill_padded`: ``prefill(params, prompt, cache) -> (last,
+    cache)``, shared by `make_generate` and the speculative decoder."""
+    padded = _build_prefill_padded(c, prompt_len, prefill_chunk)
+
+    def prefill(params, prompt, cache):
+        lens = torch.full((prompt.shape[0],), prompt_len, dtype=torch.int32,
+                          device=prompt.device)
+        return padded(params, prompt, lens, cache)
+
+    return prefill
+
+
+def _token_loop(params, cache, last_logits, pos0: int, keys, pick, c: BurninConfig,
+                logprobs: bool = True):
+    """The generation loop from a prefilled state: pick the first token
+    from ``last_logits`` (the logits at position pos0 - 1), then run
+    ``len(keys) - 1`` cached decode steps from pos0, all on the device
+    with no host sync.  Returns ``(toks (steps-1, B) the tokens fed,
+    last (B,) the final pick, lps (B, steps) the raw-model logprob of
+    every generated token (None unless ``logprobs``), fin)``, ``fin`` the
+    all-logits-finite flag as a device bool."""
+    tok = pick(last_logits, keys[0])
+    lps = [_chosen_logprob(last_logits, tok)] if logprobs else None
+    fin = torch.isfinite(last_logits).all()
+    fed = []
+    for i in range(1, keys.shape[0]):
+        logits, cache = decode_forward(params, tok[:, None], cache, pos0 + i - 1, c)
+        row = logits[:, -1]
+        nxt = pick(row, keys[i])
+        if logprobs:
+            lps.append(_chosen_logprob(row, nxt))
+        fin = fin & torch.isfinite(row).all()
+        fed.append(tok)
+        tok = nxt
+    return _stack_fed(fed, tok), tok, (torch.stack(lps, dim=1) if logprobs else None), fin
+
+
+def _stack_fed(fed, last):
+    """The tokens fed to the decode steps as (steps - 1, B) int32 (none
+    when one token was generated)."""
+    if fed:
+        return torch.stack(fed)
+    return torch.zeros((0, last.shape[0]), dtype=torch.int32, device=last.device)
+
+
+def _assemble(prompt, toks, last, fin, with_health: bool):
+    """Prompt + (fed tokens, final pick) -> the full output rows."""
+    out = torch.cat([toks.transpose(0, 1), last[:, None]], dim=1)
+    tokens_out = torch.cat([prompt.to(torch.int32), out], dim=1)
+    return (tokens_out, fin) if with_health else tokens_out
+
+
+def _key_or_raise(sampled: bool, key, signature: str) -> None:
+    if sampled and key is None:
+        raise ValueError(f"temperature > 0 requires a PRNG key: {signature}")
+
+
+def make_generate(config: BurninConfig, *, prompt_len: int, steps: int,
+                  temperature: float = 0.0, top_k: "int | None" = None,
+                  top_p: "float | None" = None, with_health: bool = False,
+                  with_logprobs: bool = False, kv_int8: bool = False,
+                  prefill_chunk: "int | None" = None):
+    """Build ``fn(params, prompt (B, prompt_len) int32[, key]) -> (B,
+    prompt_len + steps)`` on one device (the reference's ``mesh`` and
+    ``quantized`` arguments are not ported: ``params`` may be plain or
+    int8 as they come).  A fresh cache (bf16, or int8 with ``kv_int8``)
+    on the prompt's device, the prefill (one-shot, or in
+    ``prefill_chunk``-token windows, token-exact against one-shot), then
+    ``steps - 1`` decode steps, with no host sync.
+
+    Greedy when ``temperature == 0``; otherwise temperature-scaled,
+    optionally top-k/top-p filtered sampling under ``key`` (a ``(2,)``
+    key, `prng.key`), token ``i`` drawn from ``split(key, steps)[i]``
+    over the whole ``(B, vocab)`` batch, as the reference draws.
+    ``with_logprobs`` adds the ``(B, steps)`` raw-model logprobs of the
+    generated tokens, ``with_health`` the all-logits-finite flag (a
+    device bool): ``(tokens[, logprobs][, healthy])``."""
+    c = config
+    _check_window(c, prompt_len, steps, "prompt_len")
+    _check_chunk(c, prompt_len, prefill_chunk)
+    sampled = temperature > 0.0
+    _validate_filters(c.vocab, sampled, top_k, top_p)
+    pick = _make_pick(sampled, temperature, top_k, top_p)
+    prefill = _build_prefill(c, prompt_len, prefill_chunk)
+
+    @torch.no_grad()
+    def run(params, prompt, key=None):
+        _key_or_raise(sampled, key, "fn(params, prompt, key)")
+        cache = init_cache(c, prompt.shape[0], kv_int8, device=prompt.device)
+        last_logits, cache = prefill(params, prompt, cache)
+        keys = _make_keys(sampled, key, steps, prompt.device)
+        toks, last, lps, fin = _token_loop(params, cache, last_logits, prompt_len, keys,
+                                           pick, c, logprobs=with_logprobs)
+        tokens = _assemble(prompt, toks, last, fin, False)
+        parts = (tokens,)
+        if with_logprobs:
+            parts += (lps,)
+        if with_health:
+            parts += (fin,)
+        return parts if len(parts) > 1 else tokens
+
+    return run
+
+
+def make_generate_padded(config: BurninConfig, *, prompt_slots: int, steps: int,
+                         temperature: float = 0.0, top_k: "int | None" = None,
+                         top_p: "float | None" = None, with_health: bool = False,
+                         kv_int8: bool = False, prefill_chunk: "int | None" = None):
+    """Variable-length batches: ``fn(params, prompt (B, prompt_slots),
+    lens (B,)[, key]) -> (B, prompt_slots + steps)``, row ``b``'s real
+    prompt being ``prompt[b, :lens[b]]`` and the rest of the row padding.
+    Pads trail each row, so the uniform prefill is exact; decode steps
+    take uniform slots after ``prompt_slots`` at logical positions
+    ``lens[b] + t`` (`decode_step_padded`).  Lengths outside ``[1,
+    prompt_slots]`` are clamped into it and, with ``with_health``, clear
+    the health flag.  Sampling and keys as in `make_generate`."""
+    c = config
+    _check_window(c, prompt_slots, steps, "prompt_slots")
+    _check_chunk(c, prompt_slots, prefill_chunk, "prompt_slots")
+    _reject_rope_padded(c)
+    sampled = temperature > 0.0
+    _validate_filters(c.vocab, sampled, top_k, top_p)
+    pick = _make_pick(sampled, temperature, top_k, top_p)
+    prefill = _build_prefill_padded(c, prompt_slots, prefill_chunk)
+
+    @torch.no_grad()
+    def run(params, prompt, lens, key=None):
+        _key_or_raise(sampled, key, "fn(params, prompt, lens, key)")
+        in_contract = (lens >= 1) & (lens <= prompt_slots)
+        lens_c = lens.clamp(1, prompt_slots)
+        cache = init_cache(c, prompt.shape[0], kv_int8, device=prompt.device)
+        last, cache = prefill(params, prompt, lens_c, cache)
+        keys = _make_keys(sampled, key, steps, prompt.device)
+        tok = pick(last, keys[0])
+        fin = torch.isfinite(last).all() & in_contract.all()
+        fed = []
+        for t in range(steps - 1):
+            logits, cache = decode_step_padded(params, tok, cache, lens_c, prompt_slots, t, c)
+            nxt = pick(logits, keys[t + 1])
+            fin = fin & torch.isfinite(logits).all()
+            fed.append(tok)
+            tok = nxt
+        return _assemble(prompt, _stack_fed(fed, tok), tok, fin, with_health)
+
+    return run

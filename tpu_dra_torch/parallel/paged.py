@@ -156,10 +156,21 @@ def paged_decode_step_rows(params, tok, pool, table, pos, config: BurninConfig,
     ``backend``: ``"gather"`` gathers the table's reach for the dense
     masked attention; ``"cuda"`` routes the contraction through
     `kernels.paged_attention` (the CUDA kernel on CUDA tensors, its
-    plain version on CPU tensors).  ``table``/``pos`` are int32."""
+    plain version on CPU tensors).  ``table``/``pos`` are int32.
+
+    A row at or past its reach (the table's last slot or the context's,
+    whichever comes first) is an overrun row, which only a fused tick
+    makes: its request has finished and its output is dropped.  It runs
+    at the reach's last position over a table row of scratch, so every
+    gather and the kernel's walk stay in range and its writes land in
+    scratch block 0 alone."""
     if backend not in ("gather", "cuda"):
         raise ValueError(f"backend must be 'gather' or 'cuda', got {backend!r}")
     W = _pool_block_size(pool)
+    reach = min(table.shape[1] * W, config.seq)
+    over = pos >= reach
+    pos = pos.clamp(max=reach - 1)
+    table = torch.where(over[:, None], 0, table)
     x = _embed_lookup(params["embed"], tok)[:, None, :]
     if not config.rope:
         x = x + params["pos"][pos][:, None, :]

@@ -1,8 +1,9 @@
 """Continuous-batching serving engine over the paged decode step.
 
 Counterpart of `tpu_dra.parallel.serve.ServeEngine` (paged layout): the
-paged KV pool and its memory hierarchy, greedy decoding, continuous
-scheduling.  Every batch ROW has its own lifecycle —
+paged KV pool and its memory hierarchy, greedy or sampled decoding with
+per-token logprobs, continuous scheduling or fused ticks.  Every batch
+ROW has its own lifecycle —
 
     submit -> queue -> admit into a free row (alias the resident prefix
     blocks, allocate the rest, prefill the suffix windows into them) ->
@@ -40,12 +41,33 @@ The KV memory hierarchy:
   `HostBlockPool` (``"dma"``); the receiving engine restores the row at
   its next admission with position and pending token frozen.
 
-There is exactly ONE blocking device-to-host fetch per decode step and
-one per admission wave (all of a wave's first tokens come back
-together).  Prefix hits add none; a preemption and a dma handoff add one
-each (their block copies to host).  The host state the device needs
-(tokens, positions, the active mask, the block tables, the padded
-prompts) goes up through pinned staging buffers, without a host sync.
+Sampling (``temperature > 0``, optionally ``top_k``/``top_p``) is keyed
+by the request: the token that lands in position p of a request draws
+from ``fold_in(key(seed), p)`` (`prng`, JAX's Threefry bit for bit), so
+a request's output depends on its seed and positions only, never on the
+slot, the tick or the engine that served it, and survives preemption,
+swap-in and handoff unchanged.  The sampler runs on the device, inside
+the step, for every row at once.  ``with_logprobs`` keeps the raw
+model's logprob of every generated token in ``Request.logprobs``.
+
+Scheduling: ``"continuous"`` runs each of a tick's ``steps_per_tick``
+steps as its own device call, with join/leave between them;
+``"tick"`` runs them back to back in ONE device call, tokens and
+positions fed forward on the device, the active mask fixed at the call's
+start.  A row whose request finishes mid-call steps on to the call's end;
+those steps are counted (`wasted_steps`) and their tokens dropped, and
+a row that walks past its table's reach or the context reads and writes
+scratch block 0 only.
+
+There is exactly ONE blocking device-to-host fetch per device call (one
+decode step under ``"continuous"``, ``steps_per_tick`` of them under
+``"tick"``: tokens, logprobs and positions come back together) and one
+per admission wave (all of a wave's first tokens and their logprobs
+come back together).  Prefix hits add none; a preemption and a dma
+handoff add one each (their block copies to host).  The host state the
+device needs (tokens, positions, the active mask, the seeds, the block
+tables, the padded prompts, a wave's seeds and lengths) goes up through
+pinned staging buffers, without a host sync.
 
 The engine surface a fleet and a `disagg.DisaggServer` call: ``name``
 and ``tier``, `validate_request` returning the budget and the stop
@@ -53,8 +75,7 @@ sequences, seeds, stop sequences, SLO verdicts and `slo_counts`, and warm
 restart (`export_prefix_index`, `warm_start`, `prefix_digest`).
 
 Not ported yet: telemetry (spans, metrics, the step flight recorder, the
-obs registrations), sampling and logprobs, fused ticks and the rows
-layout.
+obs registrations) and the rows layout.
 """
 
 from __future__ import annotations
@@ -67,11 +88,14 @@ import numpy as np
 import torch
 
 from tpu_dra_torch.fleet.digest import ReplicaDigest, build_digest, empty_digest
+from tpu_dra_torch.parallel import prng
 from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
     _check_prefix_window,
     _check_window,
+    _chosen_logprob,
     _make_pick,
+    _validate_filters,
 )
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.paged import (
@@ -102,8 +126,8 @@ class Request:
     id: int
     prompt: "list[int]"
     max_new: int
-    # The sampling key (default: the request id).  Greedy output ignores
-    # it; it is stored so that a caller's seed survives a handoff.
+    # The sampling key (default: the request id): the token at position
+    # p draws from fold_in(key(seed), p).  Greedy output ignores it.
     seed: int = 0
     # Admission priority: higher admits first, equal priorities strictly
     # FIFO; a waiting request may preempt a strictly-lower-priority row.
@@ -112,6 +136,9 @@ class Request:
     # stays in ``tokens``).
     stop_sequences: "list[list[int]]" = field(default_factory=list)
     tokens: "list[int]" = field(default_factory=list)  # generated only
+    # The raw model's logprob of each generated token (engines built
+    # with_logprobs=True; empty otherwise).
+    logprobs: "list[float]" = field(default_factory=list)
     done: bool = False
     finish_reason: str = ""  # "eos" | "stop" | "budget"
     # Prefix cache: the submit-time opt-out, and the prompt tokens whose
@@ -173,8 +200,17 @@ class ServeEngine:
     admission pad width; longer prompts are rejected at submit.
     ``max_new_cap``: the largest budget a request may ask for.
     ``eos_token``: generation stops early when the model emits it (None:
-    budget only).  ``steps_per_tick``: decode steps each `tick` runs,
-    each its own device call, with join/leave between them.
+    budget only).  ``steps_per_tick``: decode steps each `tick` runs:
+    each its own device call with join/leave between them under
+    ``scheduling="continuous"`` (default), all in one device call under
+    ``scheduling="tick"`` (rows that finish mid-call burn the rest:
+    `wasted_steps`).
+
+    ``temperature``: 0 (default) decodes greedily; above 0 samples the
+    temperature-scaled logits, restricted by ``top_k``/``top_p`` when
+    given, each request under its own seed (`submit`).
+    ``with_logprobs``: record each generated token's raw-model logprob
+    in ``Request.logprobs``.
 
     ``attn_backend``: how a decode step reads KV — ``"cuda"`` runs the
     paged-attention CUDA kernel, ``"gather"`` gathers the table's reach
@@ -223,7 +259,12 @@ class ServeEngine:
         max_new_cap: int,
         eos_token: "int | None" = None,
         steps_per_tick: int = 1,
+        scheduling: str = "continuous",
         attn_backend: str = "auto",
+        temperature: float = 0.0,
+        top_k: "int | None" = None,
+        top_p: "float | None" = None,
+        with_logprobs: bool = False,
         kv_blocks: "int | None" = None,
         host_kv_blocks: "int | None" = None,
         swap_policy=None,
@@ -246,6 +287,11 @@ class ServeEngine:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if steps_per_tick < 1:
             raise ValueError(f"steps_per_tick must be >= 1, got {steps_per_tick}")
+        if scheduling not in ("continuous", "tick"):
+            raise ValueError(
+                f"scheduling must be 'continuous' or 'tick', got {scheduling!r}"
+            )
+        _validate_filters(c.vocab, temperature > 0, top_k, top_p)
         if prefix_cache_slots < 0:
             raise ValueError(f"prefix_cache_slots must be >= 0, got {prefix_cache_slots}")
         if host_kv_blocks is not None and host_kv_blocks < 0:
@@ -284,6 +330,15 @@ class ServeEngine:
         self.max_new_cap = max_new_cap
         self.eos_token = eos_token
         self.steps_per_tick = steps_per_tick
+        self.scheduling = scheduling
+        # Steps fused into one device call: all of a tick's under "tick",
+        # one under "continuous" (join/leave runs between calls).
+        self._steps_per_call = 1 if scheduling == "continuous" else steps_per_tick
+        # Steps spent on rows whose request finished earlier in the same
+        # fused call (their tokens dropped): 0 under "continuous".
+        self._wasted_steps = 0
+        self.temperature = temperature
+        self.with_logprobs = with_logprobs
         self.attn_backend = attn_backend
         self.block_size = w
         self.kv_int8 = kv_int8
@@ -311,7 +366,8 @@ class ServeEngine:
         self._balloc = BlockAllocator(nb)
         self._pool = init_block_pool(c, nb, w, kv_int8, device=dev)
         self._prefill = make_paged_prefill(c, prompt_slots, w)
-        self._pick = _make_pick(False)
+        self._sampled = temperature > 0
+        self._pick = _make_pick(self._sampled, temperature, top_k, top_p)
         self._prefix = (
             PagedPrefixCache(prefix_cache_slots, self._balloc, block_size=w)
             if prefix_cache_slots else None
@@ -341,14 +397,16 @@ class ServeEngine:
         self._table = np.zeros((slots, self._table_cols), np.int32)
         self._row_pins: "list[list]" = [[] for _ in range(slots)]
         # Pinned host staging (plain memory on a CPU engine), uploaded
-        # without a host sync: one buffer for the per-step state — tok,
-        # pos, active, then the tables — and one admission row per slot
-        # (padded prompt, table row, length).  Each is rewritten only
-        # after the fetch that ended the device work reading it.
+        # without a host sync: one buffer for the per-call state — tok,
+        # pos, active, seeds, then the tables — one for a wave's seeds and
+        # lengths, and one admission row per slot (padded prompt, table
+        # row, length).  Each is rewritten only after the fetch that ended
+        # the device work reading it.
         pin = dev.type == "cuda"
         self._stage = torch.zeros(
-            3 * slots + slots * self._table_cols, dtype=torch.int32, pin_memory=pin
+            4 * slots + slots * self._table_cols, dtype=torch.int32, pin_memory=pin
         )
+        self._wave_stage = torch.zeros(2 * slots, dtype=torch.int32, pin_memory=pin)
         self._prompt_stage = torch.zeros(
             (slots, prompt_slots + self._table_cols + 1), dtype=torch.int32,
             pin_memory=pin,
@@ -845,13 +903,48 @@ class ServeEngine:
             self._row_pins[row] = pins
             wave.append((row, last[0]))
         if wave:
-            toks = self._pick(torch.stack([last for _, last in wave])).tolist()
-            for (row, _), tok in zip(wave, toks):
-                self._tok[row] = tok
-                self._note_token(row, tok)
+            rows = [row for row, _ in wave]
+            logits = torch.stack([last for _, last in wave])
+            seeds = positions = None
+            if self._sampled:
+                # A request's first token lands in position len(prompt).
+                host = self._wave_stage.numpy()
+                n = len(wave)
+                host[:n] = [self._row_req[r].seed for r in rows]
+                host[n:2 * n] = [self._pos[r] for r in rows]
+                staged = self._wave_stage[:2 * n].to(self.device, non_blocking=True)
+                seeds, positions = staged[:n], staged[n:]
+            toks = self._sample(logits, seeds, positions)
+            # One fetch for the whole wave: its tokens and their logprobs.
+            fetched = self._fetch(
+                [toks], [_chosen_logprob(logits, toks)] if self.with_logprobs else []
+            )
+            for i, row in enumerate(rows):
+                self._tok[row] = fetched[0][0][i]
+                self._note_token(row, fetched[0][0][i], fetched[1][0][i])
         return len(wave)
 
-    def _note_token(self, row: int, token: int) -> None:
+    def _sample(self, logits, seeds, positions):
+        """The next token of every row of ``logits`` (B, vocab): greedy,
+        or drawn under each row's key ``fold_in(key(seed), position)``."""
+        if not self._sampled:
+            return self._pick(logits)
+        return self._pick(logits, prng.fold_in(prng.key(seeds), positions))
+
+    def _fetch(self, ints, floats):
+        """ONE blocking device-to-host copy of the int tensors ``ints``
+        and, on a logprob engine, the f32 tensors ``floats`` (each a
+        stack of (B,) rows): returns ``(ints, floats)`` as nested lists,
+        ``floats`` zeros without logprobs.  float64 carries both exactly."""
+        a = torch.stack(ints)
+        if not self.with_logprobs:
+            got = a.tolist()
+            return got, [[0.0] * len(got[0])] * len(got)
+        b = torch.stack(floats)
+        got = torch.cat([a.double(), b.double()]).tolist()
+        return [[int(v) for v in r] for r in got[:len(ints)]], got[len(ints):]
+
+    def _note_token(self, row: int, token: int, logprob: float = 0.0) -> None:
         req = self._row_req[row]
         now = time.perf_counter()
         req.tokens.append(token)
@@ -863,6 +956,8 @@ class ServeEngine:
         else:
             req.token_deltas.append(now - req._last_token_at)
         req._last_token_at = now
+        if self.with_logprobs:
+            req.logprobs.append(logprob)
         if self.eos_token is not None and token == self.eos_token:
             req.done, req.finish_reason = True, "eos"
         elif any(req.tokens[-len(s):] == s for s in req.stop_sequences):
@@ -901,47 +996,72 @@ class ServeEngine:
         self._row_pins[row] = []
 
     def _step_once(self) -> None:
-        """One decode step for every row, its single blocking fetch, and
-        the host-side token processing."""
-        self._device_steps += 1
+        """One device call (``_steps_per_call`` decode steps for every row,
+        tokens and positions fed forward on the device, the active mask
+        fixed at the call's start), its single blocking fetch, and the
+        host-side token processing.  A row whose request finished at an
+        earlier step of the same call burns the call's remaining steps:
+        each is counted in `wasted_steps` and its token dropped."""
+        n = self._steps_per_call
+        self._device_steps += n
         B = self.slots
-        active = [r is not None for r in self._row_req]
+        stepped = [r is not None for r in self._row_req]
         stage = self._stage.numpy()
         stage[:B] = self._tok
         stage[B:2 * B] = self._pos
-        stage[2 * B:3 * B] = active
-        stage[3 * B:] = self._table.reshape(-1)
+        stage[2 * B:3 * B] = stepped
+        stage[3 * B:4 * B] = [r.seed if r is not None else 0 for r in self._row_req]
+        stage[4 * B:] = self._table.reshape(-1)
         state = self._stage.to(self.device, non_blocking=True)
         tok, pos = state[:B], state[B:2 * B]
         live = state[2 * B:3 * B].bool()
-        table = state[3 * B:].view(B, self._table_cols)
-        logits, self._pool = paged_decode_step_rows(
-            self.params, tok, self._pool, table, pos, self.config,
-            backend=self.attn_backend,
-        )
-        # Frozen rows keep their token and position, so their harmless
-        # writes stay on one stale slot of scratch block 0.
-        nxt = torch.where(live, self._pick(logits), tok)
-        new_pos = torch.where(live, pos + 1, pos)
-        # ONE blocking fetch per step: next tokens and positions together.
-        toks, poss = torch.stack([nxt, new_pos]).tolist()
-        self._tok = toks
-        self._pos = poss
-        for row in range(B):
-            if self._row_req[row] is not None:
-                self._note_token(row, toks[row])
+        seeds = state[3 * B:4 * B]
+        table = state[4 * B:].view(B, self._table_cols)
+        toks, lps = [], []
+        for _ in range(n):
+            logits, self._pool = paged_decode_step_rows(
+                self.params, tok, self._pool, table, pos, self.config,
+                backend=self.attn_backend,
+            )
+            # The token fed at position pos lands in pos + 1.
+            nxt = self._sample(logits, seeds, pos + 1)
+            if self.with_logprobs:
+                lps.append(_chosen_logprob(logits, nxt))
+            # Frozen rows keep their token and position, so their harmless
+            # writes stay on one stale slot of scratch block 0.
+            tok = torch.where(live, nxt, tok)
+            pos = torch.where(live, pos + 1, pos)
+            toks.append(tok)
+        # ONE blocking fetch per call: every step's tokens and logprobs,
+        # and the final positions, together.
+        ints, floats = self._fetch(toks + [pos], lps)
+        self._tok = ints[n - 1]
+        self._pos = ints[n]
+        for s in range(n):
+            for row in range(B):
+                if self._row_req[row] is None:
+                    # Stepped on after its request finished earlier in this
+                    # call: compute spent, token dropped.
+                    self._wasted_steps += stepped[row]
+                    continue
+                self._note_token(row, ints[s][row], floats[s][row])
 
     def tick(self) -> "list[Request]":
         """Admit waiting requests into free rows, then run
-        ``steps_per_tick`` decode steps with join/leave between them
-        (none on a prefill-tier engine: its admitted rows wait, frozen,
-        for `handoff_out`, and a one-token request finished in its
-        admission wave).  Returns the requests completed during this
-        tick."""
+        ``steps_per_tick`` decode steps: one device call each with
+        join/leave between them under ``"continuous"``, one fused call
+        under ``"tick"`` (none on a prefill-tier engine: its admitted rows
+        wait, frozen, for `handoff_out`, and a one-token request finished
+        in its admission wave).  Returns the requests completed during
+        this tick."""
         self._check_open()
         done_before = len(self._done)
         self._admit()
-        for s in range(0 if self.tier == "prefill" else self.steps_per_tick):
+        if self.tier == "prefill":
+            calls = 0
+        else:
+            calls = self.steps_per_tick if self.scheduling == "continuous" else 1
+        for s in range(calls):
             if s:
                 self._admit()
             if all(r is None for r in self._row_req):
@@ -1096,8 +1216,16 @@ class ServeEngine:
 
     @property
     def device_steps(self) -> int:
-        """Decode steps run so far (each steps every row)."""
+        """Decode steps run so far (each steps every row; a fused call
+        counts all of its steps)."""
         return self._device_steps
+
+    @property
+    def wasted_steps(self) -> int:
+        """Row-steps spent on requests that had finished earlier in the
+        same fused call (their tokens dropped): 0 under continuous
+        scheduling."""
+        return self._wasted_steps
 
     @property
     def kv_block_stats(self) -> "dict[str, int]":
