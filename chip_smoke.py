@@ -76,13 +76,30 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    from it: 384 tokens reused on every request from the first admission,
    tokens against the cold engine's, the digest claiming 384 tokens of
    every prompt);
-9. train: 6 momentum steps of the flash family at the same width (batch
+9. rows and MoE: the MoE family (4 experts, capacity factor 1.25, about
+   5 B parameters) served at the same width on the rows layout: the main
+   stream greedy (waves, steps, wasted steps, calls and host syncs the
+   counts the CPU schedule test pins; tokens against each request's B=1
+   generation up to near-ties; tokens/s, TTFT, step time, weight and
+   row-cache bytes; a decode profile split into router, dispatch/combine,
+   expert GEMMs, attention and the rest), the same int8 (int8 experts,
+   the router f32, an int8 row cache), sampled (continuous and fused
+   ticks of 4; tokens across the two runs up to their logits' near-ties,
+   logprobs against the picks' logits); the dense model on rows against
+   the paged kernel engine; the rows prefix cache (384 tokens reused on
+   every hit, tokens against the cache off) and a warm restart from its
+   index (384 reused from the first admission); K1 held at 0 launches on
+   every rows path; then the MoE family trained at the same width cut to
+   2 layers (3 steps, loss descending, the load-balance term) and
+   `serve_family` for every single-device family (moe also int8), the
+   context-parallel and pipelined ones reporting their refusal;
+10. train: 6 momentum steps of the flash family at the same width (batch
    16, seq 1024; f32 masters, about 1.75 B parameters) through
    ``burnin.train``: the loss must descend, every flash launch counted;
    then MFU, peak memory, the first loss against the dense path's, the
    kernel's output inside the model's first layer against its plain
    version, and a profile of two steps;
-10. the kernels' JSON line (K1's rows also list each path's launches),
+11. the kernels' JSON line (K1's rows also list each path's launches),
     the card's line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
@@ -541,7 +558,7 @@ def check_host_syncs(syncs, waves: int, engines, label: str, dma: int = 0) -> st
     text."""
     count, where = syncs
     calls = sum(device_calls(e) for e in engines)
-    preempted = sum(e.kv_block_stats["preemptions_total"] for e in engines)
+    preempted = sum(e.kv_block_stats.get("preemptions_total", 0) for e in engines)
     want = calls + waves + preempted + dma
     if count != want:
         raise AssertionError(f"{label}: {count} host syncs ({where}), the contract gives {want} = "
@@ -671,8 +688,8 @@ def report_profile(prof, trace_name, label, steps, kinds=KERNEL_KINDS):
         reach = max(reach, end)
     span_ms = (reach - spans[0][0]) / 1e3
     idle = 1 - covered / 1e3 / span_ms if span_ms > 0 else 0.0
-    log(f"profile, {label}: kernel time {busy_ms:.3f} ms, kernels span {span_ms:.3f} ms "
-        f"on the device, device idle share {idle:.4f}")
+    log(f"profile, {label}: kernel time {busy_ms:.3f} ms in {len(kernels) / steps:.2f} kernels "
+        f"a step, kernels span {span_ms:.3f} ms on the device, device idle share {idle:.4f}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"  {us / steps / 1e3:.4f} ms/step  {us / 1e3 / busy_ms:.4f} of kernel time  {name[:100]}")
     log("  by kind: " + "; ".join(
@@ -695,6 +712,20 @@ def trace_kernels(prof, trace_name):
 # The serving width: `tpu_dra/parallel/mfu.py`'s rung for an 80 GB card.
 SERVE_WIDTH = dict(vocab=32768, d_model=4096, n_heads=32, d_ff=16384, n_layers=8, seq=1024,
                    batch=16)
+# The MoE family's experts at the serving width (the `moe` preset's 4).
+MOE = dict(moe_experts=4, moe_capacity=1.25)
+# The rows-and-MoE phase's runs of the main stream through the MoE rows
+# engine, and their counts (admission waves, device steps, wasted steps,
+# device calls), which tests/test_torch_rows.py's TestSmokeSchedule pins
+# on the CPU: its requests finish on their budgets, so the counts do not
+# depend on the width.  Host syncs are calls + waves.
+ROWS_RUNS = {
+    "moe greedy": dict(slots=8),
+    "moe sampled": dict(slots=8, **SAMPLING),
+    "moe sampled tick": dict(slots=8, scheduling="tick", steps_per_tick=4, **SAMPLING),
+}
+ROWS_SCHEDULE = {"moe greedy": (8, 113, 0, 113), "moe sampled": (8, 113, 0, 113),
+                 "moe sampled tick": (8, 116, 29, 29)}
 
 
 def serve_main_path(ServeEngine, pa, quant, params, cfg, stream, form, kv_int8=False):
@@ -847,7 +878,7 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     for leaf in pool.values():
         leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * 0.5)
     check_step_logits(torch, paged, params, cfg, pool, "bf16")
-    return launches, line
+    return launches, line, done
 
 
 def dequant_routes(torch):
@@ -1817,6 +1848,375 @@ def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, disagg_mod, weights,
     return launches
 
 
+# -- rows and MoE -------------------------------------------------------------
+ROUTER_TIE = 1e-5  # top-2 router probabilities this close may route either way
+
+
+def moe_walk(torch, burnin, decode, moe, params, cfg, kv_int8=False):
+    """``walk(prompt, generated) -> (row, margin)``: the logits that pick
+    the token after ``prompt + generated`` along a generation's own path
+    (the prompt's B=1 prefill, then one-token steps: for an MoE model a
+    forward over the whole sequence routes with another capacity), and
+    the smallest top-2 router probability margin on the way."""
+    def walk(prompt, generated):
+        margins = []
+        real = burnin.moe_mlp
+
+        def recording(layer, h, config, capacity=None):
+            top2 = torch.topk(moe.route(layer, h), 2, dim=-1).values
+            margins.append((top2[..., 0] - top2[..., 1]).min())
+            return real(layer, h, config, capacity)
+
+        burnin.moe_mlp = recording
+        try:
+            with torch.no_grad():
+                cache = decode.init_cache(cfg, 1, kv_int8, device="cuda")
+                toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+                logits, cache = decode.decode_forward(params, toks, cache, 0, cfg)
+                for j, t in enumerate(generated):
+                    tok = torch.tensor([[t]], dtype=torch.int32, device="cuda")
+                    logits, cache = decode.decode_forward(params, tok, cache, len(prompt) + j, cfg)
+        finally:
+            burnin.moe_mlp = real
+        return logits[0, -1], min(m.item() for m in margins)
+
+    return walk
+
+
+def check_against_oracle(torch, done, oracle, walk, label):
+    """Per request, the engine's tokens equal the oracle's (its B=1
+    generation) up to the first divergence, which must be a near-tie
+    along the oracle's path: its logits' top-2 margin within 2 bf16 ulps
+    of the row's largest logit, or a routing on the way whose top-2
+    router probabilities lie within ``ROUTER_TIE``."""
+    diverged = 0
+    for rid, r in done.items():
+        a, b = r.tokens, oracle[rid]
+        i = next((j for j in range(len(a)) if a[j] != b[j]), None)
+        if len(a) != len(b):
+            raise AssertionError(f"{label}, request {rid}: {len(a)} tokens, oracle {len(b)}")
+        if i is None:
+            continue
+        diverged += 1
+        row, router = walk(r.prompt, b[:i])
+        top2 = torch.topk(row, 2).values
+        margin = (top2[0] - top2[1]).item()
+        tol = 2 ** -6 * row.abs().max().item()
+        log(f"{label}, request {rid}: tokens differ first at {i} ({a[i]} vs {b[i]}); logit margin "
+            f"{margin} (near-tie tolerance {tol}), smallest router margin {router}")
+        if margin > tol and router > ROUTER_TIE:
+            raise AssertionError(f"{label}, request {rid}: tokens differ at {i}, no near-tie")
+    log(f"{label}: {len(done) - diverged} of {len(done)} requests token-identical to their B=1 "
+        f"generation, {diverged} first differ at a near-tie")
+
+
+def oracle_tokens(decode, params, cfg, stream, kv_int8=False):
+    """Each request's B=1 greedy generation (`decode.make_generate`: the
+    unpadded prefill, then dropless one-token steps), by request id."""
+    import torch
+
+    out = {}
+    for rid, (prompt, budget) in enumerate(stream):
+        fn = decode.make_generate(cfg, prompt_len=len(prompt), steps=budget, kv_int8=kv_int8)
+        toks = fn(params, torch.tensor([prompt], dtype=torch.int32, device="cuda"))
+        out[rid] = toks[0, len(prompt):].tolist()
+    return out
+
+
+def serve_rows(ServeEngine, pa, params, cfg, stream, label, warm_up=False, before=None,
+               **engine_kw):
+    """The stream through a rows engine (`serve`; ``before(engine)`` runs
+    ahead of the submissions), K1's launches counted from 0 and held at
+    0 (the rows layout has no block table); the admission waves counted.
+    Returns the engine, the finished requests, the wall, the step walls,
+    the host-sync text and the waves."""
+    box = {}
+
+    def hooks(eng):
+        if before is not None:
+            before(eng)
+        box["waves"] = count_waves([eng])
+        box["walls"] = timed_steps(eng)
+
+    pa.paged_attention.launches = 0
+    eng, done, wall, _, synced = serve(ServeEngine, params, cfg, stream, "gather",
+                                       warm_up=warm_up, before=hooks, kv_layout="rows",
+                                       **engine_kw)
+    if pa.paged_attention.launches:
+        raise AssertionError(f"{label}: {pa.paged_attention.launches} K1 launches on rows")
+    if eng.kv_layout != "rows":
+        raise AssertionError(f"{label}: layout {eng.kv_layout}")
+    for r in done.values():
+        if r.finish_reason != "budget" or not all(0 <= t < cfg.vocab for t in r.tokens):
+            raise AssertionError(f"{label}, request {r.id}: {r.finish_reason}")
+    return eng, done, wall, box["walls"], synced, box["waves"][0]
+
+
+def check_schedule(eng, waves, label, run):
+    counts = (waves, eng.device_steps, eng.wasted_steps, device_calls(eng))
+    if counts != ROWS_SCHEDULE[run]:
+        raise AssertionError(f"{label}: (waves, steps, wasted, calls) {counts}, the CPU schedule "
+                             f"test pins {ROWS_SCHEDULE[run]}")
+    return counts
+
+
+MOE_PROFILE_LABELS = {  # torch.einsum equations of the MoE decode step, by part
+    "bsec,bsd->ebcd": "dispatch/combine", "bsec,ebcd->bsd": "dispatch/combine",
+    "ebcd,edf->ebcf": "expert GEMMs", "ebcf,efd->ebcd": "expert GEMMs",
+}
+
+
+def profile_moe_decode(torch, serve_mod, burnin, decode, moe, params, cfg, steps: int = 8):
+    """Where an MoE decode step's device time goes: 8 rows mid-decode
+    (contexts 256..480) on rows, ``steps`` steps under torch.profiler with
+    the step's parts marked (`torch.profiler.record_function`): the
+    router, the expert GEMMs, the rest of the expert MLP (the dispatch
+    and combine: their tensors and products), the attention over the
+    rows, and everything else.  Each kernel goes to the innermost part
+    whose host range holds its launch.  Returns ms a step by part."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    eng = serve_mod.ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
+                                kv_layout="rows")
+    for i in range(8):
+        eng.submit([(7 * i + j) % cfg.vocab for j in range(256 + 32 * i)], 64)
+    eng.tick()
+    eng.tick()
+    torch.cuda.synchronize()
+
+    def marked(label, fn):
+        def run(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return run
+
+    real_einsum, real_route = torch.einsum, moe.route
+    real_moe, real_attend = burnin.moe_mlp, decode._attend_dense
+
+    def einsum(eq, *ops):
+        label = MOE_PROFILE_LABELS.get(eq)
+        if label is None:
+            return real_einsum(eq, *ops)
+        with record_function(label):
+            return real_einsum(eq, *ops)
+
+    torch.einsum, moe.route = einsum, marked("router", real_route)
+    burnin.moe_mlp, decode._attend_dense = marked("moe", real_moe), marked("attention",
+                                                                            real_attend)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.tick()
+            torch.cuda.synchronize()
+    finally:
+        torch.einsum, moe.route = real_einsum, real_route
+        burnin.moe_mlp, decode._attend_dense = real_moe, real_attend
+    eng.close()
+    report_profile(prof, "chip_smoke_decode_moe_rows_trace.json",
+                   f"{steps} MoE decode steps of 8 rows on rows", steps)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out",
+                           "chip_smoke_decode_moe_rows_trace.json"), encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    launch_at = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e["name"] in {"router", "moe", "attention", "dispatch/combine",
+                                      "expert GEMMs"})
+    parts = dict.fromkeys(("router", "dispatch/combine", "expert GEMMs", "attention", "rest"), 0.0)
+    for k in (e for e in events if e.get("cat") == "kernel"):
+        t = launch_at.get(k.get("args", {}).get("correlation"))
+        inside = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
+        label = min(inside, key=lambda r: r[1] - r[0])[2] if inside else "rest"
+        parts["dispatch/combine" if label == "moe" else label] += float(k["dur"]) / 1e3 / steps
+    total = sum(parts.values())
+    if not total:
+        log("MoE decode step by part: not measured (the trace holds no kernels)")
+        return None
+    log("MoE decode step by part (kernel time a step): " + "; ".join(
+        f"{p} {ms:.4f} ms ({ms / total:.4f})" for p, ms in parts.items()) + f"; total {total:.4f} ms")
+    return parts
+
+
+def phase_rows_moe(torch, cfg_mod, serve_mod, decode, moe, prng, weights, quant, pa,
+                   paged_done, paged_line):
+    """The MoE family and the rows layout at the serving width: (a) MoE
+    greedy on rows against each request's B=1 generation, with a decode
+    profile by part; (b) the same with int8 weights and an int8 row
+    cache; (c) sampled, continuous and fused ticks of 4; (d) the dense
+    model on rows against the paged kernel engine; (e) the rows prefix
+    cache, and a warm restart from its index.  Every rows path holds K1
+    at 0 launches.  Returns those paths' launches."""
+    launches = {}
+    cfg = cfg_mod.BurninConfig(**SERVE_WIDTH, **MOE)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    full = cfg_mod.init_params(cfg, gen, device="cuda")
+    n_params = sum(t.numel() for t in cfg_mod._leaves(full))
+    params = weights.cast_matrices(full)
+    qparams = quant.quantize_params(full)
+    del full
+    torch.cuda.empty_cache()
+    if (params["layers"]["router"].dtype != torch.float32
+            or qparams["layers"]["router"].dtype != torch.float32
+            or not quant.is_quantized_leaf(qparams["layers"]["w1e"])):
+        raise AssertionError("MoE weights: the router must stay f32, the experts be quantized")
+    stream = make_stream(cfg.vocab)
+    log(f"MoE config: {cfg.moe_experts} experts, capacity factor {cfg.moe_capacity} (prefill "
+        f"queues of {min(512, moe.expert_capacity(cfg))} tokens, decode dropless), {n_params} "
+        f"params; weight bytes bf16 {quant.tree_bytes(params)} (embed f32), int8 "
+        f"{quant.tree_bytes(qparams)}")
+
+    # (a) Greedy, bf16, against each request's B=1 generation.
+    serve_rows(serve_mod.ServeEngine, pa, params, cfg, stream[:2], "warm-up",
+               warm_up=True)[0].close()
+    eng, done, wall, walls, synced, waves = serve_rows(serve_mod.ServeEngine, pa, params, cfg,
+                                                       stream, "rows MoE")
+    counts = check_schedule(eng, waves, "rows MoE", "moe greedy")
+    cache_bytes = quant.tree_bytes(eng._cache)
+    eng.close()
+    launches["rows moe"] = 0
+    log(f"rows MoE bf16: {len(done)} requests, waves/steps/wasted/calls {counts}, 0 K1 "
+        f"launches; {serving_line(done, wall, walls)}; row cache bytes {cache_bytes}; {synced}")
+    t = time.perf_counter()
+    check_against_oracle(torch, done, oracle_tokens(decode, params, cfg, stream),
+                         moe_walk(torch, cfg_mod, decode, moe, params, cfg), "rows MoE bf16")
+    log(f"rows MoE bf16: B=1 oracle and its check {time.perf_counter() - t:.3f} s")
+    profile_moe_decode(torch, serve_mod, cfg_mod, decode, moe, params, cfg)
+
+    # (b) Int8 weights (the router f32) and an int8 row cache.
+    serve_rows(serve_mod.ServeEngine, pa, qparams, cfg, stream[:2], "warm-up", warm_up=True,
+               kv_int8=True)[0].close()
+    eng, q_done, wall, walls, synced, waves = serve_rows(serve_mod.ServeEngine, pa, qparams, cfg,
+                                                         stream, "rows MoE int8", kv_int8=True)
+    counts = check_schedule(eng, waves, "rows MoE int8", "moe greedy")
+    q_cache_bytes = quant.tree_bytes(eng._cache)
+    eng.close()
+    launches["rows moe int8"] = 0
+    log(f"rows MoE int8: waves/steps/wasted/calls {counts}, 0 K1 launches; "
+        f"{serving_line(q_done, wall, walls)}; row cache bytes {q_cache_bytes}; {synced}")
+    check_against_oracle(torch, q_done, oracle_tokens(decode, qparams, cfg, stream, kv_int8=True),
+                         moe_walk(torch, cfg_mod, decode, moe, qparams, cfg, kv_int8=True),
+                         "rows MoE int8")
+    del qparams
+    torch.cuda.empty_cache()
+
+    # (c) Sampled, continuous and fused ticks of 4, each pick recorded.
+    runs, tables = {}, {}
+    for run in ("moe sampled", "moe sampled tick"):
+        kw, picks = ROWS_RUNS[run], []
+        eng, s_done, wall, walls, synced, waves = serve_rows(
+            serve_mod.ServeEngine, pa, params, cfg, stream, f"rows {run}",
+            before=lambda e, picks=picks: record_picks(e, picks), **kw)
+        counts = check_schedule(eng, waves, f"rows {run}", run)
+        fused = kw["steps_per_tick"] if kw.get("scheduling") == "tick" else 1
+        log(f"rows {run}: waves/steps/wasted/calls {counts}, 0 K1 launches; "
+            f"{serving_line(s_done, wall, [w / fused for w in walls])}; {synced}")
+        eng.close()
+        runs[run], tables[run] = s_done, pick_table(picks)
+        launches[f"rows {run}"] = 0
+    equal = check_sampled_runs(torch, prng, decode, runs["moe sampled"], runs["moe sampled tick"],
+                               stream, (tables["moe sampled"], tables["moe sampled tick"]),
+                               "rows MoE sampled tick vs continuous")
+    err = check_logprobs(torch, decode, runs["moe sampled"], stream, tables["moe sampled"])
+    log(f"rows MoE sampled, tick vs continuous: {equal} of {len(stream)} requests equal "
+        f"throughout; logprobs vs log_softmax of the pick's logits: max abs err {err}")
+    del runs, tables, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) The dense model on rows against the paged kernel engine.
+    dcfg = cfg_mod.BurninConfig(**SERVE_WIDTH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dparams = weights.cast_matrices(cfg_mod.init_params(dcfg, gen, device="cuda"))
+    eng, d_done, wall, walls, synced, waves = serve_rows(serve_mod.ServeEngine, pa, dparams, dcfg,
+                                                         stream, "rows dense")
+    counts = check_schedule(eng, waves, "rows dense", "moe greedy")
+    eng.close()
+    launches["rows dense"] = 0
+    log(f"rows dense: waves/steps/wasted/calls {counts}, 0 K1 launches; "
+        f"{serving_line(d_done, wall, walls)}; {synced}")
+    log(f"paged dense through K1 (phase engine): {paged_line}")
+    logits_at = dense_logits_at(cfg_mod, dparams, dcfg)
+    check_near_ties(torch, d_done, paged_done, logits_at, "dense rows vs paged K1")
+
+    # (e) The rows prefix cache, then a warm restart from its index.
+    pstream = prefix_stream(dcfg.vocab)
+    eng, on, on_wall, on_walls, synced, _ = serve_rows(serve_mod.ServeEngine, pa, dparams, dcfg,
+                                                       pstream, "rows prefix",
+                                                       prefix_cache_slots=8)
+    reused = [on[i].prefix_reused for i in sorted(on, key=lambda i: on[i].admitted_at)]
+    pf, index = eng.prefix_stats, eng.export_prefix_index()
+    eng.close()
+    if reused != [0] + [384] * 15:
+        raise AssertionError(f"rows prefix: reuse in admission order {reused}")
+    _, off, off_wall, off_walls, _, _ = serve_rows(serve_mod.ServeEngine, pa, dparams, dcfg,
+                                                   pstream, "rows prefix off")
+    launches["rows prefix"] = 0
+    log(f"rows prefix cache: 384 tokens reused on 15 of 16 requests (the first admission "
+        f"missed), prefill tokens computed {pf['prefill_tokens_computed']}, reused "
+        f"{pf['prefill_tokens_reused']}, hits {pf['hits']}; cache on "
+        f"{serving_line(on, on_wall, on_walls)}; cache off {serving_line(off, off_wall, off_walls)}"
+        f"; {synced}")
+    check_near_ties(torch, on, off, logits_at, "rows prefix cache on vs off")
+    warmed = []
+    eng, warm, _, _, synced, _ = serve_rows(
+        serve_mod.ServeEngine, pa, dparams, dcfg, pstream, "rows warm restart",
+        before=lambda e: warmed.append(e.warm_start(index)), prefix_cache_slots=8)
+    eng.close()
+    reused = [warm[i].prefix_reused for i in sorted(warm, key=lambda i: warm[i].admitted_at)]
+    if warmed != [len(index["entries"])] or reused != [384] * 16:
+        raise AssertionError(f"rows warm restart: {warmed} of {len(index['entries'])} runs "
+                             f"warmed, reuse in admission order {reused}")
+    launches["rows warm restart"] = 0
+    log(f"rows warm restart: {warmed[0]} runs warmed; 384 tokens reused on 16 of 16 requests "
+        f"from the first admission; {synced}")
+    check_near_ties(torch, warm, on, logits_at, "rows warm restart vs cold")
+    return launches
+
+
+def phase_moe_train(torch, burnin, models, steps: int = 3):
+    """`train_family("moe")` at the serving width cut to 2 layers (batch
+    16, seq 1024): the loss finite and descending; the load-balance term
+    at the initial weights (the seeded ones `train` starts from)."""
+    width = dict(SERVE_WIDTH, n_layers=2)
+    cfg = models.family_config("moe", **width)
+    with torch.no_grad():
+        params = burnin.init_params(cfg, device="cuda")
+        n_params = sum(t.numel() for t in burnin._leaves(params))
+        _, aux = burnin.forward(params, burnin.prepare_tokens(cfg, "cuda"), cfg, return_aux=True)
+        aux = aux.item()
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    report = models.train_family("moe", steps=steps, device="cuda", **width)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not report.ok or report.steps != steps or not math.isfinite(report.loss_last):
+        raise AssertionError(f"moe train: {report}")
+    log(f"train moe (2 layers, {cfg.moe_experts} experts, {n_params} params): {report.steps} "
+        f"steps, loss {report.loss_first:.6f} -> {report.loss_last:.6f}, load-balance term at the "
+        f"initial weights {aux:.6f} (x {cfg.moe_aux_weight} in the loss), step p50 "
+        f"{report.step_seconds_p50 * 1e3:.3f} ms, {report.tokens_per_second:.3f} tokens/s, peak "
+        f"memory allocated {peak_gb:.3f} GB")
+
+
+def phase_families(models):
+    """`serve_family` at each family's preset: the single-device families
+    (bf16, and moe int8) serve healthy generations; the context-parallel
+    and pipelined families report the config's refusal, not raise."""
+    lines = []
+    for name, int8, want_ok in (("dense", False, True), ("flash", False, True),
+                                ("rope", False, True), ("moe", False, True), ("moe", True, True),
+                                ("long_context", False, False), ("pipelined", False, False)):
+        report = models.serve_family(name, int8=int8, device="cuda")
+        if report.ok != want_ok or (not want_ok and not report.error.startswith("ValueError")):
+            raise AssertionError(f"serve_family({name!r}, int8={int8}): {report}")
+        lines.append(f"{name}{' int8' if int8 else ''} "
+                     + (f"ok, {report.tokens_per_second} tokens/s, {report.request_ms} ms"
+                        if report.ok else f"refused ({report.error[:60]}...)"))
+    log("serve_family: " + "; ".join(lines))
+
+
 def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
     """Single-device training of the flash family at full width: the
     width `chip_sized_config` gives an 80 GB card, params from init_params'
@@ -1929,9 +2329,10 @@ def main() -> int:
     started = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from tpu_dra_torch import models
         from tpu_dra_torch.parallel import (
-            burnin, decode, disagg, flash, mfu, paged, prng, quant, ring, serve, speculative,
-            swap, weights,
+            burnin, decode, disagg, flash, mfu, moe, paged, prng, quant, ring, serve,
+            speculative, swap, weights,
         )
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
@@ -1968,8 +2369,8 @@ def main() -> int:
         phase_flash_grads(torch, flash, ring)
         log(f"phase flash kernel: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        paged_row["launches"], greedy_line = phase_engine(torch, burnin, serve, weights, quant,
-                                                          pa, paged)
+        paged_row["launches"], greedy_line, greedy_done = phase_engine(
+            torch, burnin, serve, weights, quant, pa, paged)
         log(f"phase engine: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
         int8_row["launches"], int8_sampled = phase_engine_int8(torch, burnin, serve, weights,
@@ -1988,6 +2389,22 @@ def main() -> int:
                                        paged)
         log(f"phase KV hierarchy: {time.perf_counter() - t:.3f} s; kernel launches {hierarchy}")
         paged_row["launches_by_path"] = {"engine": paged_row["launches"], **sampled, **hierarchy}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        rows = phase_rows_moe(torch, burnin, serve, decode, moe, prng, weights, quant, pa,
+                              greedy_done, greedy_line)
+        del greedy_done
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_moe_train(torch, burnin, models)
+        phase_families(models)
+        log(f"phase rows and MoE: {time.perf_counter() - t:.3f} s; K1 launches {rows}")
+        # The rows layout has no block table: K1, either form, never runs there.
+        paged_row["launches_by_path"].update(rows)
+        int8_row["launches_by_path"].update(rows)
+        gc.collect()
+        torch.cuda.empty_cache()
         t = time.perf_counter()
         flash_row["launches"] = phase_train(torch, burnin, mfu, fa, flash)
         log(f"phase train: {time.perf_counter() - t:.3f} s")

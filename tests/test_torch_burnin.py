@@ -75,6 +75,17 @@ class TestConfig:
             with pytest.raises(ValueError, match=f"{field} needs seq % 8 == 0"):
                 tb.forward(params, torch.zeros((1, 12), dtype=torch.int32), cfg)
             return
+        if field == "moe_experts":
+            # Ported: the config takes it, and serving refuses it only where
+            # the reference does, in a windowed prefill (its windows would
+            # restart the per-expert capacity queues).
+            from tpu_dra_torch.parallel import decode as td
+
+            cfg = tb.BurninConfig(**{**_SHAPE, field: value})
+            assert tb.init_params(cfg, device="cpu")["layers"]["w1e"].shape[1] == value
+            with pytest.raises(ValueError, match=f"not supported with {field}"):
+                td.make_generate(cfg, prompt_len=8, steps=2, prefill_chunk=4)
+            return
         with pytest.raises(ValueError, match=field):
             tb.BurninConfig(**{field: value})
 

@@ -289,10 +289,15 @@ class TestValidation:
             fn(tparams, torch.tensor(_prompt(2)))
 
     def test_moe_configs_cannot_be_built(self):
-        """The reference rejects MoE in the factory; the port's config
-        rejects MoE outright, so no MoE config reaches the factory."""
-        with pytest.raises(ValueError, match="moe_experts"):
-            tb.BurninConfig(**{**_SHAPE, "moe_experts": 4})
+        """An MoE config is built now (the family is ported), and the
+        factory refuses it as the reference's does, message for message."""
+        cfg = tb.BurninConfig(**{**_SHAPE, "moe_experts": 4})
+        with pytest.raises(ValueError, match="dense configs only") as got:
+            ts.make_generate_speculative(cfg, prompt_len=8, steps=4, draft_layers=2, draft_len=2)
+        with pytest.raises(ValueError) as want:
+            js.make_generate_speculative(jb.BurninConfig(**{**_SHAPE, "moe_experts": 4}),
+                                         prompt_len=8, steps=4, draft_layers=2, draft_len=2)
+        assert str(got.value) == str(want.value)
 
 
 class TestStochasticCore:

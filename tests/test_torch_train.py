@@ -205,7 +205,7 @@ class TestTrain:
 
 
 class TestFamilies:
-    @pytest.mark.parametrize("name", ["dense", "flash", "rope"])
+    @pytest.mark.parametrize("name", ["dense", "flash", "rope", "moe"])
     def test_single_device_families_train(self, name):
         report = models.train_family(name, steps=3, device="cpu", **_SHAPE)
         assert report.ok and report.error == "", report
@@ -216,6 +216,14 @@ class TestFamilies:
                         ("long_context", "ring_attention")]
     )
     def test_rejected_families_report_the_config_reason(self, name, reason):
+        if name == "moe":
+            # Ported: the family trains on one device, and a field that
+            # stays refused still comes back as the config's reason.
+            report = models.train_family(name, steps=3, device="cpu", **_SHAPE)
+            assert report.ok and report.error == "", report
+            report = models.train_family(name, steps=3, device="cpu", pipeline_stages=2)
+            assert not report.ok and "pipeline_stages" in report.error and reason not in report.error
+            return
         report = models.train_family(name, steps=3, device="cpu")
         assert not report.ok and report.steps == 0
         assert report.error.startswith("ValueError") and reason in report.error
@@ -224,7 +232,7 @@ class TestFamilies:
         from tpu_dra import models as jmodels
 
         assert sorted(models.FAMILIES) == sorted(jmodels.FAMILIES)
-        for name in ("dense", "flash", "rope"):
+        for name in ("dense", "flash", "rope", "moe"):
             want = dataclasses.asdict(jmodels.family_config(name, seq=64))
             assert dataclasses.asdict(models.family_config(name, seq=64)) == want
 

@@ -4,25 +4,34 @@ Counterpart of `tpu_dra.models` for the families the port runs:
 
 - ``dense`` — the baseline transformer LM;
 - ``flash`` — the same LM with attention through the flash kernel;
-- ``rope``  — rotary position embeddings + the flash kernel.
+- ``rope``  — rotary position embeddings + the flash kernel;
+- ``moe``   — switch-routed mixture-of-experts MLPs.
 
-The other families (context-parallel, MoE, pipelined) are named here as
-in the reference, but the port's `BurninConfig` rejects their fields
-until the multi-device slice: `train_family` reports that rejection as
-``TrainReport(ok=False, error=...)``, honoring the reference's "reports,
-never raises" contract.  ``serve_family`` is not ported yet.
+`train_family` runs a family's training step and `serve_family` its
+serving acceptance (a health-checked KV-cache generation, bf16 or the
+full int8 stack), both on one device.  The other families
+(context-parallel, pipelined) are named here as in the reference, but
+the port's `BurninConfig` rejects their fields until the multi-device
+slice: both entry points report that rejection (``ok=False`` with the
+config's reason), honoring the reference's "reports, never raises"
+contract.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import torch
 
-from tpu_dra_torch.parallel.burnin import BurninConfig, TrainReport, train
+from tpu_dra_torch.parallel.burnin import BurninConfig, TrainReport, init_params, train
+from tpu_dra_torch.parallel.decode import make_generate
+from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.quant import quantize_params
+from tpu_dra_torch.parallel.weights import cast_matrices
 
-__all__ = ["FAMILIES", "family_config", "train_family"]
+__all__ = ["FAMILIES", "ServeReport", "family_config", "serve_family", "train_family"]
 
 
 def _preset(defaults: dict) -> "Callable[..., BurninConfig]":
@@ -75,3 +84,61 @@ def train_family(name: str, *, steps: int = 5, device: "str | torch.device" = "c
             error=f"{type(e).__name__}: {e}",
         )
     return train(config, steps=steps, device=device)
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """Result of a family's serving acceptance.  Timing is end to end:
+    ``request_ms`` is the wall time of one batched generation, prefill
+    and decode, and ``tokens_per_second`` counts its generated tokens
+    over that wall."""
+
+    ok: bool
+    tokens_per_second: float = 0.0
+    request_ms: float = 0.0
+    batch: int = 0
+    steps: int = 0
+    error: str = ""
+
+
+def serve_family(name: str, *, steps: int = 12, prompt_len: int = 8, int8: bool = False,
+                 device: "str | torch.device" = "cuda", **overrides) -> ServeReport:
+    """Run the named family's serving acceptance on one device: a
+    health-checked generation (`decode.make_generate`) of ``steps``
+    tokens after a ``prompt_len``-token prompt for the config's batch,
+    from `init_params`' seeded weights, timed after one warm-up call.
+    ``int8=True`` serves the full int8 stack (`quant.quantize_params`
+    weights, an int8 KV cache).
+
+    Reports, never raises, for a known family: a config the port rejects
+    (context-parallel, pipelined) and a failed or unhealthy generation
+    come back as ``ServeReport(ok=False, error=...)``."""
+    if name not in FAMILIES:
+        family_config(name)  # raises: an unknown name is the caller's error
+    try:
+        c = family_config(name, **overrides)
+        dev = resolve_device(device)
+        gen = make_generate(c, prompt_len=prompt_len, steps=steps, with_health=True,
+                            kv_int8=int8)
+        params = init_params(c, device=dev)
+        params = quantize_params(params) if int8 else cast_matrices(params)
+        prompt = torch.ones((c.batch, prompt_len), dtype=torch.int32, device=dev)
+        gen(params, prompt)  # warm-up: the allocator, cuBLAS handles
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        toks, healthy = gen(params, prompt)
+        healthy = bool(healthy)  # waits for the generation
+        dt = time.perf_counter() - t0
+        ok = healthy and tuple(toks.shape) == (c.batch, prompt_len + steps)
+        error = ""
+        if not healthy:
+            error = "health check failed: non-finite logits during generation"
+        elif not ok:
+            error = f"unexpected output shape {tuple(toks.shape)}"
+        return ServeReport(
+            ok=ok, tokens_per_second=round(c.batch * steps / dt, 1),
+            request_ms=round(dt * 1e3, 3), batch=c.batch, steps=steps, error=error,
+        )
+    except Exception as e:  # the acceptance reports, never crashes its caller
+        return ServeReport(ok=False, error=f"{type(e).__name__}: {e}")

@@ -18,6 +18,10 @@ parity tests can hold the two to bf16 ulps:
 - probabilities are rounded to bf16 before the V product;
 - LeakyReLU (slope 0.01, rounded to bf16 like the divisor) runs in bf16;
 - the residual stream, the norms and the logits' final cast are f32.
+
+With ``moe_experts > 0`` each block's MLP is the switch-routed expert MLP
+(`moe.moe_mlp`) and the loss adds ``moe_aux_weight`` times the blocks'
+summed load-balance term.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.moe import moe_mlp
 from tpu_dra_torch.parallel.quant import dequantize_bf16
 
 __all__ = [
@@ -55,10 +60,10 @@ _NEG_INF = -1e30
 @dataclass(frozen=True)
 class BurninConfig:
     """Model + data shape for the burn-in LM — the reference's fields and
-    defaults.  The parallelism and MoE fields are kept so that a config
-    reads the same in both packages, but this package runs only the
-    single-device model, dense or through the flash kernel: setting any
-    of the others raises."""
+    defaults.  The context- and pipeline-parallel fields are kept so that
+    a config reads the same in both packages, but this package runs only
+    the single-device model (dense, through the flash kernel, or with
+    switch-routed experts): setting any of them raises."""
 
     vocab: int = 256
     d_model: int = 128
@@ -92,7 +97,6 @@ class BurninConfig:
             for name, on in (
                 ("ring_attention", self.ring_attention),
                 ("ulysses_attention", self.ulysses_attention),
-                ("moe_experts", self.moe_experts > 0),
                 ("pipeline_stages", self.pipeline_stages > 0),
             )
             if on
@@ -119,7 +123,9 @@ def bf16_scalar(x: float) -> float:
 def init_params(config: BurninConfig, generator: "torch.Generator | None" = None,
                 device: "str | torch.device" = "cuda"):
     """The reference's parameter tree — same keys, stacked ``(L, ...)``
-    layer leaves, shapes and fan-in scaling, all f32 — drawn from
+    layer leaves, shapes and fan-in scaling, all f32; with experts,
+    ``router (L, d, E)``, ``w1e (L, E, d, f)`` and ``w2e (L, E, f, d)``
+    in place of ``w1``/``w2`` — drawn from
     ``generator`` (default: a generator on ``device`` seeded with 0).
     The numbers differ from the reference's, which come from jax.random;
     the parity tests load the reference's own weights instead
@@ -133,15 +139,23 @@ def init_params(config: BurninConfig, generator: "torch.Generator | None" = None
         w = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
         return w / (fan_in ** 0.5)
 
-    L = c.n_layers
+    L, D, F, E = c.n_layers, c.d_model, c.d_ff, c.moe_experts
+    embed = dense((c.vocab, D), D)
+    pos = dense((c.seq, D), D)
+    wqkv = dense((L, D, 3, c.n_heads, c.d_head), D)
+    wo = dense((L, c.n_heads, c.d_head, D), D)
+    if E > 0:
+        mlp = {"router": dense((L, D, E), D), "w1e": dense((L, E, D, F), D),
+               "w2e": dense((L, E, F, D), F)}
+    else:
+        mlp = {"w1": dense((L, D, F), D), "w2": dense((L, F, D), F)}
     return {
-        "embed": dense((c.vocab, c.d_model), c.d_model),
-        "pos": dense((c.seq, c.d_model), c.d_model),
+        "embed": embed,
+        "pos": pos,
         "layers": {
-            "wqkv": dense((L, c.d_model, 3, c.n_heads, c.d_head), c.d_model),
-            "wo": dense((L, c.n_heads, c.d_head, c.d_model), c.d_model),
-            "w1": dense((L, c.d_model, c.d_ff), c.d_model),
-            "w2": dense((L, c.d_ff, c.d_model), c.d_ff),
+            "wqkv": wqkv,
+            "wo": wo,
+            **mlp,
             "ln1": torch.ones((L, c.d_model), device=dev),
             "ln2": torch.ones((L, c.d_model), device=dev),
         },
@@ -197,19 +211,25 @@ def _attend_dense(q, k, v, mask, d_head: int):
     return torch.einsum("bhst,bthk->bshk", probs, v)
 
 
-def _mlp(layer, x):
-    """The dense MLP half of a block: pre-norm, w1, LeakyReLU in bf16,
-    w2, residual add in f32."""
+def _mlp(layer, x, config: BurninConfig, capacity: "int | None" = None):
+    """The MLP half of a block: pre-norm, then the dense MLP (w1,
+    LeakyReLU in bf16, w2) or the expert MLP (`moe.moe_mlp`, its queues
+    ``capacity`` long when given), residual add in f32.  Returns ``(x,
+    aux)``, ``aux`` the load-balance term (None for the dense MLP)."""
     h = _rms_norm(x, layer["ln2"]).to(torch.bfloat16)
+    if config.moe_experts > 0:
+        h, aux = moe_mlp(layer, h, config, capacity)
+        return x + h, aux
     h = _matmul_bf16(h, layer["w1"], 1)
     h = torch.where(h > 0, h, bf16_scalar(0.01) * h)
-    return x + _matmul_bf16(h, layer["w2"], 1)
+    return x + _matmul_bf16(h, layer["w2"], 1), None
 
 
 def _block(layer, x, *, config: BurninConfig, rope_tab=None):
     """One pre-norm transformer block over the full sequence (the
     unsharded branches of the reference's ``_block``: dense attention, or
-    the flash kernel when ``flash_attention`` is set)."""
+    the flash kernel when ``flash_attention`` is set; the dense or the
+    expert MLP).  Returns ``(x, aux)`` as `_mlp` does."""
     c = config
     h = _rms_norm(x, layer["ln1"]).to(torch.bfloat16)
     qkv = _matmul_bf16(h, layer["wqkv"], 1)  # (B, S, 3, H, K)
@@ -232,7 +252,7 @@ def _block(layer, x, *, config: BurninConfig, rope_tab=None):
         mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
         att = _attend_dense(q, k, v, mask[None, None], c.d_head)
     x = x + _matmul_bf16(att, layer["wo"], 2)
-    return _mlp(layer, x)
+    return _mlp(layer, x, c)
 
 
 def _layers(params):
@@ -251,9 +271,11 @@ def _logits(params, x):
     return (x @ dequantize_bf16(params["embed"]).to(torch.bfloat16).T).float()
 
 
-def forward(params, tokens, config: BurninConfig):
+def forward(params, tokens, config: BurninConfig, *, return_aux: bool = False):
     """Logits (B, S, vocab) f32 for ``tokens`` (B, S) with S == seq, the
-    reference's training forward on one device.  Where grad is enabled,
+    reference's training forward on one device; with ``return_aux``,
+    ``(logits, aux)``, ``aux`` the blocks' summed load-balance term (a
+    0-dim f32 tensor, zero without experts).  Where grad is enabled,
     each block runs under `torch.utils.checkpoint` (the reference's
     ``jax.checkpoint``): the backward recomputes a block's activations
     instead of keeping them."""
@@ -269,12 +291,17 @@ def forward(params, tokens, config: BurninConfig):
         else None
     )
     remat = torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in _layers(params):
         if remat:
-            x = checkpoint(_block, layer, x, config=c, rope_tab=rope_tab, use_reentrant=False)
+            x, aux_l = checkpoint(_block, layer, x, config=c, rope_tab=rope_tab,
+                                  use_reentrant=False)
         else:
-            x = _block(layer, x, config=c, rope_tab=rope_tab)
-    return _logits(params, x)
+            x, aux_l = _block(layer, x, config=c, rope_tab=rope_tab)
+        if aux_l is not None:
+            aux = aux + aux_l
+    logits = _logits(params, x)
+    return (logits, aux) if return_aux else logits
 
 
 # ---------------------------------------------------------------------------
@@ -298,14 +325,18 @@ def _tree_map(fn, tree):
 
 def _loss(params, tokens, config: BurninConfig):
     """Mean next-token cross-entropy, written out as the reference does:
-    the max-shifted log-sum-exp minus the picked logit."""
-    logits = forward(params, tokens, config)
+    the max-shifted log-sum-exp minus the picked logit; with experts, plus
+    ``moe_aux_weight`` times the load-balance term."""
+    logits, aux = forward(params, tokens, config, return_aux=True)
     targets = tokens[:, 1:].long()
     logits = logits[:, :-1]
     zmax = logits.amax(-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(logits - zmax), -1)) + zmax[..., 0]
     picked = torch.gather(logits, -1, targets[..., None])[..., 0]
-    return torch.mean(lse - picked)
+    ce = torch.mean(lse - picked)
+    if config.moe_experts > 0:
+        ce = ce + config.moe_aux_weight * aux
+    return ce
 
 
 def schedule_lr(config: BurninConfig, t):

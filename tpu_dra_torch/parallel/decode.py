@@ -1,10 +1,15 @@
 """KV-cache decode for the burn-in LM: the incremental serving path.
 
 Counterpart of `tpu_dra.parallel.decode` on one device: the cache (bf16,
-or int8 with a scale per token and head), the per-layer decode block,
-the per-row decode step the engine runs, the contiguous-cache forward
-(`decode_forward`) and the generation factories over it
-(`make_generate`, `make_generate_padded`), and the decoding policy:
+or int8 with a scale per token and head), the per-layer decode block
+(dense or with switch-routed experts), the per-row decode step the
+engine's rows layout runs, the contiguous-cache forward
+(`decode_forward`), the generation factories over it (`make_generate`,
+`make_generate_padded`, and `make_prefill` + `make_generate_from_cache`
+with `expand_cache` for one prefill fanned out to many continuations;
+`generate` for one call), the row copies of the rows layout's prefix
+cache (`copy_prefix_into_row` and the suffix prefill), and the decoding
+policy:
 greedy argmax, or temperature-scaled sampling restricted by top-k/top-p
 (`filter_logits`) and drawn with JAX's own Threefry (`prng`), so that a
 key gives the reference's tokens.  Params may be int8
@@ -26,6 +31,8 @@ paged-attention kernel).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from tpu_dra_torch.parallel.burnin import (
@@ -40,6 +47,7 @@ from tpu_dra_torch.parallel.burnin import (
 )
 from tpu_dra_torch.parallel import prng
 from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.moe import expert_capacity
 from tpu_dra_torch.parallel.quant import (
     dequantize,
     dequantize_bf16,
@@ -48,14 +56,50 @@ from tpu_dra_torch.parallel.quant import (
 )
 
 __all__ = [
+    "copy_prefix_into_row",
     "decode_forward",
     "decode_step_padded",
     "decode_step_rows",
+    "expand_cache",
     "filter_logits",
+    "generate",
     "init_cache",
     "make_generate",
+    "make_generate_from_cache",
     "make_generate_padded",
+    "make_prefill",
+    "serving_config",
 ]
+
+
+def serving_config(config: BurninConfig) -> BurninConfig:
+    """The serving view of a training config: the training-only
+    parallelism (ring/Ulysses context parallelism, pipeline stages)
+    stripped, everything the params depend on untouched.  The port's
+    config refuses those fields already, so here this is the same
+    config; it is kept so that callers read as the reference's do."""
+    return dataclasses.replace(
+        config, ring_attention=False, ulysses_attention=False, pipeline_stages=0,
+    )
+
+
+def _validate(config: BurninConfig) -> None:
+    """The reference's decode refusals: no context or pipeline
+    parallelism (a one-token step has neither a sequence to shard nor a
+    microbatch stream)."""
+    if config.ring_attention or config.ulysses_attention:
+        raise ValueError(
+            "decode does not run under context parallelism: ring/Ulysses "
+            "shard the sequence, and a decode step has a single query "
+            "position — serve the cp-trained weights via "
+            "serving_config(config) (same param geometry, tp mesh)"
+        )
+    if config.pipeline_stages > 0:
+        raise ValueError(
+            "decode does not run under pipeline parallelism: a one-token "
+            "step has no microbatch stream to fill a GPipe schedule with "
+            "— serve the pp-trained weights via serving_config(config)"
+        )
 
 
 def init_cache(config: BurninConfig, batch: int, kv_int8: bool = False,
@@ -128,6 +172,44 @@ def _cache_len(cache) -> int:
     return _values(cache["k"]).shape[2]
 
 
+def _kv_tensors(cache):
+    """Every tensor of a cache, in one fixed order: ``k`` then ``v``,
+    each a bf16 tensor or its int8 values then scales.  Every one carries
+    the batch on axis 1 and the position on axis 2."""
+    out = []
+    for name in ("k", "v"):
+        leaf = cache[name]
+        out += [leaf["q"], leaf["s"]] if is_quantized_leaf(leaf) else [leaf]
+    return out
+
+
+def copy_prefix_into_row(dst, dst_row: int, src, src_row: int, length: int):
+    """Copy positions ``[0, length)`` of batch row ``src_row`` of cache
+    ``src`` into batch row ``dst_row`` of cache ``dst`` (in place; the
+    destination's later positions are left as they are) and return
+    ``dst``.  Both caches have one storage format, bf16 or int8.  A
+    causal KV entry at position j depends only on tokens [0, j], so the
+    first ``length`` positions of a resident prefix row serve any
+    request sharing those tokens: the device half of the rows layout's
+    prefix cache.  With ``length`` the context, it is the engine's
+    whole-row insert."""
+    for d, s in zip(_kv_tensors(dst), _kv_tensors(src)):
+        d[:, dst_row, :length] = s[:, src_row, :length]
+    return dst
+
+
+def expand_cache(cache, last_logits, n: int):
+    """Tile a prefilled prefix across the batch: each of the B rows
+    becomes ``n`` consecutive identical rows (axis 1 of every cache
+    tensor, axis 0 of the logits); new tensors, the inputs untouched."""
+    def rows(leaf):
+        if is_quantized_leaf(leaf):
+            return {k: t.repeat_interleave(n, dim=1) for k, t in leaf.items()}
+        return leaf.repeat_interleave(n, dim=1)
+
+    return {name: rows(leaf) for name, leaf in cache.items()}, last_logits.repeat_interleave(n, dim=0)
+
+
 def _embed_lookup(emb, idx):
     """Token embedding rows of a plain (V, D) bf16 or f32 table, or f32
     rows ``q[idx] * s[idx]`` of an int8 ``{"q","s"}`` one (the
@@ -146,8 +228,12 @@ def _decode_block(layer, x, ck, cv, p0, *, config: BurninConfig, mask,
     """One block over ``x`` (B, S, d) written to cache slots [p0, p0+S):
     K/V land in ``ck``/``cv`` (in place, through ``kv_io`` when given)
     and the queries attend under ``mask`` (broadcastable to (B, 1, S,
-    T)) — the training block's arithmetic, minus gradients."""
+    T)) — the training block's arithmetic, minus gradients.  The expert
+    MLP's queues hold ``min(S, expert_capacity)`` tokens: the training
+    capacity clamped to the tokens present, so a prefill drops where
+    training would and a one-token step is dropless."""
     c = config
+    S = x.shape[1]
     h = _rms_norm(x, layer["ln1"]).to(torch.bfloat16)
     qkv = _matmul_bf16(h, layer["wqkv"], 1)  # (B, S, 3, H, K)
     q, k_new, v_new = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -171,7 +257,9 @@ def _decode_block(layer, x, ck, cv, p0, *, config: BurninConfig, mask,
         else:
             att = _attend_dense(q, kv_io.read(ck), kv_io.read(cv), mask, c.d_head)
     x = x + _matmul_bf16(att, layer["wo"], 2)
-    return _mlp(layer, x), ck, cv
+    capacity = min(S, expert_capacity(c)) if c.moe_experts > 0 else None
+    x, _ = _mlp(layer, x, c, capacity)
+    return x, ck, cv
 
 
 def _run_blocks(params, x, cache, p0, mask, config: BurninConfig, kv_io=None):
@@ -202,8 +290,17 @@ def _run_blocks(params, x, cache, p0, mask, config: BurninConfig, kv_io=None):
 def decode_step_rows(params, tok, cache, pos, config: BurninConfig):
     """One decode step with PER-ROW positions: row ``b``'s token
     ``tok[b]`` lands in cache slot ``pos[b]`` (in place) and attends
-    slots ``j <= pos[b]``.  Returns ``(logits (B, vocab), cache)``."""
+    slots ``j <= pos[b]``.  Returns ``(logits (B, vocab), cache)``.
+
+    A position past the context (a row of a fused engine call whose
+    request finished mid-call steps on) is clamped to the last slot: the
+    row writes slot T-1 of its own row, which the next admission's
+    whole-row insert overwrites, and its logits are dropped.  The
+    reference drops such a write instead; both leave every live row
+    alone, and neither ever indexes past the context (on the card that
+    would be a device-side assert)."""
     T = _cache_len(cache)
+    pos = pos.clamp(max=T - 1)
     x = _embed_lookup(params["embed"], tok)[:, None, :]
     if not config.rope:
         x = x + params["pos"][pos][:, None, :]
@@ -228,6 +325,14 @@ def _check_prefix_window(c: BurninConfig, prompt_slots: int, window: int) -> Non
         raise ValueError(
             f"prefix window must divide prompt_slots, got "
             f"{window} vs {prompt_slots}"
+        )
+    if c.moe_experts > 0:
+        raise ValueError(
+            "the suffix prefill is not supported with moe_experts > 0: "
+            "its windowed passes would restart the per-expert capacity "
+            "queue, so routing (and drops) would diverge from the one-shot "
+            "prefill's — the same invariant that rejects prefill_chunk "
+            "(serve MoE with the prefix cache disabled)"
         )
 
 
@@ -366,6 +471,33 @@ def _check_chunk(c: BurninConfig, prompt_len: int, prefill_chunk: "int | None",
         raise ValueError(
             f"prefill_chunk must divide {name}, got {prefill_chunk} vs {prompt_len}"
         )
+    if prefill_chunk is not None and prefill_chunk != prompt_len and c.moe_experts > 0:
+        raise ValueError(
+            "prefill_chunk is not supported with moe_experts > 0: each "
+            "window would restart the per-expert capacity queue, so "
+            "chunked routing (and drops) would diverge from the one-shot "
+            "prefill's — breaking the drops-exactly-when-training-would "
+            "serving invariant (chunk the attention, not the router)"
+        )
+
+
+def _prefill_windows(params, prompt, lens_c, cache, window: int, first: int,
+                     c: BurninConfig):
+    """The padded prompt's ``window``-token windows from window ``first``
+    on, each at its absolute offset, into ``cache``; returns ``(last (B,
+    vocab), cache)``, ``last`` each row's logits at its own last real
+    position ``lens_c[b] - 1`` (picked out of whichever window covers it;
+    zeros if none of the windows run does)."""
+    rows = torch.arange(prompt.shape[0], device=prompt.device)
+    last_pos = lens_c.long() - 1
+    W = window
+    last = torch.zeros((prompt.shape[0], c.vocab), device=prompt.device)
+    for i in range(first, prompt.shape[1] // W):
+        logits, cache = decode_forward(params, prompt[:, i * W:(i + 1) * W], cache, i * W, c)
+        off = last_pos - i * W  # the row's last real position, window-relative
+        cand = logits[rows, off.clamp(0, W - 1)]
+        last = torch.where(((off >= 0) & (off < W))[:, None], cand, last)
+    return last, cache
 
 
 def _build_prefill_padded(c: BurninConfig, prompt_slots: int, prefill_chunk: "int | None"):
@@ -381,14 +513,27 @@ def _build_prefill_padded(c: BurninConfig, prompt_slots: int, prefill_chunk: "in
         if prefill_chunk is None or prefill_chunk == prompt_slots:
             logits, cache = decode_forward(params, prompt, cache, 0, c)
             return logits[rows, last_pos], cache
-        C = prefill_chunk
-        last = torch.zeros((prompt.shape[0], c.vocab), device=prompt.device)
-        for i in range(prompt_slots // C):
-            logits, cache = decode_forward(params, prompt[:, i * C:(i + 1) * C], cache, i * C, c)
-            off = last_pos - i * C  # the row's last real position, window-relative
-            cand = logits[rows, off.clamp(0, C - 1)]
-            last = torch.where(((off >= 0) & (off < C))[:, None], cand, last)
-        return last, cache
+        return _prefill_windows(params, prompt, lens_c, cache, prefill_chunk, 0, c)
+
+    return prefill
+
+
+def _build_prefill_suffix(c: BurninConfig, prompt_slots: int, window: int):
+    """The padded prefill on top of a resident prefix: ``prefill(params,
+    prompt, lens_c, cache, *, first_window=0) -> (last, cache)`` runs
+    only the ``window``-token windows from ``first_window`` on, over a
+    cache whose positions ``[0, first_window * window)`` already hold
+    the prefix (`copy_prefix_into_row`).  The caller keeps
+    ``first_window * window <= min(lens_c) - 1``, so the window of each
+    row's last real position runs (a whole-prompt hit still computes
+    its last position).  Refused with experts (`_check_prefix_window`)."""
+    _check_prefix_window(c, prompt_slots, window)
+    nwin = prompt_slots // window
+
+    def prefill(params, prompt, lens_c, cache, *, first_window: int = 0):
+        if not 0 <= first_window < nwin:
+            raise ValueError(f"first_window must be in [0, {nwin}), got {first_window}")
+        return _prefill_windows(params, prompt, lens_c, cache, window, first_window, c)
 
     return prefill
 
@@ -473,6 +618,7 @@ def make_generate(config: BurninConfig, *, prompt_len: int, steps: int,
     generated tokens, ``with_health`` the all-logits-finite flag (a
     device bool): ``(tokens[, logprobs][, healthy])``."""
     c = config
+    _validate(c)
     _check_window(c, prompt_len, steps, "prompt_len")
     _check_chunk(c, prompt_len, prefill_chunk)
     sampled = temperature > 0.0
@@ -512,6 +658,7 @@ def make_generate_padded(config: BurninConfig, *, prompt_slots: int, steps: int,
     prompt_slots]`` are clamped into it and, with ``with_health``, clear
     the health flag.  Sampling and keys as in `make_generate`."""
     c = config
+    _validate(c)
     _check_window(c, prompt_slots, steps, "prompt_slots")
     _check_chunk(c, prompt_slots, prefill_chunk, "prompt_slots")
     _reject_rope_padded(c)
@@ -540,3 +687,79 @@ def make_generate_padded(config: BurninConfig, *, prompt_slots: int, steps: int,
         return _assemble(prompt, _stack_fed(fed, tok), tok, fin, with_health)
 
     return run
+
+
+def make_prefill(config: BurninConfig, *, prompt_len: int, kv_int8: bool = False,
+                 prefill_chunk: "int | None" = None):
+    """Prefix caching, step 1: ``fn(params, prompt (B, prompt_len)) ->
+    (cache, last_logits)``, a fresh cache (bf16, or int8 with
+    ``kv_int8``) on the prompt's device prefilled with the prompt, and
+    the logits at its last position.  The state feeds
+    `make_generate_from_cache`, which never writes it: one prefill
+    serves any number of continuations, and `expand_cache` tiles it
+    across a batch."""
+    c = config
+    _validate(c)
+    _check_window(c, prompt_len, 1, "prompt_len")
+    _check_chunk(c, prompt_len, prefill_chunk)
+    prefill = _build_prefill(c, prompt_len, prefill_chunk)
+
+    @torch.no_grad()
+    def run(params, prompt):
+        cache = init_cache(c, prompt.shape[0], kv_int8, device=prompt.device)
+        last, cache = prefill(params, prompt, cache)
+        return cache, last
+
+    return run
+
+
+def make_generate_from_cache(config: BurninConfig, *, start_pos: int, steps: int,
+                             temperature: float = 0.0, top_k: "int | None" = None,
+                             top_p: "float | None" = None, with_health: bool = False,
+                             with_logprobs: bool = False):
+    """Prefix caching, step 2: ``fn(params, cache, last_logits[, key]) ->
+    (B, steps)``, the continuation of a `make_prefill` state whose prompt
+    was ``start_pos`` tokens long (the first generated token lands in
+    slot ``start_pos``).  The input cache is never written: the decode
+    steps run on a copy, so one prefilled state fans out to any number
+    of continuations with different keys or filters.  With the same
+    length, prefill + continuation gives `make_generate`'s tokens.
+    Sampling, keys, ``with_logprobs`` and ``with_health`` as in
+    `make_generate`: ``(tokens[, logprobs][, healthy])``.  The cache's
+    storage (bf16 or int8) is read from the cache itself (the
+    reference's ``kv_int8`` and ``quantized`` arguments name shardings,
+    which the port has none of)."""
+    c = config
+    _validate(c)
+    _check_window(c, start_pos, steps, "start_pos")
+    sampled = temperature > 0.0
+    _validate_filters(c.vocab, sampled, top_k, top_p)
+    pick = _make_pick(sampled, temperature, top_k, top_p)
+
+    @torch.no_grad()
+    def run(params, cache, last_logits, key=None):
+        _key_or_raise(sampled, key, "fn(params, cache, last_logits, key)")
+        own = {name: ({k: t.clone() for k, t in leaf.items()} if is_quantized_leaf(leaf)
+                      else leaf.clone())
+               for name, leaf in cache.items()}
+        keys = _make_keys(sampled, key, steps, last_logits.device)
+        toks, last, lps, fin = _token_loop(params, own, last_logits, start_pos, keys, pick, c,
+                                           logprobs=with_logprobs)
+        out = torch.cat([toks.transpose(0, 1), last[:, None]], dim=1)
+        parts = (out,)
+        if with_logprobs:
+            parts += (lps,)
+        if with_health:
+            parts += (fin,)
+        return parts if len(parts) > 1 else out
+
+    return run
+
+
+def generate(params, prompt, steps: int, config: BurninConfig, temperature: float = 0.0,
+             key=None):
+    """One call of `make_generate` (built per call: hold on to its
+    function for a serving loop).  ``params`` may be plain or int8 as
+    they come."""
+    fn = make_generate(config, prompt_len=prompt.shape[1], steps=steps, temperature=temperature)
+    return fn(params, prompt, key)

@@ -1,27 +1,36 @@
-"""Shared-prefix KV reuse over the paged block pool.
+"""Shared-prefix KV reuse for the serving engine.
 
-Counterpart of `tpu_dra.parallel.prefixcache` (its radix index and its
-paged form, `PagedPrefixCache`).  A path-compressed radix index over the
-token runs of admitted prompts finds the longest resident prefix of a new
-prompt; its entries hold refcounted BLOCK-ID LISTS into the engine's one
-block pool (`paged.BlockAllocator`), so a hit is a zero-copy alias of
-the window-aligned prefix blocks into the new request's block table, and
-parking a prompt is free (the entry refs the blocks its admission just
-wrote).  Entries a mid-decode row reads or wrote are pinned; among
-unpinned ones, eviction under block pressure trims the coldest tail
-block first (entries shrink before they die), and the resident-entry cap
-evicts whole entries, least recently used first.
+Counterpart of `tpu_dra.parallel.prefixcache`.  A path-compressed radix
+index over the token runs of admitted prompts finds the longest resident
+prefix of a new prompt (causal KV at position j depends only on tokens
+[0, j], so a resident run serves any prompt sharing its first tokens).
+Entries a mid-decode row reads or wrote are pinned; among unpinned ones
+the least recently used goes first.  Two storage forms share the index:
+
+- `PagedPrefixCache` (the paged layout): entries hold refcounted
+  BLOCK-ID LISTS into the engine's one block pool
+  (`paged.BlockAllocator`), so a hit is a zero-copy alias of the
+  window-aligned prefix blocks into the new request's block table, and
+  parking a prompt is free (the entry refs the blocks its admission just
+  wrote).  Eviction under block pressure trims the coldest tail block
+  first (entries shrink before they die), and the resident-entry cap
+  evicts whole entries.
+- `PrefixCache` (the rows layout): a device pool of ``pool_slots`` cache
+  rows (one `decode.init_cache`), each holding one entry's positions; a
+  hit is a device copy of the prefix into the admitted row
+  (`decode.copy_prefix_into_row`), parking a prompt a copy back.
 
 The hit/miss/eviction counts are instance fields (``stats()``); the
-reference's process-wide Prometheus counters are not ported.  The
-row-backed ``PrefixCache`` waits for the rows layout.
+reference's process-wide Prometheus counters are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-__all__ = ["PagedPrefixCache", "PrefixEntry"]
+from tpu_dra_torch.parallel.decode import init_cache
+
+__all__ = ["PagedPrefixCache", "PrefixCache", "PrefixEntry"]
 
 
 class _Node:
@@ -43,9 +52,9 @@ class _Node:
 @dataclass
 class PrefixEntry:
     """A resident prefix segment: valid KV for cache positions
-    ``[0, length)`` in the block-id list ``blocks`` (each listed block
-    carries one allocator reference held by this entry; ``slot`` is -1,
-    the reference's row-backed form's field).  ``refcount > 0`` pins the
+    ``[0, length)``, stored in pool row ``slot`` (row-backed) or in the
+    block-id list ``blocks`` (paged: ``slot`` is -1 and each listed block
+    carries one allocator reference held by this entry).  ``refcount > 0`` pins the
     entry against eviction (held by every engine row whose admission
     read or wrote it, released when the request finishes).  ``hits``
     counts lookups this entry served."""
@@ -299,6 +308,65 @@ class _RadixIndex:
             "pool_slots": self.pool_slots,
             "epoch": self.epoch,
         }
+
+
+class PrefixCache(_RadixIndex):
+    """Row-backed: the radix index over a device pool of prefix rows (one
+    `decode.init_cache` of ``pool_slots`` rows on ``device``, bf16 or
+    int8, the engine cache's format).
+
+    The cache never computes: it hands back (entry, usable length) pairs
+    and pool rows.  The caller copies KV in and out of ``self.pool``
+    (`decode.copy_prefix_into_row`) and owns the pins
+    (`acquire`/`release`)."""
+
+    def __init__(self, config, pool_slots: int, *, kv_int8: bool = False,
+                 device="cuda"):
+        if pool_slots < 1:
+            raise ValueError(f"prefix pool needs at least one slot, got {pool_slots}")
+        super().__init__()
+        self.config = config
+        self.pool_slots = pool_slots
+        self.pool = init_cache(config, pool_slots, kv_int8, device=device)
+        self._free: "list[int]" = list(range(pool_slots))
+
+    def _evict_lru(self) -> "int | None":
+        """Evict the least recently used unpinned entry; returns its pool
+        row, or None when every entry is pinned."""
+        victim = self._pick_victim()
+        if victim is None:
+            return None
+        self._detach(victim)
+        self.evictions += 1
+        self.epoch += 1
+        return victim.slot
+
+    def insert(self, tokens: "list[int]") -> "PrefixEntry | None":
+        """Index ``tokens`` as a resident prefix and return its entry,
+        pinned once (the admitting row holds it until its request
+        finishes; callers `release`).  The exact run already resident is
+        acquired and returned, checked before a row is allocated, so a
+        duplicate never evicts another entry.  Otherwise a free pool row,
+        or the LRU unpinned entry's; None (nothing stored) when every
+        row is pinned.  The caller then copies the prompt's KV into
+        ``entry.slot``."""
+        if not tokens:
+            raise ValueError("cannot index an empty prefix")
+        existing = self._exact_resident(tokens)
+        if existing is not None:
+            self.acquire(existing)
+            return existing
+        if self._free:
+            slot = self._free.pop()
+        else:
+            slot = self._evict_lru()
+            if slot is None:
+                return None
+        # Eviction prunes empty branches, which can detach a node a walk
+        # before it returned: _attach walks the tree as it is now.
+        node = self._attach(tokens)
+        entry = PrefixEntry(slot=slot, length=len(tokens), refcount=1)
+        return self._register(entry, node)
 
 
 class PagedPrefixCache(_RadixIndex):

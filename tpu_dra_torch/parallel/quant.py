@@ -10,7 +10,9 @@ axes ``C`` (the dims its matmul sums over)::
 A quantized leaf is a ``{"q": int8, "s": f32}`` dict (``s`` keeps the
 contraction dims as size 1), so the params tree keeps its structure.
 The large matmul operands are quantized (``wqkv``, ``wo``, ``w1``,
-``w2``, ``embed``); ``pos`` and the norm gains stay f32.  The same
+``w2``, the experts' ``w1e``/``w2e``, ``embed``); ``pos``, the norm gains
+and the MoE ``router`` stay f32 (routing is f32: a quantized router would
+route other tokens).  The same
 ``{"q","s"}`` convention stores an int8 KV cache or block pool, one
 scale per (token, head).
 
@@ -42,6 +44,8 @@ _CONTRACT_AXES = {
     "wo": (1, 2),         # (L, H, K, D): contract H, K
     "w1": (1,),           # (L, D, F): contract D
     "w2": (1,),           # (L, F, D): contract F
+    "w1e": (2,),          # (L, E, D, F): contract D (per expert)
+    "w2e": (2,),          # (L, E, F, D): contract F (per expert)
 }
 
 

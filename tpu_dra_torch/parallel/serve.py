@@ -1,9 +1,26 @@
-"""Continuous-batching serving engine over the paged decode step.
+"""Continuous-batching serving engine.
 
-Counterpart of `tpu_dra.parallel.serve.ServeEngine` (paged layout): the
-paged KV pool and its memory hierarchy, greedy or sampled decoding with
-per-token logprobs, continuous scheduling or fused ticks.  Every batch
-ROW has its own lifecycle —
+Counterpart of `tpu_dra.parallel.serve.ServeEngine` on one device: two
+KV layouts, greedy or sampled decoding with per-token logprobs,
+continuous scheduling or fused ticks.
+
+- ``kv_layout="paged"`` (the default for dense models): a pool of KV
+  blocks addressed through per-request block tables, with the memory
+  hierarchy below and the CUDA paged-attention kernel.
+- ``kv_layout="rows"`` (the default, and the only layout, for MoE
+  models): one full-context cache row per slot.  A request is prefilled
+  at B=1, padded to ``prompt_slots`` in ONE pass (a windowed prefill
+  would restart the per-expert capacity queues, and so route other
+  tokens than the one-shot prefill the model was trained with), and the
+  whole row is copied into its slot; the decode step attends the rows
+  through the dense masked attention (`decode.decode_step_rows`).  Its
+  prefix cache (dense models only) keeps prompts in a pool of rows
+  (`prefixcache.PrefixCache`): a hit copies the prefix into the new
+  request's B=1 cache and prefills only the windows after it.  No block
+  table, so neither the kernel, the swap tier nor handoff.
+
+Every batch ROW has its own lifecycle (paged; the rows layout admits by
+prefill and whole-row insert) —
 
     submit -> queue -> admit into a free row (alias the resident prefix
     blocks, allocate the rest, prefill the suffix windows into them) ->
@@ -75,7 +92,7 @@ sequences, seeds, stop sequences, SLO verdicts and `slo_counts`, and warm
 restart (`export_prefix_index`, `warm_start`, `prefix_digest`).
 
 Not ported yet: telemetry (spans, metrics, the step flight recorder, the
-obs registrations) and the rows layout.
+obs registrations), the engine's ``prefill_chunk`` and serving on a mesh.
 """
 
 from __future__ import annotations
@@ -91,11 +108,16 @@ from tpu_dra_torch.fleet.digest import ReplicaDigest, build_digest, empty_digest
 from tpu_dra_torch.parallel import prng
 from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
+    _build_prefill_padded,
+    _build_prefill_suffix,
     _check_prefix_window,
     _check_window,
     _chosen_logprob,
     _make_pick,
     _validate_filters,
+    copy_prefix_into_row,
+    decode_step_rows,
+    init_cache,
 )
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.paged import (
@@ -108,7 +130,7 @@ from tpu_dra_torch.parallel.paged import (
     read_block,
     write_block,
 )
-from tpu_dra_torch.parallel.prefixcache import PagedPrefixCache
+from tpu_dra_torch.parallel.prefixcache import PagedPrefixCache, PrefixCache
 from tpu_dra_torch.parallel.quant import is_quantized
 from tpu_dra_torch.parallel.swap import AgeHeatPolicy, HostBlockPool
 from tpu_dra_torch.parallel.weights import cast_matrices
@@ -194,7 +216,8 @@ class Request:
 
 
 class ServeEngine:
-    """Fixed-slot continuous-batching engine on a paged block pool.
+    """Fixed-slot continuous-batching engine on a paged block pool or on
+    full-context cache rows.
 
     ``slots``: concurrent rows (the decode batch).  ``prompt_slots``:
     admission pad width; longer prompts are rejected at submit.
@@ -212,18 +235,26 @@ class ServeEngine:
     ``with_logprobs``: record each generated token's raw-model logprob
     in ``Request.logprobs``.
 
+    ``kv_layout``: ``"paged"`` or ``"rows"``; None (default) picks
+    ``"rows"`` for an MoE model (which ``"paged"`` refuses) and
+    ``"paged"`` otherwise.  The block knobs below (``kv_blocks``,
+    ``host_kv_blocks``, ``swap_policy``) and the prefill/decode tiers
+    need ``"paged"``.
+
     ``attn_backend``: how a decode step reads KV — ``"cuda"`` runs the
     paged-attention CUDA kernel, ``"gather"`` gathers the table's reach
-    for the dense attention, ``"auto"`` (default) picks ``"cuda"`` on a
-    CUDA engine and ``"gather"`` on a CPU one.  ``"cuda"`` on a CPU
-    engine raises.  ``prefix_window``: the block size W, which must
-    divide ``prompt_slots`` (default: the largest divisor of
-    ``prompt_slots`` up to a quarter of it).  ``kv_int8``: the pool
+    for the dense attention (on rows: the dense attention over the
+    rows), ``"auto"`` (default) picks ``"cuda"`` on a paged CUDA engine
+    and ``"gather"`` otherwise.  ``"cuda"`` on a CPU engine or on rows
+    raises.  ``prefix_window``: the block size W, and the prefix cache's
+    window on rows; it must divide ``prompt_slots`` (default: the
+    largest divisor of ``prompt_slots`` up to a quarter of it).  ``kv_int8``: the pool
     stores int8 values with one f32 scale per token and head (each
     written row quantized once, at insert).
 
     ``prefix_cache_slots``: resident entries of the shared-prefix cache
-    (0, the default, turns it off).  ``kv_blocks``: blocks in the pool,
+    (0, the default, turns it off; on rows, the rows of its pool; MoE
+    models refuse it).  ``kv_blocks``: blocks in the pool,
     scratch included (default: every slot can hold a worst-case request,
     plus, with the cache on, room for the entries' prompt blocks and one
     COW block a slot — ``slots * ceil((prompt_slots + max_new_cap) / W)
@@ -265,6 +296,7 @@ class ServeEngine:
         top_k: "int | None" = None,
         top_p: "float | None" = None,
         with_logprobs: bool = False,
+        kv_layout: "str | None" = None,
         kv_blocks: "int | None" = None,
         host_kv_blocks: "int | None" = None,
         swap_policy=None,
@@ -294,17 +326,53 @@ class ServeEngine:
         _validate_filters(c.vocab, temperature > 0, top_k, top_p)
         if prefix_cache_slots < 0:
             raise ValueError(f"prefix_cache_slots must be >= 0, got {prefix_cache_slots}")
-        if host_kv_blocks is not None and host_kv_blocks < 0:
-            raise ValueError(f"host_kv_blocks must be >= 0, got {host_kv_blocks}")
         for knob, value in (("ttft_slo_s", ttft_slo_s), ("tpot_slo_s", tpot_slo_s)):
             if value is not None and not value > 0:
                 raise ValueError(f"{knob} must be > 0, got {value}")
+        if kv_layout is None:
+            # MoE serves on rows: the paged prefill runs in windows, and
+            # per-window capacity queues would route other tokens than
+            # the one-shot prefill.
+            kv_layout = "rows" if c.moe_experts > 0 else "paged"
+        if kv_layout not in ("paged", "rows"):
+            raise ValueError(f"kv_layout must be 'paged' or 'rows', got {kv_layout!r}")
+        if tier != "mono" and kv_layout != "paged":
+            raise ValueError(
+                "prefill/decode tier engines require kv_layout='paged': "
+                "the handoff unit is a block table (docs/SERVING.md "
+                "\"Disaggregated serving\")"
+            )
+        if kv_layout == "paged" and c.moe_experts > 0:
+            raise ValueError(
+                "kv_layout='paged' is not supported with moe_experts > 0: "
+                "the block-table prefill runs in windows, which would "
+                "restart the per-expert capacity queues and diverge from "
+                "the one-shot routing (serve MoE with kv_layout='rows')"
+            )
+        if kv_blocks is not None and kv_layout != "paged":
+            raise ValueError("kv_blocks only applies to kv_layout='paged'")
+        if host_kv_blocks is not None:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "host_kv_blocks only applies to kv_layout='paged' "
+                    "(the rows layout has no blocks to swap)"
+                )
+            if host_kv_blocks < 0:
+                raise ValueError(f"host_kv_blocks must be >= 0, got {host_kv_blocks}")
+        if swap_policy is not None and kv_layout != "paged":
+            raise ValueError("swap_policy only applies to kv_layout='paged'")
         if attn_backend not in ("auto", "gather", "cuda"):
             raise ValueError(
                 f"attn_backend must be 'auto', 'gather' or 'cuda', got {attn_backend!r}"
             )
+        if attn_backend == "cuda" and kv_layout != "paged":
+            raise ValueError(
+                "attn_backend='cuda' is the paged-attention kernel: it "
+                "requires kv_layout='paged' (the rows layout has no block "
+                "tables to stream)"
+            )
         if attn_backend == "auto":
-            attn_backend = "cuda" if dev.type == "cuda" else "gather"
+            attn_backend = "cuda" if kv_layout == "paged" and dev.type == "cuda" else "gather"
         if attn_backend == "cuda" and dev.type != "cuda":
             raise ValueError(
                 "attn_backend='cuda' runs the CUDA kernel: it needs a CUDA "
@@ -313,14 +381,16 @@ class ServeEngine:
         embed = params["embed"]["q"] if is_quantized(params) else params["embed"]
         if embed.device.type != dev.type:
             raise ValueError(f"params are on {embed.device}, the engine on {dev}")
-        if prefix_window is not None:
-            w = prefix_window
-        else:
-            # ~ a quarter prompt, rounded down to a divisor: the
-            # reference's default block size.
-            cap = max(1, prompt_slots // 4)
-            w = max(d for d in range(1, cap + 1) if prompt_slots % d == 0)
-        _check_prefix_window(c, prompt_slots, w)
+        w = None
+        if kv_layout == "paged" or prefix_cache_slots > 0:
+            if prefix_window is not None:
+                w = prefix_window
+            else:
+                # ~ a quarter prompt, rounded down to a divisor: the
+                # reference's default block size.
+                cap = max(1, prompt_slots // 4)
+                w = max(d for d in range(1, cap + 1) if prompt_slots % d == 0)
+            _check_prefix_window(c, prompt_slots, w)
 
         self.config = c
         self.device = dev
@@ -340,6 +410,9 @@ class ServeEngine:
         self.temperature = temperature
         self.with_logprobs = with_logprobs
         self.attn_backend = attn_backend
+        self._kv_layout = kv_layout
+        # The block size on paged; the prefix window on rows (None
+        # without a prefix cache).
         self.block_size = w
         self.kv_int8 = kv_int8
         self.tier = tier
@@ -348,53 +421,31 @@ class ServeEngine:
         self.tpot_slo_s = tpot_slo_s
         self._slo_met = 0
         self._slo_missed = 0
-        # Table width: enough columns for the longest legal request.
-        # Shorter requests leave trailing columns at 0 (scratch).
-        self._table_cols = -(-(prompt_slots + max_new_cap) // w)
-        # With the cache on, room for the entries' prompt blocks and one
-        # COW block a slot (a COW block only exists with a cache).
-        cache_extra = prefix_cache_slots * (prompt_slots // w) + slots if prefix_cache_slots else 0
-        nb = kv_blocks if kv_blocks is not None else slots * self._table_cols + 1 + cache_extra
-        # One worst-case request (its columns, its COW block when a cache
-        # could park it) + scratch: below this some legal submit could
-        # never admit.
-        floor = self._table_cols + 1 + (1 if prefix_cache_slots else 0)
-        if nb < floor:
-            raise ValueError(
-                f"kv_blocks must be >= {floor} (one worst-case request + scratch), got {nb}"
-            )
-        self._balloc = BlockAllocator(nb)
-        self._pool = init_block_pool(c, nb, w, kv_int8, device=dev)
-        self._prefill = make_paged_prefill(c, prompt_slots, w)
         self._sampled = temperature > 0
         self._pick = _make_pick(self._sampled, temperature, top_k, top_p)
-        self._prefix = (
-            PagedPrefixCache(prefix_cache_slots, self._balloc, block_size=w)
-            if prefix_cache_slots else None
-        )
-        self._kv_counts = {"alias_blocks": 0, "cow_blocks": 0, "alloc_blocks": 0}
         self._prefill_tokens = {"computed": 0, "reused": 0}
-        # The host swap tier, and the state of swapped-out requests:
-        # req.id -> host slots in table-column order, the frozen position
-        # and the pending next token.
-        self._host_pool = HostBlockPool(2 * (nb - 1) if host_kv_blocks is None else host_kv_blocks)
-        self._swap_policy = swap_policy or AgeHeatPolicy()
+        # Swapped-out and handed-in requests (paged only; empty on rows).
         self._swap_state: "dict[int, dict]" = {}
-        self._swap_counts = {"out_blocks": 0, "in_blocks": 0, "preemptions": 0}
-        # Handed-in requests parked until their restoring admission:
-        # req.id -> mode, blocks or staging slots, frozen pos/tok.
         self._handoff_state: "dict[int, dict]" = {}
-        self._handoff_counts = {
-            "out_requests": 0, "out_blocks": 0, "in_requests": 0, "in_blocks": 0,
-            "alias": 0, "dma": 0,
-        }
+        if kv_layout == "paged":
+            self._init_paged(prefix_cache_slots, kv_blocks, host_kv_blocks, swap_policy)
+        else:
+            # One full-context row a slot; the B=1 admission prefill is
+            # one pass over the padded prompt.
+            self._table_cols = 0
+            self._cache = init_cache(c, slots, kv_int8, device=dev)
+            self._prefill1 = _build_prefill_padded(c, prompt_slots, None)
+            self._prefix = None
+            if prefix_cache_slots:
+                self._prefix = PrefixCache(c, prefix_cache_slots, kv_int8=kv_int8, device=dev)
+                self._suffix = _build_prefill_suffix(c, prompt_slots, w)
         # Host row state: the request, its position (== valid tokens in
-        # the row), the token it feeds next, its block table, and the
-        # prefix entries it pins (the one it read, the one it wrote).
+        # the row), the token it feeds next, and the prefix entries it
+        # pins (the one it read, the one it wrote); on paged, its block
+        # table too.
         self._row_req: "list[Request | None]" = [None] * slots
         self._pos = [0] * slots
         self._tok = [0] * slots
-        self._table = np.zeros((slots, self._table_cols), np.int32)
         self._row_pins: "list[list]" = [[] for _ in range(slots)]
         # Pinned host staging (plain memory on a CPU engine), uploaded
         # without a host sync: one buffer for the per-call state — tok,
@@ -417,6 +468,51 @@ class ServeEngine:
         self._next_id = 0
         self._closed = False
         self._device_steps = 0
+
+    def _init_paged(self, prefix_cache_slots: int, kv_blocks: "int | None",
+                    host_kv_blocks: "int | None", swap_policy) -> None:
+        """The paged layout's state: the block pool and its allocator, the
+        block tables, the prefix cache over the pool, the host swap tier
+        and the handoff state."""
+        c, w, slots = self.config, self.block_size, self.slots
+        # Table width: enough columns for the longest legal request.
+        # Shorter requests leave trailing columns at 0 (scratch).
+        self._table_cols = -(-(self.prompt_slots + self.max_new_cap) // w)
+        # With the cache on, room for the entries' prompt blocks and one
+        # COW block a slot (a COW block only exists with a cache).
+        cache_extra = (prefix_cache_slots * (self.prompt_slots // w) + slots
+                       if prefix_cache_slots else 0)
+        nb = kv_blocks if kv_blocks is not None else slots * self._table_cols + 1 + cache_extra
+        # One worst-case request (its columns, its COW block when a cache
+        # could park it) + scratch: below this some legal submit could
+        # never admit.
+        floor = self._table_cols + 1 + (1 if prefix_cache_slots else 0)
+        if nb < floor:
+            raise ValueError(
+                f"kv_blocks must be >= {floor} (one worst-case request + scratch), got {nb}"
+            )
+        self._balloc = BlockAllocator(nb)
+        self._pool = init_block_pool(c, nb, w, self.kv_int8, device=self.device)
+        self._prefill = make_paged_prefill(c, self.prompt_slots, w)
+        self._prefix = (
+            PagedPrefixCache(prefix_cache_slots, self._balloc, block_size=w)
+            if prefix_cache_slots else None
+        )
+        self._kv_counts = {"alias_blocks": 0, "cow_blocks": 0, "alloc_blocks": 0}
+        # The host swap tier, and the state of swapped-out requests:
+        # req.id -> host slots in table-column order, the frozen position
+        # and the pending next token.
+        self._host_pool = HostBlockPool(2 * (nb - 1) if host_kv_blocks is None else host_kv_blocks)
+        self._swap_policy = swap_policy or AgeHeatPolicy()
+        self._swap_counts = {"out_blocks": 0, "in_blocks": 0, "preemptions": 0}
+        # Handed-in requests parked until their restoring admission live
+        # in _handoff_state: req.id -> mode, blocks or staging slots,
+        # frozen pos/tok.
+        self._handoff_counts = {
+            "out_requests": 0, "out_blocks": 0, "in_requests": 0, "in_blocks": 0,
+            "alias": 0, "dma": 0,
+        }
+        self._table = np.zeros((slots, self._table_cols), np.int32)
 
     # -- submission ------------------------------------------------------
     def submit(self, prompt: "list[int]", max_new: "int | None" = None,
@@ -510,7 +606,10 @@ class ServeEngine:
         entry's tail block (`PagedPrefixCache.evict_one`); else preempt a
         strictly-lower-priority row to the host tier (`_try_preempt`).
         False parks the head.  Re-peeks after every rung: a trim can
-        shrink the alias credit the demand counted on."""
+        shrink the alias credit the demand counted on.  The rows layout
+        has no blocks: a free row is all it needs."""
+        if self._kv_layout != "paged":
+            return True
         while True:
             if req.swapped:
                 # Exact: the blocks it held, no alias credit, no COW.
@@ -684,6 +783,10 @@ class ServeEngine:
         stored, the row stays live).  The request leaves this engine: row
         freed, pins released, `request` forgets it."""
         self._check_open()
+        if self._kv_layout != "paged":
+            raise RuntimeError(
+                "handoff_out needs kv_layout='paged': the handoff unit is a block table"
+            )
         if mode not in ("alias", "dma"):
             raise ValueError(f"mode must be 'alias' or 'dma', got {mode!r}")
         if mode == "dma" and staging is None:
@@ -725,6 +828,10 @@ class ServeEngine:
         it; the next admission restores it (`_handoff_restore`) under the
         same block-demand gate as every head.  Returns the local id."""
         self._check_open()
+        if self._kv_layout != "paged":
+            raise RuntimeError(
+                "handoff_in needs kv_layout='paged': the handoff unit is a block table"
+            )
         req = payload["request"]
         mode = payload["mode"]
         cols = payload["blocks"] if mode == "alias" else payload["slots"]
@@ -844,24 +951,80 @@ class ServeEngine:
         req.kv_blocks = total_cols
         return last, pins
 
-    def _prefill_into(self, stage: torch.Tensor, prompt: "list[int]", table_row,
-                      first_window: int) -> torch.Tensor:
-        """Prefill ``prompt`` into the blocks ``table_row`` names, from
-        window ``first_window`` on, through ONE upload of ``stage`` (a
-        staging row: the padded prompt, the table row, the length).
-        Returns the logits at the prompt's last position, on the device."""
+    def _upload(self, stage: torch.Tensor, prompt: "list[int]", table_row=None):
+        """ONE upload of ``stage`` (a staging row: the padded prompt, the
+        table row on paged, the length) without a host sync.  Returns
+        the device's ``(prompt (1, prompt_slots), lens (1,), table (1,
+        cols))``."""
         P = self.prompt_slots
         host = stage.numpy()
         host[:] = 0
         host[:len(prompt)] = prompt
-        host[P:P + self._table_cols] = table_row
+        if table_row is not None:
+            host[P:P + self._table_cols] = table_row
         host[-1] = len(prompt)
         staged = stage.to(self.device, non_blocking=True)
-        last, self._pool = self._prefill(
-            self.params, staged[None, :P], staged[-1:], self._pool,
-            staged[None, P:P + self._table_cols], first_window=first_window,
-        )
+        return staged[None, :P], staged[-1:], staged[None, P:P + self._table_cols]
+
+    def _prefill_into(self, stage: torch.Tensor, prompt: "list[int]", table_row,
+                      first_window: int) -> torch.Tensor:
+        """Prefill ``prompt`` into the blocks ``table_row`` names, from
+        window ``first_window`` on, through ONE upload of ``stage``.
+        Returns the logits at the prompt's last position, on the device."""
+        tokens, lens, table = self._upload(stage, prompt, table_row)
+        last, self._pool = self._prefill(self.params, tokens, lens, self._pool, table,
+                                         first_window=first_window)
         return last
+
+    def _prefill_row(self, stage: torch.Tensor, prompt: "list[int]"):
+        """A B=1 cache holding ``prompt``'s prefill (padded to
+        ``prompt_slots``, one pass), through ONE upload of ``stage``.
+        Returns ``(cache1, last)``, ``last`` the logits at the prompt's
+        last position, on the device."""
+        tokens, lens, _ = self._upload(stage, prompt)
+        cache1 = init_cache(self.config, 1, self.kv_int8, device=self.device)
+        last, cache1 = self._prefill1(self.params, tokens, lens, cache1)
+        return cache1, last
+
+    def _admit_rows(self, req: Request, row: int):
+        """One rows admission: the prompt's B=1 prefill — with a prefix
+        hit, the window-aligned prefix copied from the pool row into a
+        fresh B=1 cache and only the windows after it computed — its KV
+        parked in a pool row for later hits (unless the exact prompt is
+        resident or shorter than a window), then the whole B=1 row copied
+        into engine row ``row`` (every position: the row's previous
+        tenant is overwritten).  Returns ``(last, pins)`` as
+        `_admit_paged` does."""
+        length = len(req.prompt)
+        w = self.block_size
+        stage = self._prompt_stage[row]
+        cacheable = self._prefix is not None and req.use_prefix_cache
+        entry, m, m_raw = (
+            self._prefix.match(req.prompt, min_use=w) if cacheable else (None, 0, 0)
+        )
+        pins = []
+        if entry is not None:
+            self._prefix.acquire(entry)
+            pins.append(entry)
+            # Copy only whole windows: the first computed window starts
+            # on the grid, so reused == positions whose compute was skipped.
+            fw = m // w
+            tokens, lens, _ = self._upload(stage, req.prompt)
+            cache1 = init_cache(self.config, 1, self.kv_int8, device=self.device)
+            copy_prefix_into_row(cache1, 0, self._prefix.pool, entry.slot, fw * w)
+            last, cache1 = self._suffix(self.params, tokens, lens, cache1, first_window=fw)
+            req.prefix_reused = fw * w
+        else:
+            cache1, last = self._prefill_row(stage, req.prompt)
+        self._prefill_tokens["reused"] += req.prefix_reused
+        self._prefill_tokens["computed"] += length - req.prefix_reused
+        if cacheable and m_raw < length and length >= w:
+            new_entry = self._prefix.insert(req.prompt)
+            if new_entry is not None:
+                copy_prefix_into_row(self._prefix.pool, new_entry.slot, cache1, 0, length)
+                pins.append(new_entry)
+        copy_prefix_into_row(self._cache, row, cache1, 0, self.config.seq)
+        return last, pins
 
     def _head_index(self) -> int:
         """The admission head's queue index: highest priority first,
@@ -897,7 +1060,10 @@ class ServeEngine:
                 continue
             req.admitted_at = time.perf_counter()
             req.queue_wait_s = req.admitted_at - req.enqueued_at
-            last, pins = self._admit_paged(req, row)
+            if self._kv_layout == "paged":
+                last, pins = self._admit_paged(req, row)
+            else:
+                last, pins = self._admit_rows(req, row)
             self._row_req[row] = req
             self._pos[row] = len(req.prompt)
             self._row_pins[row] = pins
@@ -969,10 +1135,11 @@ class ServeEngine:
 
     def _finish(self, row: int, req: Request, now: float) -> None:
         """Close out a finished request: its TPOT and SLO verdicts, then
-        its row: drop the table's block references and point the row at
-        scratch, so its frozen writes can never reach a block a later
-        admission reallocates (blocks a resident entry holds stay
-        allocated); release its pins."""
+        its row: on paged, drop the table's block references and point the
+        row at scratch, so its frozen writes can never reach a block a
+        later admission reallocates (blocks a resident entry holds stay
+        allocated); release its pins.  A rows slot is left as it is: the
+        next admission's insert overwrites the whole row."""
         req.finished_at = now
         if req.token_deltas:
             req.tpot_s = sum(req.token_deltas) / len(req.token_deltas)
@@ -989,8 +1156,9 @@ class ServeEngine:
                 self._slo_missed += 1
         self._done.append(req)
         self._row_req[row] = None
-        self._balloc.unref([int(b) for b in self._table[row] if b], step=self._device_steps)
-        self._table[row, :] = 0
+        if self._kv_layout == "paged":
+            self._balloc.unref([int(b) for b in self._table[row] if b], step=self._device_steps)
+            self._table[row, :] = 0
         for entry in self._row_pins[row]:
             self._prefix.release(entry)
         self._row_pins[row] = []
@@ -1011,7 +1179,9 @@ class ServeEngine:
         stage[B:2 * B] = self._pos
         stage[2 * B:3 * B] = stepped
         stage[3 * B:4 * B] = [r.seed if r is not None else 0 for r in self._row_req]
-        stage[4 * B:] = self._table.reshape(-1)
+        paged = self._kv_layout == "paged"
+        if paged:
+            stage[4 * B:] = self._table.reshape(-1)
         state = self._stage.to(self.device, non_blocking=True)
         tok, pos = state[:B], state[B:2 * B]
         live = state[2 * B:3 * B].bool()
@@ -1019,10 +1189,16 @@ class ServeEngine:
         table = state[4 * B:].view(B, self._table_cols)
         toks, lps = [], []
         for _ in range(n):
-            logits, self._pool = paged_decode_step_rows(
-                self.params, tok, self._pool, table, pos, self.config,
-                backend=self.attn_backend,
-            )
+            if paged:
+                logits, self._pool = paged_decode_step_rows(
+                    self.params, tok, self._pool, table, pos, self.config,
+                    backend=self.attn_backend,
+                )
+            else:
+                # A row that walks past the context in a fused call
+                # writes its own last slot (`decode_step_rows` clamps).
+                logits, self._cache = decode_step_rows(self.params, tok, self._cache, pos,
+                                                       self.config)
             # The token fed at position pos lands in pos + 1.
             nxt = self._sample(logits, seeds, pos + 1)
             if self.with_logprobs:
@@ -1129,23 +1305,29 @@ class ServeEngine:
                        or not 0 <= t < self.config.vocab for t in tokens)
             ):
                 continue
-            cols = -(-len(tokens) // w)
-            while self._balloc.free_count < cols and self._prefix.evict_one():
-                pass
-            own = self._balloc.alloc(cols)
-            if own is None:
-                break  # the pool is held by pinned entries
-            # A transient table row: no engine row is involved.  Each run
-            # gets its own staging buffer, so no upload can see the next
-            # run's values (the caching host allocator keeps a freed
-            # buffer until its copy has run).
-            table_row = np.zeros((self._table_cols,), np.int32)
-            table_row[:cols] = own
+            # Each run gets its own staging buffer, so no upload can see
+            # the next run's values (the caching host allocator keeps a
+            # freed buffer until its copy has run).
             stage = torch.zeros(self._prompt_stage.shape[1], dtype=torch.int32,
                                 pin_memory=self.device.type == "cuda")
-            self._prefill_into(stage, tokens, table_row, 0)
-            entry = self._prefix.insert(tokens, own)
-            self._balloc.unref(own)  # the entry holds the blocks now
+            if self._kv_layout == "paged":
+                cols = -(-len(tokens) // w)
+                while self._balloc.free_count < cols and self._prefix.evict_one():
+                    pass
+                own = self._balloc.alloc(cols)
+                if own is None:
+                    break  # the pool is held by pinned entries
+                # A transient table row: no engine row is involved.
+                table_row = np.zeros((self._table_cols,), np.int32)
+                table_row[:cols] = own
+                self._prefill_into(stage, tokens, table_row, 0)
+                entry = self._prefix.insert(tokens, own)
+                self._balloc.unref(own)  # the entry holds the blocks now
+            else:
+                entry = self._prefix.insert(tokens)
+                if entry is not None:
+                    cache1, _ = self._prefill_row(stage, tokens)
+                    copy_prefix_into_row(self._prefix.pool, entry.slot, cache1, 0, len(tokens))
             if entry is None:
                 break  # the entry cap is reached with every entry pinned
             entry.hits = int(item.get("hits", 0))
@@ -1210,9 +1392,9 @@ class ServeEngine:
 
     @property
     def kv_layout(self) -> str:
-        """The KV storage layout: always ``"paged"`` (the rows layout is
-        not ported)."""
-        return "paged"
+        """The KV storage layout: ``"paged"`` (a block pool and per-request
+        block tables) or ``"rows"`` (one full-context row a slot)."""
+        return self._kv_layout
 
     @property
     def device_steps(self) -> int:
@@ -1232,7 +1414,10 @@ class ServeEngine:
         """The allocator's live counts (blocks_total/free/allocated/
         aliased), the cumulative admission counters (blocks aliased,
         COW-copied, freshly allocated), the host tier (blocks parked now,
-        capacity, swap traffic, preemptions) and the handoff traffic."""
+        capacity, swap traffic, preemptions) and the handoff traffic.
+        Empty on rows, which has no blocks."""
+        if self._kv_layout != "paged":
+            return {}
         stats = self._balloc.stats()
         stats["alias_blocks_total"] = self._kv_counts["alias_blocks"]
         stats["cow_blocks_total"] = self._kv_counts["cow_blocks"]
@@ -1265,11 +1450,17 @@ class ServeEngine:
         return stats
 
     def close(self) -> None:
-        """Mark the engine closed and drop its reference to the pool (an
-        engine sharing the pool keeps its own); later `submit` and `tick`
-        raise.  Idempotent; finished requests stay readable."""
+        """Mark the engine closed and drop its references to the device KV
+        (an engine sharing the pool keeps its own); later `submit` and
+        `tick` raise.  Idempotent; finished requests and the prefix index
+        stay readable."""
         self._closed = True
-        self._pool = None
+        if self._kv_layout == "paged":
+            self._pool = None
+        else:
+            self._cache = None
+            if self._prefix is not None:
+                self._prefix.pool = None
 
     def _check_open(self) -> None:
         if self._closed:

@@ -42,6 +42,7 @@ from tpu_dra_torch.parallel.decode import (
     _build_prefill,
     _check_window,
     _key_or_raise,
+    _validate,
     decode_forward,
     init_cache,
 )
@@ -121,8 +122,16 @@ def make_generate_speculative(config: BurninConfig, *, prompt_len: int, steps: i
     may overshoot before truncation).  ``with_stats`` returns
     ``(tokens, rounds, healthy)``: full-model passes used (``steps /
     rounds`` tokens a pass) and the all-logits-finite flag (a device
-    bool)."""
+    bool).  Dense configs only, as in the reference: a truncated layer
+    stack would route the experts' capacity queues another way."""
     c = config
+    _validate(c)
+    if c.moe_experts > 0:
+        raise ValueError(
+            "speculative decoding supports dense configs only: a "
+            "truncated layer stack re-routes MoE capacity queues, and "
+            "the draft would drop different tokens than training"
+        )
     if not 1 <= draft_layers <= c.n_layers:
         raise ValueError(f"draft_layers must be in [1, {c.n_layers}], got {draft_layers}")
     if draft_len < 1:

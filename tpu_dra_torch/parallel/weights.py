@@ -15,23 +15,28 @@ import torch
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.quant import is_quantized_leaf
 
-__all__ = ["MATRICES", "cast_matrices", "params_from_numpy", "state_from_numpy"]
+__all__ = [
+    "EXPERT_MATRICES", "MATRICES", "cast_matrices", "params_from_numpy", "state_from_numpy",
+]
 
-# The per-layer matrices every use casts to bf16.  Holding them as bf16
-# once gives the same values (the cast rounds to nearest-even either way)
-# without a cast of every weight on every step.  `embed` is not among
-# them: the token lookup adds its rows in f32, and only the logits
-# product casts it.
+# The per-layer matrices every use casts to bf16, the dense MLP's and the
+# experts'.  Holding them as bf16 once gives the same values (the cast
+# rounds to nearest-even either way) without a cast of every weight on
+# every step.  `embed` is not among them: the token lookup adds its rows
+# in f32, and only the logits product casts it.  Nor is the ``router``:
+# routing is f32, and a bf16 router would route other tokens.
 MATRICES = ("wqkv", "wo", "w1", "w2")
+EXPERT_MATRICES = ("w1e", "w2e")
 
 
 def cast_matrices(params):
     """``params`` with the layer matrices as bf16 copies (a new tree; the
     other leaves are shared; bf16 matrices and int8 ``{"q","s"}`` pairs
-    are passed through)."""
+    are passed through, and names the tree lacks skipped: a dense tree
+    has no expert matrices, an expert tree no ``w1``/``w2``)."""
     layers = dict(params["layers"])
-    for name in MATRICES:
-        if not is_quantized_leaf(layers[name]):
+    for name in MATRICES + EXPERT_MATRICES:
+        if name in layers and not is_quantized_leaf(layers[name]):
             layers[name] = layers[name].to(torch.bfloat16)
     return {**params, "layers": layers}
 
@@ -39,9 +44,11 @@ def cast_matrices(params):
 def params_from_numpy(tree, device: "str | torch.device" = "cuda"):
     """The port's params from the reference's tree as numpy arrays: the
     same keys and stacked ``(L, ...)`` leaves — ``wqkv (L,d,3,H,K)``,
-    ``wo (L,H,K,d)``, ``w1 (L,d,f)``, ``w2 (L,f,d)``, ``ln1``/``ln2
-    (L,d)``, ``embed (V,d)``, ``pos (seq,d)``, ``ln_f (d)`` — with the
-    layer matrices as bf16 (`cast_matrices`) and everything else f32.
+    ``wo (L,H,K,d)``, ``w1 (L,d,f)``, ``w2 (L,f,d)`` or the experts'
+    ``router (L,d,E)``, ``w1e (L,E,d,f)``, ``w2e (L,E,f,d)``,
+    ``ln1``/``ln2 (L,d)``, ``embed (V,d)``, ``pos (seq,d)``, ``ln_f (d)``
+    — with the layer matrices as bf16 (`cast_matrices`) and everything
+    else, the router included, f32.
     A quantized tree (the reference's ``quantize_params``) keeps each
     ``{"q","s"}`` leaf as its int8 values and f32 scales."""
     return cast_matrices(_f32_tree(tree, resolve_device(device)))
