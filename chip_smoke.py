@@ -24,7 +24,8 @@ Phases, each asserted; any failure exits non-zero and prints no result:
 4. flash kernel: the flash-attention forward held against its plain
    version at the trainer's shapes ((16, 1024, 32, 128) bf16, causal,
    q/k/v views of one qkv tensor) and against the reference attention,
-   then at odd shapes (non-causal, d 64, f32, a ragged sequence), a
+   then at odd shapes (non-causal, d 64, f32, a ragged sequence, the
+   families' preset d 16 and d 32 on the CUDA cores), a
    second call bitwise equal to the first at each; timed
    beside its bound, its plain version and
    ``scaled_dot_product_attention`` (a yardstick, never on the path),
@@ -99,8 +100,25 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    then MFU, peak memory, the first loss against the dense path's, the
    kernel's output inside the model's first layer against its plain
    version, and a profile of two steps;
-11. the kernels' JSON line (K1's rows also list each path's launches),
-    the card's line, and the result line.
+11. burn-in, the payload a claiming pod runs: the card's entry in
+   `mfu.CHIP_PERF` and the saxpy probe of its memory rate (at most 1.05
+   of the peak); `data.synthetic_stream` against the same draws on the
+   card, `prefetch_to_device` (a side stream, an event wait a batch, every
+   batch equal to its host source) and `train_on_stream` at the trainer's
+   width for 6 steps (K2's launches == steps x 2 x layers, step p50 beside
+   `burnin.train`'s); checkpoints of that width cut to 2 layers in a
+   temporary directory (a bitwise round trip with save and restore GB/s;
+   4 steps against 2, a restart and 2 more, the losses bitwise or within
+   two uninterrupted runs' spread; the fall-back past a step torn under
+   its marker, a ``.tmp`` orphan ignored; all of it deleted); then
+   ``python -m tpu_dra_torch.parallel.validate`` as subprocesses (``--train
+   2`` ok on one card with no checks and a descending loss; a claim of 2
+   refused with exit 1; ``--family flash --train 2`` and ``--family dense
+   --serve`` ok) and a one-rank NCCL group in a spawned worker running the
+   collective checks;
+12. the kernels' JSON line (K1's rows also list each path's launches, K2's
+    the trainer's, the stream-fed and the checkpointed paths'), the card's
+    line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
 """
@@ -441,6 +459,9 @@ def phase_flash(torch, fa, flash, ring):
     check_flash(fa, (2, 192, 3, 64), True, torch.bfloat16, 64, 13, FLASH_BF16_TOL)
     check_flash(fa, (2, 192, 3, 64), False, torch.float32, 64, 14, FLASH_F32_TOL)
     check_flash(fa, (1, 200, 2, 128), True, torch.float32, 8, 15, FLASH_F32_TOL)
+    # The families' preset head width (d_model 128 over 8 heads), both forms.
+    check_flash(fa, (2, 128, 8, 16), True, torch.bfloat16, 128, 16, FLASH_BF16_TOL)
+    check_flash(fa, (1, 200, 4, 32), False, torch.float32, 8, 17, FLASH_F32_TOL)
 
     scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
     flush = scrub.zero_
@@ -2221,7 +2242,7 @@ def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
     """Single-device training of the flash family at full width: the
     width `chip_sized_config` gives an 80 GB card, params from init_params'
     seeded generator, momentum at the config's lr.  Returns the kernel's
-    launches in the ``train`` run."""
+    launches in the ``train`` run and its step p50 in seconds."""
     cfg = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True)
     log(f"train config: vocab {cfg.vocab}, d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
         f"{cfg.d_ff}, {cfg.n_layers} layers, seq {cfg.seq}, batch {cfg.batch}, "
@@ -2298,7 +2319,7 @@ def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
         f"(tol {FIRST_LOSS_RTOL})")
 
     profile_train(torch, burnin, cfg)
-    return launches
+    return launches, report.step_seconds_p50
 
 
 def profile_train(torch, burnin, cfg, steps: int = 2):
@@ -2317,6 +2338,288 @@ def profile_train(torch, burnin, cfg, steps: int = 2):
     report_profile(prof, "chip_smoke_train_trace.json", f"{steps} training steps", steps)
 
 
+# The payload's runs: (arguments, TPU_VISIBLE_DEVICES, exit code wanted).
+PAYLOAD_RUNS = (
+    (["--train", "2"], "0", 0),
+    ([], "0,1", 1),
+    (["--family", "flash", "--train", "2"], "0", 0),
+    (["--family", "dense", "--serve"], "0", 0),
+)
+
+
+def burnin_hbm(mfu):
+    """The card's table entry and the saxpy probe of its memory rate."""
+    perf = mfu.chip_perf_for("cuda")
+    if perf is None or perf.bf16_tflops * 1e12 != H100_BF16_FLOPS:
+        raise AssertionError(f"chip_perf_for: {perf}, want the 989 TFLOP/s bf16 peak")
+    hbm = mfu.measure_hbm_bandwidth(device="cuda")
+    if not hbm.ok or not 0 < hbm.fraction_of_peak <= 1.05:
+        raise AssertionError(f"measure_hbm_bandwidth: {hbm}")
+    log(f"burn-in hbm: table entry {perf}; saxpy over 2 x {hbm.array_mib:.1f} MiB f32: "
+        f"{hbm.gbps:.3f} GB/s of the {hbm.peak_gbps:.0f} GB/s peak (fraction "
+        f"{hbm.fraction_of_peak:.4f})")
+
+
+def burnin_stream(torch, burnin, data, prng, fa, cfg, train_p50: float, device="cuda") -> int:
+    """`synthetic_stream` against the same draws made on the card, the
+    prefetch's side stream and event waits with every batch equal to its
+    host source, then `train_on_stream` at ``cfg`` for 6 steps with K2's
+    launches counted.  Returns the launches."""
+    stream = data.synthetic_stream(cfg, seed=0)
+    key = prng.key(0, device=device)
+    for i in range(3):
+        key, sub = prng.split(key)
+        host = next(stream)
+        on_card = burnin.sample_tokens(cfg, device=device, key=sub)
+        if host.dtype != torch.int32 or not torch.equal(host, on_card.cpu()):
+            raise AssertionError(f"synthetic_stream batch {i} differs from the draw on {device}")
+    sources = []
+
+    def recorded(it):
+        for batch in it:
+            sources.append(batch.clone())
+            yield batch
+
+    n = 8
+    pf = data.prefetch_to_device(recorded(data.synthetic_stream(cfg, seed=1)), size=2,
+                                 device=device)
+    for i in range(n):
+        got = next(pf)
+        if not torch.equal(got.cpu(), sources[i]):
+            raise AssertionError(f"prefetched batch {i} differs from its host source")
+    if device == "cuda" and (pf.stream is None or pf.stream == torch.cuda.current_stream()
+                             or pf.waits != n):
+        raise AssertionError(f"prefetch: side stream {pf.stream}, waits {pf.waits} of {n}")
+    del pf, sources
+
+    steps = 6
+    fa.flash_attention_forward.launches = 0  # count only this path's launches
+    report = data.train_on_stream(cfg, steps=steps, seed=0, device=device)
+    launches = fa.flash_attention_forward.launches
+    if not report.ok or report.error or report.steps != steps:
+        raise AssertionError(f"train_on_stream: {report}")
+    if cfg.flash_attention and launches != steps * 2 * cfg.n_layers:
+        raise AssertionError(
+            f"flash launches {launches} != {steps} steps x 2 x {cfg.n_layers} layers")
+    log(f"burn-in stream: 3 batches of synthetic_stream equal to the draws on {device}; "
+        f"{n} prefetched batches equal to their host sources (side stream, {n} event waits); "
+        f"train_on_stream {report.steps} steps, loss {report.loss_first:.6f} -> "
+        f"{report.loss_last:.6f} over distinct batches, step p50 "
+        f"{report.step_seconds_p50 * 1e3:.3f} ms against burnin.train's "
+        f"{train_p50 * 1e3:.3f} ms in this run, {launches} flash launches")
+    return launches
+
+
+def burnin_ckpt(torch, burnin, ckpt, mfu, fa, cfg, device="cuda") -> int:
+    """Checkpoints of ``cfg``'s momentum state in a temporary directory:
+    a bitwise round trip with its rates; an uninterrupted run of 4 steps
+    against 2 steps, a restart and 2 more; the fallback past a torn step.
+    Everything written is deleted.  Returns K2's launches in the runs."""
+    import shutil
+    import tempfile
+
+    state_bytes = 2 * 4 * mfu.param_count(cfg)  # f32 params and momentum
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(root).free
+    log(f"burn-in ckpt: {free / 1e9:.3f} GB free under {os.path.dirname(root)}; one state "
+        f"{state_bytes / 1e9:.3f} GB ({mfu.param_count(cfg)} params, {cfg.n_layers} layers)")
+    if free < 3 * state_bytes:  # at most three states on disk at once
+        raise AssertionError(f"{free} bytes free, the phase keeps up to {3 * state_bytes}")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    try:
+        path = os.path.join(root, "round_trip")
+        _, state = burnin.make_train_step(cfg, device)
+        sync()
+        t = time.perf_counter()
+        ckpt.save_state(path, state, step=1)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored = ckpt.restore_state(path, cfg, step=1, device=device)
+        sync()
+        restore_s = time.perf_counter() - t
+        want, got = burnin._leaves(state[0]) + burnin._leaves(state[1]), \
+            burnin._leaves(restored[0]) + burnin._leaves(restored[1])
+        if len(want) != len(got) or not all(
+                w.dtype == g.dtype and w.device == g.device and torch.equal(w, g)
+                for w, g in zip(want, got)):
+            raise AssertionError("restored state differs from the saved one")
+        del state, restored, want, got
+        shutil.rmtree(path)
+        log(f"burn-in ckpt round trip: bitwise; save {save_s:.3f} s ({state_bytes / save_s / 1e9:.3f} "
+            f"GB/s), restore {restore_s:.3f} s ({state_bytes / restore_s / 1e9:.3f} GB/s)")
+
+        fa.flash_attention_forward.launches = 0
+        full_path, resumed = os.path.join(root, "full"), os.path.join(root, "resumed")
+        walls = []
+        t = time.perf_counter()
+        _, full = ckpt.train_with_resume(cfg, full_path, steps=4, device=device)
+        walls.append(time.perf_counter() - t)
+        shutil.rmtree(full_path)
+        t = time.perf_counter()
+        s1, first = ckpt.train_with_resume(cfg, resumed, steps=2, device=device)
+        walls.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        s2, second = ckpt.train_with_resume(cfg, resumed, steps=2, device=device)
+        walls.append(time.perf_counter() - t)
+        launches = fa.flash_attention_forward.launches
+        if (s1, s2, ckpt.complete_steps(resumed)) != (2, 4, [2, 4]):
+            raise AssertionError(f"steps {s1}, {s2}, complete {ckpt.complete_steps(resumed)}")
+        if cfg.flash_attention and launches != 8 * 2 * cfg.n_layers:
+            raise AssertionError(f"flash launches {launches} != 8 steps x 2 x {cfg.n_layers}")
+        if first + second == full:
+            how = "bitwise"
+        else:
+            # Not bitwise: the step has a nondeterministic op.  The resumed
+            # losses must then lie within two uninterrupted runs' spread.
+            again_path = os.path.join(root, "again")
+            _, again = ckpt.train_with_resume(cfg, again_path, steps=4, device=device)
+            shutil.rmtree(again_path)
+            spread = max(abs(a - b) for a, b in zip(full, again))
+            off = max(abs(a - b) for a, b in zip(first + second, full))
+            if off > spread:
+                raise AssertionError(f"resumed {first + second} vs uninterrupted {full} "
+                                     f"(again {again}): off {off} > spread {spread}")
+            how = (f"within the spread of two uninterrupted runs ({off} <= {spread}; "
+                   f"uninterrupted runs differ: the step is not deterministic on the card)")
+        log(f"burn-in ckpt resume: uninterrupted {full}, 2 + restart + 2 {first + second}: "
+            f"{how}; {launches} flash launches; wall (s, init or restore, steps and one save "
+            f"each) {', '.join(f'{w:.3f}' for w in walls)}")
+
+        os.remove(os.path.join(resumed, "4", ckpt.STATE_FILE))  # torn under its marker
+        os.makedirs(os.path.join(resumed, ".tmp.9.deadbeef"))  # a save killed midway
+        fallback = ckpt.restore_state(resumed, cfg, device=device)
+        step2 = ckpt.restore_state(resumed, cfg, step=2, device=device)
+        if ckpt.latest_step(resumed) != 4 or not all(
+                torch.equal(a, b) for a, b in zip(burnin._leaves(fallback[0]),
+                                                  burnin._leaves(step2[0]))):
+            raise AssertionError("restore did not fall back to step 2")
+        try:
+            ckpt.restore_state(resumed, cfg, step=4, device=device)
+        except FileNotFoundError:
+            pass
+        else:
+            raise AssertionError("an explicit restore of the torn step did not raise")
+        del fallback, step2
+        log("burn-in ckpt fallback: step 4 torn under its marker and a .tmp orphan beside it; "
+            "restore fell back to step 2, bitwise")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _nccl_rank(init_method: str, out) -> None:
+    """A one-rank NCCL group on card 0: the collective checks over its
+    mesh.  Runs in a spawned process."""
+    try:
+        from tpu_dra_torch.parallel import collectives, gang, mesh
+
+        gang.join_group(init_method, world_size=1, rank=0, device="cuda:0", timeout_s=120)
+        m = mesh.slice_mesh("1x1x1")
+        reports = [check(m, "x") for check in (collectives.psum_check,
+                                               collectives.all_gather_check,
+                                               collectives.ring_check)]
+        reports.append(collectives.psum_bandwidth(m, "x", mbytes=64))
+        reports.append(collectives.hierarchical_psum_check(m, "x", "y"))
+        gang.barrier()
+        out.put([(r.op, r.axis, r.n_devices, r.ok, r.error, r.seconds_p50) for r in reports])
+    except Exception as e:
+        out.put(f"{type(e).__name__}: {e}")
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def burnin_payload(validate):
+    """`python -m tpu_dra_torch.parallel.validate` as a claiming pod runs
+    it (four runs at once), then a one-rank NCCL group in a spawned
+    worker."""
+    import multiprocessing
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for args, visible, _ in PAYLOAD_RUNS:
+        env = dict(os.environ, TPU_VISIBLE_DEVICES=visible)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tpu_dra_torch.parallel.validate", *args], cwd=root,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (args, visible, want_rc), p, (out, err) in zip(PAYLOAD_RUNS, procs, outs):
+        label = f"validate {' '.join(args)} (TPU_VISIBLE_DEVICES={visible})"
+        lines = out.strip().splitlines()
+        if p.returncode != want_rc or not lines:
+            raise AssertionError(f"{label}: exit {p.returncode}, want {want_rc}\n{out}\n{err[-3000:]}")
+        rep = json.loads(lines[-1])
+        if "--family" in args:
+            if rep.get("ok") is not True or rep.get("family") != args[1]:
+                raise AssertionError(f"{label}: {rep}")
+        elif visible == "0":
+            train = rep.get("train") or {}
+            if not (rep.get("ok") is True and rep.get("n_devices") == 1
+                    and rep.get("expected_devices") == 1 and rep.get("platform") == "gpu"
+                    and rep.get("checks") == [] and train.get("ok") is True
+                    and train.get("loss_last", 1e9) < train.get("loss_first", 0)):
+                raise AssertionError(f"{label}: {rep}")
+        elif rep.get("ok") is not False or rep.get("errors") != [
+                "claim allocated 2 chips but torch sees 1"]:
+            raise AssertionError(f"{label}: {rep}")
+        log(f"burn-in payload {label}: exit {p.returncode}, {lines[-1][:400]}")
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    worker = ctx.Process(target=_nccl_rank,
+                         args=(f"tcp://127.0.0.1:{validate._free_port()}", out), daemon=True)
+    worker.start()
+    try:
+        got = out.get(timeout=180)
+    finally:
+        worker.join(timeout=30)
+        if worker.is_alive():
+            worker.kill()
+            worker.join()
+    if isinstance(got, str) or not all(ok for _, _, _, ok, _, _ in got):
+        raise AssertionError(f"one-rank NCCL checks: {got}")
+    log(f"burn-in one-rank NCCL group: {got}")
+
+
+def phase_burnin(torch, burnin, mfu, fa, data, ckpt, prng, validate, train_p50: float):
+    """The burn-in payload a claiming pod runs, at the trainer's width:
+    the memory probe, the stream-fed trainer, checkpoints (cut to 2
+    layers), the validate program and the NCCL wiring.  Returns K2's
+    launches on the stream-fed and the checkpointed paths."""
+    t = time.perf_counter()
+    burnin_hbm(mfu)
+    cfg = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = {"hbm": time.perf_counter() - t}
+    t = time.perf_counter()
+    stream_launches = burnin_stream(torch, burnin, data, prng, fa, cfg, train_p50)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["stream"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ckpt_launches = burnin_ckpt(torch, burnin, ckpt, mfu, fa,
+                                dataclasses.replace(cfg, n_layers=2))
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["ckpt"] = time.perf_counter() - t
+    t = time.perf_counter()
+    burnin_payload(validate)
+    parts["payload"] = time.perf_counter() - t
+    log("burn-in parts (s): " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+    return {"train_on_stream": stream_launches, "train_with_resume": ckpt_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -2331,8 +2634,8 @@ def main() -> int:
     try:
         from tpu_dra_torch import models
         from tpu_dra_torch.parallel import (
-            burnin, decode, disagg, flash, mfu, moe, paged, prng, quant, ring, serve,
-            speculative, swap, weights,
+            burnin, ckpt, data, decode, disagg, flash, mfu, moe, paged, prng, quant, ring,
+            serve, speculative, swap, validate, weights,
         )
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
@@ -2406,8 +2709,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        flash_row["launches"] = phase_train(torch, burnin, mfu, fa, flash)
+        flash_row["launches"], train_p50 = phase_train(torch, burnin, mfu, fa, flash)
         log(f"phase train: {time.perf_counter() - t:.3f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        flash_row["launches_by_path"] = {
+            "train": flash_row["launches"],
+            **phase_burnin(torch, burnin, mfu, fa, data, ckpt, prng, validate, train_p50),
+        }
+        log(f"phase burn-in: {time.perf_counter() - t:.3f} s; flash launches "
+            f"{flash_row['launches_by_path']}")
         log(f"all phases: {time.perf_counter() - started:.3f} s")
     except Exception:
         traceback.print_exc()

@@ -11,7 +11,10 @@ bf16 and with int8 pools and weights; the flash gradient against the
 reference attention's; the kernel over tables whose rows share blocks
 (the prefix cache's); the engine with the prefix cache on; Threefry on
 the card bitwise against the CPU's; the sampled engine's three
-schedulings; one greedy speculative run against `make_generate`.
+schedulings; one greedy speculative run against `make_generate`; the
+flash kernel at the families' small head widths; the prefetch onto the
+card (order, contents, a side stream and an event wait a batch) and a
+checkpoint's bitwise round trip and resume on the card.
 
 Tolerances: paged kernel vs plain about one bf16 ulp of the value
 (``atol = 2**-9``, ``rtol = 2**-7``): both sides read the same bf16 values
@@ -29,7 +32,18 @@ import dataclasses
 import pytest
 import torch
 
-from tpu_dra_torch.parallel import burnin, decode, flash, paged, prng, quant, ring, speculative
+from tpu_dra_torch.parallel import (
+    burnin,
+    ckpt,
+    data,
+    decode,
+    flash,
+    paged,
+    prng,
+    quant,
+    ring,
+    speculative,
+)
 from tpu_dra_torch.parallel.kernels import (
     flash_attention_forward,
     flash_attention_plain,
@@ -379,6 +393,8 @@ class TestSampling:
 # (b, s, h, d, block): both head widths the kernel takes, a sequence that
 # is not a multiple of its 64-row tiles, and the reference's block sizes.
 FLASH_CASES = {
+    "d16": (2, 192, 8, 16, 64),
+    "d32_ragged": (1, 200, 4, 32, 8),
     "d64": (2, 192, 3, 64, 64),
     "d128": (2, 256, 4, 128, 128),
     "d128_ragged": (1, 200, 2, 128, 8),
@@ -437,7 +453,7 @@ class TestFlashKernel:
         torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
         assert torch.equal(flash_attention_forward(q, k, v, causal, block, block), got)
 
-    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("d", [16, 32, 64, 128])
     def test_nan_future_tiles_never_read_at_a_ragged_length(self, d, cuda):
         q, k, v = _qkv(cuda, 2, 200, 3, d, seed=8)
         base = flash_attention_forward(q, k, v, True, 8, 8)
@@ -466,7 +482,7 @@ class TestFlashKernel:
         with pytest.raises(ValueError, match="contiguous head"):
             flash_attention_forward(swapped, swapped, swapped)
         with pytest.raises(ValueError, match="takes d"):
-            flash_attention_forward(*_qkv(cuda, 2, 128, 2, 32))
+            flash_attention_forward(*_qkv(cuda, 2, 128, 2, 48))
         with pytest.raises(ValueError, match="all on the CPU"):
             flash_attention_forward(q, k.cpu(), v)
 
@@ -492,3 +508,35 @@ class TestFlashTraining:
         # One launch in the forward and one in the checkpoint's recompute.
         assert flash_attention_forward.launches - before == 2 * cfg.n_layers
         assert torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+class TestBurnin:
+    CFG = burnin.BurninConfig(vocab=64, d_model=32, n_heads=4, d_ff=64, n_layers=2, seq=64,
+                              batch=8)
+
+    @pytest.mark.parametrize("size", [1, 3])
+    def test_prefetch_order_contents_and_stream(self, size, cuda):
+        host = [b for _, b in zip(range(6), data.synthetic_stream(self.CFG, seed=2))]
+        pf = data.prefetch_to_device(iter(host), size=size, device=cuda)
+        got = list(pf)
+        assert len(got) == 6 and pf.waits == 6
+        assert pf.stream is not None and pf.stream != torch.cuda.current_stream()
+        for g, h in zip(got, host):
+            assert g.device.type == "cuda" and torch.equal(g.cpu(), h)
+
+    def test_train_on_stream_learns(self, cuda):
+        r = data.train_on_stream(burnin.BurninConfig(), steps=10, seed=1, device=cuda)
+        assert r.ok, r.error
+
+    def test_checkpoint_round_trip_and_resume(self, tmp_path, cuda):
+        step, state = burnin.make_train_step(self.CFG, cuda)
+        ckpt.save_state(tmp_path / "rt", state, step=1)
+        restored = ckpt.restore_state(tmp_path / "rt", self.CFG, step=1, device=cuda)
+        for a, b in zip(burnin._leaves(state[0]) + burnin._leaves(state[1]),
+                        burnin._leaves(restored[0]) + burnin._leaves(restored[1])):
+            assert b.device.type == "cuda" and torch.equal(a, b)
+        _, full = ckpt.train_with_resume(self.CFG, tmp_path / "full", steps=4, device=cuda)
+        _, first = ckpt.train_with_resume(self.CFG, tmp_path / "run", steps=2, device=cuda)
+        final, second = ckpt.train_with_resume(self.CFG, tmp_path / "run", steps=2, device=cuda)
+        assert final == 4 and first + second == full

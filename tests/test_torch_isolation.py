@@ -1,8 +1,10 @@
 """The port stands alone: nothing under tpu_dra_torch/, and not
 chip_smoke.py, imports JAX or the reference package — a GPU host has
-neither.  Checked twice: statically over every import statement, and by
-importing every module of the port in a clean interpreter whose import
-system refuses those roots."""
+neither.  Checked three times: statically over every import statement,
+by importing every module of the port in a clean interpreter whose
+import system refuses those roots, and by running the entry of the
+worker `validate.validate_slice` spawns (whose imports are made inside
+it, in a fresh process) in such an interpreter."""
 
 import ast
 import os
@@ -45,10 +47,12 @@ def _modules():
 
 def test_port_has_the_slice_modules():
     mods = set(_modules())
-    for name in ("burnin", "decode", "disagg", "flash", "mfu", "paged", "prefixcache", "quant",
-                 "ring", "serve", "swap", "weights", "kernels.flash_attn", "kernels.paged_attn"):
+    for name in ("burnin", "ckpt", "collectives", "data", "decode", "disagg", "flash", "gang",
+                 "mesh", "mfu", "paged", "prefixcache", "quant", "ring", "serve", "swap",
+                 "validate", "weights", "kernels.flash_attn", "kernels.paged_attn"):
         assert f"tpu_dra_torch.parallel.{name}" in mods
-    for name in ("tpu_dra_torch.models", "tpu_dra_torch.fleet", "tpu_dra_torch.fleet.digest"):
+    for name in ("tpu_dra_torch.models", "tpu_dra_torch.fleet", "tpu_dra_torch.fleet.digest",
+                 "tpu_dra_torch.api", "tpu_dra_torch.api.topology"):
         assert name in mods
 
 
@@ -60,18 +64,47 @@ def test_no_forbidden_import_statement(path):
     assert bad == [], f"{os.path.relpath(path, REPO_ROOT)} imports {bad}"
 
 
+TRIPWIRE = (
+    "import sys\n"
+    "class Tripwire:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+    "            raise AssertionError('port imported ' + name)\n"
+    "        return None\n"
+    "sys.meta_path.insert(0, Tripwire())\n"
+)
+
+
 def test_importing_the_port_pulls_in_neither_jax_nor_the_reference():
-    code = (
-        "import sys\n"
-        "class Tripwire:\n"
-        "    def find_spec(self, name, path=None, target=None):\n"
-        f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
-        "            raise AssertionError('port imported ' + name)\n"
-        "        return None\n"
-        "sys.meta_path.insert(0, Tripwire())\n"
+    code = TRIPWIRE + (
         "import importlib\n"
         f"for name in {_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(name)\n"
+        "print('ok')\n"
+    )
+    result = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert result.returncode == 0, result.stdout + result.stderr
+    assert result.stdout.strip().endswith("ok")
+
+
+def test_the_spawned_validate_worker_pulls_in_neither():
+    """`validate_slice`'s workers start from a fresh interpreter and make
+    their imports inside the worker entry: run that entry in-process, as
+    a one-device CPU rank that trains a step, under the tripwire."""
+    code = TRIPWIRE + (
+        "import queue\n"
+        "from tpu_dra_torch.parallel import validate\n"
+        "plan = {'device': 'cpu', 'n_local': 1, 'topology': (1, 1, 1), 'axes': [], 'mbytes': 1,\n"
+        "        'train_steps': 1, 'gang': None, 'init_method': '', 'timeout_s': 60}\n"
+        "out = queue.Queue()\n"
+        "validate._worker(0, plan, out)\n"
+        "events = [out.get_nowait() for _ in range(out.qsize())]\n"
+        "assert [kind for _, kind, _ in events] == ['joined', 'result'], events\n"
+        "result = events[-1][2]\n"
+        "assert result['error'] == '' and result['train']['steps'] == 2, result\n"
         "print('ok')\n"
     )
     result = subprocess.run(

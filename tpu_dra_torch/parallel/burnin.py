@@ -34,6 +34,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tpu_dra_torch.parallel import prng
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.moe import moe_mlp
 from tpu_dra_torch.parallel.quant import dequantize_bf16
@@ -407,8 +408,11 @@ def _adamw_update(c: BurninConfig, params, opt, grads) -> None:
         p.sub_(update.mul_(lr))
 
 
-def make_train_step(config: BurninConfig, device: "str | torch.device" = "cuda"):
-    """Build ``(train_step, init_state)`` for one device.
+def make_train_step(config: BurninConfig, device: "str | torch.device" = "cuda", *,
+                    with_state: bool = True):
+    """Build ``(train_step, init_state)`` for one device (``init_state``
+    None with ``with_state=False``: a caller about to restore a state
+    never holds a fresh one beside it).
 
     ``train_step(state, tokens) -> (state, loss)`` takes one optimizer
     step and returns the same ``state`` updated in place (the reference
@@ -446,7 +450,7 @@ def make_train_step(config: BurninConfig, device: "str | torch.device" = "cuda")
                 torch._foreach_add_(leaves, mom, alpha=-c.learning_rate)
         return state, loss.detach()
 
-    return step, _init_state(c, dev)
+    return step, (_init_state(c, dev) if with_state else None)
 
 
 def _init_state(config: BurninConfig, device: "str | torch.device" = "cuda"):
@@ -461,18 +465,31 @@ def _init_state(config: BurninConfig, device: "str | torch.device" = "cuda"):
 
 
 def sample_tokens(config: BurninConfig, generator: "torch.Generator | None" = None,
-                  device: "str | torch.device" = "cuda"):
+                  device: "str | torch.device" = "cuda", *, key=None):
     """Synthetic (batch, seq) int32 tokens with learnable structure: each
     row walks ``(start + 17 t) % vocab``, and 5% of the positions are
-    replaced by random tokens.  ``generator`` defaults to one on
-    ``device`` seeded with 42; the numbers differ from the reference's
-    jax.random ones."""
+    replaced by random tokens.
+
+    With ``key`` (a `prng` key) the draw is the reference's bit for bit:
+    ``k1, k2 = split(key)``, the starts from ``randint(k1)``, and both the
+    noise mask (``bernoulli(k2, 0.05)``) and the random tokens
+    (``randint(k2)``) from ``k2``, as the reference draws them.
+    Otherwise ``generator`` (default: one on ``device`` seeded with 42)
+    draws other numbers of the same rule."""
     dev = resolve_device(device)
+    c = config
+    steps = torch.arange(c.seq, device=dev)[None, :]
+    if key is not None:
+        k1, k2 = prng.split(torch.as_tensor(key, device=dev))
+        start = prng.randint(k1, (c.batch, 1), 0, c.vocab)
+        noise = prng.bernoulli(k2, 0.05, (c.batch, c.seq))
+        rand = prng.randint(k2, (c.batch, c.seq), 0, c.vocab)
+        walk = (start + steps * 17) % c.vocab
+        return torch.where(noise, rand, walk).to(torch.int32)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(42)
-    c = config
     start = torch.randint(0, c.vocab, (c.batch, 1), generator=generator, device=dev)
-    walk = (start + torch.arange(c.seq, device=dev)[None, :] * 17) % c.vocab
+    walk = (start + steps * 17) % c.vocab
     noise = torch.rand((c.batch, c.seq), generator=generator, device=dev) < 0.05
     rand = torch.randint(0, c.vocab, (c.batch, c.seq), generator=generator, device=dev)
     return torch.where(noise, rand, walk).to(torch.int32)

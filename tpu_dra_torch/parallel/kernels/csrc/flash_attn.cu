@@ -68,6 +68,15 @@
 // the f32 tests use it) and keeps the first design: f32 products on the
 // CUDA cores, each thread a 4 x 4 tile of scores, Q and K transposed in
 // shared memory.  dtype picks the form; nothing falls back between them.
+//
+// Small head widths (flash_fwd_small_kernel, D = 16 or 32, bf16 or f32):
+// the reference's families at their preset width (d_model 128 over 8
+// heads) train through the flash kernel too.  Below 64 a row is narrower
+// than a 128-byte swizzled box and a wgmma's K, and at such widths the
+// model is tiny, so this form is plain: one thread a query row, q, m, l
+// and acc in registers, K and V tiles of 64 keys widened to f32 in shared
+// memory (every thread reads the same key at once: a broadcast), the
+// online softmax a tile at a time as the plain version takes it.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -677,6 +686,107 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Small head widths: CUDA cores, one thread a query row.
+
+constexpr int kSmallRows = 64;  // query rows per block, one a thread
+constexpr int kSmallKeys = 64;  // keys per tile
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void narrow_to(float* p, float x) { *p = x; }
+__device__ __forceinline__ void narrow_to(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kSmallRows)
+flash_fwd_small_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int S, int H,
+                       long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                       long long v_sb, long long v_ss, int causal, float scale) {
+  __shared__ float Ks[kSmallKeys][D];
+  __shared__ float Vs[kSmallKeys][D];
+  const int n_qt = (S + kSmallRows - 1) / kSmallRows;
+  const int BH = gridDim.x / n_qt;
+  const int bh = blockIdx.x % BH;
+  const int qt = n_qt - 1 - blockIdx.x / BH;  // the longest walks first
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * kSmallRows;
+  const int tid = threadIdx.x;
+  const int row = q0 + tid;
+  const T* qb = q + b * q_sb + (long long)h * D;
+  const T* kb = k + b * k_sb + (long long)h * D;
+  const T* vb = v + b * v_sb + (long long)h * D;
+
+  float qr[D], acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    qr[d] = row < S ? widen(qb[row * q_ss + d]) * scale : 0.f;
+    acc[d] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+
+  // Key tiles that hold a key visible to some row of this query tile.
+  const int kv_end = causal ? min(S, q0 + kSmallRows) : S;
+  for (int k0 = 0; k0 < kv_end; k0 += kSmallKeys) {
+    __syncthreads();  // the previous tile is read
+    for (int idx = tid; idx < kSmallKeys * D; idx += kSmallRows) {
+      const int r = idx / D, c = idx % D;
+      const bool in = k0 + r < S;
+      Ks[r][c] = in ? widen(kb[(k0 + r) * k_ss + c]) : 0.f;
+      Vs[r][c] = in ? widen(vb[(k0 + r) * v_ss + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // Key 0 is visible to every row, so m is finite after the first tile
+    // and a masked score (-inf) gives p = exp(-inf) = 0 exactly.
+    float s[kSmallKeys];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kSmallKeys; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], Ks[j][d], dot);
+      const int key = k0 + j;
+      s[j] = (key < S && (!causal || key <= row)) ? dot : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    m = m_new;
+    float ps = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSmallKeys; ++j) {
+      s[j] = expf(s[j] - m_new);
+      ps += s[j];
+    }
+    l = l * alpha + ps;
+#pragma unroll
+    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kSmallKeys; ++j)
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] = fmaf(s[j], Vs[j][d], acc[d]);
+  }
+
+  if (row < S) {
+    const float denom = fmaxf(l, 1e-30f);
+    T* o = out + (((long long)b * S + row) * H + h) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) narrow_to(o + d, acc[d] / denom);
+  }
+}
+
+template <typename T, int D>
+int launch_small(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
+                 long long q_sb, long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+                 long long v_ss, int causal, float scale, cudaStream_t stream) {
+  const int n_qt = (S + kSmallRows - 1) / kSmallRows;
+  flash_fwd_small_kernel<T, D><<<n_qt * B * H, kSmallRows, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -699,6 +809,14 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* out, 
     return launch_f32<64>(q, k, v, out, B, S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, causal, scale, st);
   if (!is_bf16 && D == 128)
     return launch_f32<128>(q, k, v, out, B, S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, causal, scale, st);
+  if (is_bf16 && D == 16)
+    return launch_small<__nv_bfloat16, 16>(q, k, v, out, B, S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, causal, scale, st);
+  if (is_bf16 && D == 32)
+    return launch_small<__nv_bfloat16, 32>(q, k, v, out, B, S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, causal, scale, st);
+  if (!is_bf16 && D == 16)
+    return launch_small<float, 16>(q, k, v, out, B, S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, causal, scale, st);
+  if (!is_bf16 && D == 32)
+    return launch_small<float, 32>(q, k, v, out, B, S, H, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

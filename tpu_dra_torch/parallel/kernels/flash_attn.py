@@ -26,11 +26,13 @@ import ctypes
 
 import torch
 
-__all__ = ["flash_attention_forward", "flash_attention_plain"]
+__all__ = ["HEAD_DIMS", "flash_attention_forward", "flash_attention_plain"]
 
 _NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
-_HEAD_DIMS = (64, 128)  # the widths the kernel is instantiated for
+# The widths the kernel is instantiated for: 64 and 128 on the tensor
+# cores (bf16), 16 and 32 (the families' preset width) on the CUDA cores.
+HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _check(q, k, v, block_q: int, block_k: int):
@@ -104,8 +106,8 @@ def _library():
 
 def _launch(q, k, v, causal: bool):
     b, s, h, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the kernel takes d in {_HEAD_DIMS}, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes d in {HEAD_DIMS}, got {d}")
     esize = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 or t.stride(2) != d:
@@ -138,7 +140,7 @@ def flash_attention_forward(q, k, v, causal: bool = True, block_q: int = 128,
     by them; the kernel keeps its own 64 x 64 tiles.
 
     CPU tensors run `flash_attention_plain`; CUDA tensors launch the
-    kernel (d 64 or 128; q, k and v may be strided views of one qkv
+    kernel (d in `HEAD_DIMS`; q, k and v may be strided views of one qkv
     tensor as long as their head and feature dims are contiguous) and
     count the launch in ``flash_attention_forward.launches``; mixed or
     other devices raise."""

@@ -8,13 +8,17 @@ Counterpart of `tpu_dra.parallel.mfu` for one device:
   analytic model flops per training step (matmul-exact forward x3;
   attention counted at the full s x s, as the reference does, and
   rematerialization's recompute not counted);
+- `CHIP_PERF`, `chip_perf_for` — the card's published peaks, by its name;
 - `measure_mfu`         — steady-state step time with the steps enqueued
-  back to back and only the last loss fetched, against a peak the caller
-  passes in.
+  back to back and only the last loss fetched, against the card's bf16
+  peak (or one the caller passes in);
+- `measure_hbm_bandwidth` — a saxpy probe of the device memory's
+  streaming rate against the card's peak.
 
-The reference's table of TPU peaks (``chip_perf_for``) is not copied:
-its numbers are TPU numbers.  Its shrink ladder is not either: a config
-that fails here is reported, not measured smaller.
+The reference's table holds TPU peaks; this one NVIDIA cards', from
+NVIDIA's H100 Tensor Core GPU data sheet (dense rates, no sparsity).
+The reference's shrink ladder is not copied: a config that fails here is
+reported, not measured smaller.
 """
 
 from __future__ import annotations
@@ -28,12 +32,67 @@ from tpu_dra_torch.parallel.burnin import BurninConfig, make_train_step, sample_
 from tpu_dra_torch.parallel.device import resolve_device
 
 __all__ = [
+    "CHIP_PERF",
+    "ChipPerf",
+    "HbmReport",
     "MfuReport",
+    "chip_perf_for",
+    "chip_perf_for_name",
     "chip_sized_config",
+    "measure_hbm_bandwidth",
     "measure_mfu",
     "param_count",
     "train_flops_per_step",
 ]
+
+
+GIB = 1024**3
+
+
+@dataclass(frozen=True)
+class ChipPerf:
+    """Published peaks of one card (the reference's fields)."""
+
+    generation: str
+    bf16_tflops: float  # dense bf16 tensor-core peak, TFLOP/s
+    hbm_gib: float  # device memory, as the data sheet counts it
+    hbm_gbps: float  # device memory bandwidth peak, GB/s
+
+
+# NVIDIA H100 Tensor Core GPU data sheet: bf16 dense (the sheet's
+# with-sparsity figure halved), GPU memory, GPU memory bandwidth.
+CHIP_PERF = {
+    "h100-sxm": ChipPerf("h100-sxm", 989.0, 80, 3350),
+    "h100-pcie": ChipPerf("h100-pcie", 756.0, 80, 2000),
+    "h100-nvl": ChipPerf("h100-nvl", 835.0, 94, 3900),
+}
+
+# Lower-cased substrings of torch.cuda.get_device_name -> table key, the
+# more specific first: the SXM part names itself "NVIDIA H100 80GB HBM3".
+_NAME_PATTERNS = [
+    ("h100 nvl", "h100-nvl"),
+    ("h100 pcie", "h100-pcie"),
+    ("h100", "h100-sxm"),
+]
+
+
+def chip_perf_for_name(name: str) -> "ChipPerf | None":
+    """The table's entry for a card named ``name`` (as
+    `torch.cuda.get_device_name` gives it), or None for a card not in it."""
+    lowered = name.lower()
+    for pattern, key in _NAME_PATTERNS:
+        if pattern in lowered:
+            return CHIP_PERF[key]
+    return None
+
+
+def chip_perf_for(device: "str | torch.device") -> "ChipPerf | None":
+    """The card's published peaks; None off CUDA or for an unknown card
+    (no meaningful peak), as the reference gives None off-TPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return chip_perf_for_name(torch.cuda.get_device_name(dev))
 
 
 def chip_sized_config(hbm_gib: float) -> BurninConfig:
@@ -116,16 +175,21 @@ class MfuReport:
     config: "BurninConfig | None" = None
 
 
-def measure_mfu(config: BurninConfig, *, peak_tflops: float, warmup_steps: int = 2,
-                timed_steps: int = 8, device: "str | torch.device" = "cuda") -> MfuReport:
+def measure_mfu(config: BurninConfig, *, peak_tflops: "float | None" = None,
+                warmup_steps: int = 2, timed_steps: int = 8,
+                device: "str | torch.device" = "cuda") -> MfuReport:
     """Time the training step in steady state and report MFU against
-    ``peak_tflops`` (the card's published dense bf16 peak; 0 for none).
+    ``peak_tflops``: by default the card's dense bf16 peak from
+    `CHIP_PERF`, 0 (no MFU) off CUDA or on a card not in it.
 
     The timed steps are enqueued back to back and only the last one's
     loss is fetched: the steps form a chain through the state, so that
     fetch bounds them all.  Reports, never raises."""
     try:
         dev = resolve_device(device)
+        if peak_tflops is None:
+            perf = chip_perf_for(dev)
+            peak_tflops = perf.bf16_tflops if perf is not None else 0.0
         c = config
         step_fn, state = make_train_step(c, dev)
         tokens = sample_tokens(c, device=dev)
@@ -158,3 +222,50 @@ def measure_mfu(config: BurninConfig, *, peak_tflops: float, warmup_steps: int =
         )
     except Exception as e:  # a measurement reports, never raises
         return MfuReport(ok=False, error=f"{type(e).__name__}: {e}", config=config)
+
+
+@dataclass
+class HbmReport:
+    """Device memory bandwidth probe result."""
+
+    ok: bool
+    gbps: float = 0.0
+    peak_gbps: float = 0.0
+    fraction_of_peak: float = 0.0
+    array_mib: float = 0.0
+    error: str = ""
+
+
+def measure_hbm_bandwidth(*, array_bytes: "int | None" = None, iters: int = 10,
+                          device: "str | torch.device" = "cuda") -> HbmReport:
+    """saxpy probe ``y += 1.000001 * x`` over two f32 arrays of
+    ``array_bytes`` (default: an eighth of the card's memory each, 64 MiB
+    without a peak): 3 transfers an element (read x, read y, write y),
+    purely bandwidth-bound at this size.  One fused in-place kernel
+    (``add_`` with ``alpha``): the eager ``a * x + y`` would be two
+    kernels and five transfers.  Timed as the reference times it, from a
+    value fetch to a value fetch.  Reports, never raises."""
+    try:
+        dev = resolve_device(device)
+        perf = chip_perf_for(dev)
+        if array_bytes is None:
+            array_bytes = int(perf.hbm_gib * GIB // 8) if perf is not None else 64 << 20
+        n = array_bytes // 4  # f32
+        x = torch.ones((n,), dtype=torch.float32, device=dev)
+        y = torch.zeros((n,), dtype=torch.float32, device=dev)
+        y.add_(x, alpha=1.000001)  # warm
+        float(y[0])  # a value fetch: a sync that really waits
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            y.add_(x, alpha=1.000001)
+        float(y[0])
+        elapsed = time.perf_counter() - t0
+        gbps = 3 * n * 4 * iters / elapsed / 1e9
+        peak = perf.hbm_gbps if perf is not None else 0.0
+        return HbmReport(
+            ok=True, gbps=gbps, peak_gbps=peak,
+            fraction_of_peak=gbps / peak if peak > 0 else 0.0,
+            array_mib=n * 4 / (1 << 20),
+        )
+    except Exception as e:  # a measurement reports, never raises
+        return HbmReport(ok=False, error=f"{type(e).__name__}: {e}")

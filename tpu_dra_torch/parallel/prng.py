@@ -2,7 +2,9 @@
 
 The subset of `jax.random` that the reference's decoding draws from
 (`tpu_dra.parallel.decode._make_pick`, the engine's request-keyed
-`pick_row`, the speculative decoder), as JAX 0.9 computes it with its
+`pick_row`, the speculative decoder) and its synthetic training data
+(`tpu_dra.parallel.burnin.sample_tokens`: `randint`, `bernoulli`), as
+JAX 0.9 computes it with its
 defaults (``threefry2x32``, ``jax_threefry_partitionable=True``): the
 same keys give the same bits, so the port samples the same tokens as the
 reference wherever the two runs' logits do not straddle a near-tie.
@@ -30,11 +32,13 @@ import numpy as np
 import torch
 
 __all__ = [
+    "bernoulli",
     "bits",
     "categorical",
     "fold_in",
     "gumbel",
     "key",
+    "randint",
     "split",
     "threefry_2x32",
     "uniform",
@@ -43,6 +47,7 @@ __all__ = [
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
+_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 # float32's smallest normal: JAX's gumbel draws uniforms in [tiny, 1).
 _F32_TINY = torch.finfo(torch.float32).tiny
 
@@ -145,6 +150,34 @@ def uniform(k, shape, dtype=torch.float32, minval=0.0, maxval=1.0):
     lo = float(np.float32(minval))
     span = float(np.float32(maxval) - np.float32(minval))
     return (floats * span + lo).clamp(min=lo)
+
+
+def bernoulli(k, p: float, shape):
+    """``jax.random.bernoulli`` in its default ``mode="low"``: a float32
+    `uniform` below ``p`` (taken as float32, as JAX takes a Python
+    float)."""
+    return uniform(k, shape) < float(np.float32(p))
+
+
+def randint(k, shape, minval: int, maxval: int):
+    """``jax.random.randint`` for int32 (JAX's default integer): two
+    words of `bits` per element, from the two halves of ``split(k)``,
+    folded into ``[minval, maxval)`` with JAX's span multiplier
+    ``(2**16 % span)**2 % span`` in uint32 arithmetic; ``maxval <= minval``
+    gives ``minval``.  Bounds outside int32 raise, as JAX's
+    do.  Returns an int32 tensor of shape ``(*batch, *shape)``."""
+    for bound in (minval, maxval):
+        if not _I32_MIN <= bound <= _I32_MAX:
+            raise OverflowError(f"randint bound {bound} is outside int32")
+    keys = split(k)
+    higher, lower = bits(keys[..., 0, :], shape), bits(keys[..., 1, :], shape)
+    span = (maxval - minval) if maxval > minval else 1  # below 2**32: a uint32
+    # The square wraps as uint32, so the multiplier is 0 for any span above
+    # 2**16, and below it every product is under 2**32: int64 holds them.
+    multiplier = ((2 ** 16 % span) ** 2 & _MASK) % span
+    offset = (((higher % span) * multiplier + lower % span) & _MASK) % span
+    value = minval + offset  # inside [minval, maxval): an int32
+    return value.to(torch.int32)
 
 
 def gumbel(k, shape, dtype=torch.float32):
