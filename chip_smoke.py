@@ -100,7 +100,20 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    then MFU, peak memory, the first loss against the dense path's, the
    kernel's output inside the model's first layer against its plain
    version, and a profile of two steps;
-11. burn-in, the payload a claiming pod runs: the card's entry in
+11. sharded training: K2 through `flash_attention_sharded` rank by rank
+   at the trainer's shape (tp 2, 4 and 8: one launch a rank on its heads,
+   made contiguous as its column-parallel product makes them; the ranks'
+   outputs concatenated bitwise equal to one launch over every head and
+   within one bf16 ulp of the plain version; one rank's launch at tp 2
+   timed beside its bound, its plain version and
+   `scaled_dot_product_attention` on the same heads); then a spawned
+   worker on a one-rank NCCL group trains the flash family at the same
+   width through ``burnin.train(cfg, burnin_mesh([0]), steps=6)`` (K2's
+   launches == steps x 2 x layers, the six losses bitwise or within
+   ``FIRST_LOSS_RTOL`` of phase 10's, step p50 beside phase 10's) and the
+   long-context (ring) and MoE families over that mesh for 2 steps (loss
+   descending, no K1 launch);
+12. burn-in, the payload a claiming pod runs: the card's entry in
    `mfu.CHIP_PERF` and the saxpy probe of its memory rate (at most 1.05
    of the peak); `data.synthetic_stream` against the same draws on the
    card, `prefetch_to_device` (a side stream, an event wait a batch, every
@@ -116,8 +129,9 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    refused with exit 1; ``--family flash --train 2`` and ``--family dense
    --serve`` ok) and a one-rank NCCL group in a spawned worker running the
    collective checks;
-12. the kernels' JSON line (K1's rows also list each path's launches, K2's
-    the trainer's, the stream-fed and the checkpointed paths'), the card's
+13. the kernels' JSON line (K1's rows also list each path's launches, K2's
+    the trainer's, the sharded trainer's, the stream-fed and the
+    checkpointed paths'; K2's sharded form a row of its own), the card's
     line, and the result line.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
@@ -2238,11 +2252,37 @@ def phase_families(models):
     log("serve_family: " + "; ".join(lines))
 
 
+@contextlib.contextmanager
+def recorded_losses(burnin):
+    """Every loss the steps `burnin.make_train_step` builds return while
+    the context is open, in a list (as tensors; `burnin.train` looks the
+    factory up at each call)."""
+    real = burnin.make_train_step
+    losses = []
+
+    def recording(*args, **kwargs):
+        step, state = real(*args, **kwargs)
+
+        def step_and_record(state, tokens):
+            state, loss = step(state, tokens)
+            losses.append(loss)
+            return state, loss
+
+        return step_and_record, state
+
+    burnin.make_train_step = recording
+    try:
+        yield losses
+    finally:
+        burnin.make_train_step = real
+
+
 def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
     """Single-device training of the flash family at full width: the
     width `chip_sized_config` gives an 80 GB card, params from init_params'
     seeded generator, momentum at the config's lr.  Returns the kernel's
-    launches in the ``train`` run and its step p50 in seconds."""
+    launches in the ``train`` run, its step p50 in seconds and its
+    losses."""
     cfg = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True)
     log(f"train config: vocab {cfg.vocab}, d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
         f"{cfg.d_ff}, {cfg.n_layers} layers, seq {cfg.seq}, batch {cfg.batch}, "
@@ -2253,8 +2293,10 @@ def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_forward.launches = 0  # count only the main path's launches
-    report = burnin.train(cfg, steps=steps, device="cuda")
+    with recorded_losses(burnin) as losses:
+        report = burnin.train(cfg, steps=steps, device="cuda")
     launches = fa.flash_attention_forward.launches
+    losses = [float(l) for l in losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not report.ok or report.error:
         raise AssertionError(f"train: {report}")
@@ -2319,7 +2361,7 @@ def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
         f"(tol {FIRST_LOSS_RTOL})")
 
     profile_train(torch, burnin, cfg)
-    return launches, report.step_seconds_p50
+    return launches, report.step_seconds_p50, losses
 
 
 def profile_train(torch, burnin, cfg, steps: int = 2):
@@ -2336,6 +2378,299 @@ def profile_train(torch, burnin, cfg, steps: int = 2):
             state, loss = step_fn(state, tokens)
         float(loss)
     report_profile(prof, "chip_smoke_train_trace.json", f"{steps} training steps", steps)
+
+
+# The tp sizes at which K2 runs rank by rank over head slices.
+SHARDED_MODELS = (2, 4, 8)
+
+
+def rank_heads(qkv, model: int, rank: int):
+    """One tp rank's q, k and v at ``model`` ranks: its heads of a
+    (b, s, 3, h, d) qkv product, contiguous as the rank's own
+    column-parallel product leaves them, viewed as q, k and v."""
+    n = qkv.shape[3] // model
+    local = qkv[:, :, :, rank * n:(rank + 1) * n].contiguous()
+    return local[:, :, 0], local[:, :, 1], local[:, :, 2]
+
+
+def sharded_kernel(torch, fa, flash):
+    """K2 through `flash_attention_sharded` rank by rank at the trainer's
+    shape: at each tp size, one launch a rank on its heads; the launches
+    counted, their outputs concatenated bitwise equal to one launch over
+    every head, and within `FLASH_BF16_TOL` of the plain version.  One
+    rank's launch at tp 2 timed beside its bound, its plain version and
+    `scaled_dot_product_attention` on the same heads.  Returns the
+    kernel's JSON row."""
+    b, s, h, d = 16, 1024, 32, 128
+    g = torch.Generator(device="cuda").manual_seed(31)
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        whole = fa.flash_attention_forward(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True, 128, 128)
+        plain = fa.flash_attention_plain(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True, 128,
+                                         128).float()
+        err = 0.0
+        for model in SHARDED_MODELS:
+            fa.flash_attention_forward.launches = 0
+            parts = [flash.flash_attention_sharded(*rank_heads(qkv, model, r), {"model": model},
+                                                   "model", block_q=128, block_k=128)
+                     for r in range(model)]
+            launches = fa.flash_attention_forward.launches
+            got = torch.cat(parts, dim=2)
+            if launches != model:
+                raise AssertionError(f"tp {model}: {launches} K2 launches, want {model}")
+            if not torch.equal(got, whole):
+                raise AssertionError(f"tp {model}: the ranks' heads differ from one launch "
+                                     "over every head")
+            err = max(err, (got.float() - plain).abs().max().item())
+            if not torch.allclose(got.float(), plain, **FLASH_BF16_TOL):
+                raise AssertionError(f"tp {model}: vs plain max abs err {err}")
+        log(f"K2 rank by rank at ({b}, {s}, {h}, {d}) bf16 causal, tp {SHARDED_MODELS}: one "
+            f"launch a rank each, the ranks' heads concatenated bitwise equal to one launch over "
+            f"every head; max abs err {err} vs plain (tol {FLASH_BF16_TOL})")
+        del whole, plain, parts, got
+        q, k, v = rank_heads(qkv, 2, 0)
+        scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+        flush = scrub.zero_
+        rank_ms = time_ms(lambda: fa.flash_attention_forward(q, k, v, True, 128, 128), flush)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, True, 128, 128), flush,
+                           n=20, warmup=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+    bound_ms, bound_by = flash_bound_ms(q, True)
+    log(f"K2 one rank at tp 2 ({b}, {s}, {h // 2}, {d}): kernel {rank_ms:.6f} ms, plain "
+        f"{plain_ms:.6f} ms, scaled_dot_product_attention {library_ms:.6f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    return {
+        "name": "flash_attention_sharded",
+        "route": "cuda",
+        "source": "tpu_dra_torch/parallel/kernels/csrc/flash_attn.cu",
+        "replaces": "tpu_dra/parallel/flash.py:185",
+        "launches": None,
+        "max_abs_err": err,
+        "ms": rank_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+def _sharded_rank(rank: int, init_method: str, plan: dict, out) -> None:
+    """Rank ``rank`` of a group of ``plan["world"]`` (NCCL, a card a rank;
+    gloo on the CPU) training ``plan["config"]`` sharded over
+    `burnin.burnin_mesh` of every rank for ``plan["steps"]`` steps through
+    `burnin.train`, K2's launches counted; then, with
+    ``plan["families"]``, the long-context and MoE families over the same
+    mesh at their preset width for 2 steps, K1's launches counted.  Puts
+    ``(rank, result)`` on ``out``.  Runs in a spawned process."""
+    try:
+        import torch
+
+        from tpu_dra_torch import models
+        from tpu_dra_torch.parallel import burnin, gang
+        from tpu_dra_torch.parallel.kernels import flash_attn as fa
+        from tpu_dra_torch.parallel.kernels import paged_attn as pa
+
+        # As in the main process: the single-device run this is held to
+        # ran with these off.
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        on_card = plan["device"] == "cuda"
+        gang.join_group(init_method, world_size=plan["world"], rank=rank,
+                        device=f"cuda:{rank}" if on_card else "cpu", timeout_s=300)
+        mesh = burnin.burnin_mesh(range(plan["world"]))
+        cfg = burnin.BurninConfig(**plan["config"])
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention_forward.launches = 0
+        with recorded_losses(burnin) as losses:
+            report = burnin.train(cfg, mesh, steps=plan["steps"])
+        result = {"report": dataclasses.asdict(report), "losses": [float(l) for l in losses],
+                  "launches": fa.flash_attention_forward.launches,
+                  "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0}
+        del losses
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        if plan["families"]:
+            pa.paged_attention.launches = 0
+            result["families"] = {
+                name: dataclasses.asdict(models.train_family(name, mesh, steps=2))
+                for name in ("long_context", "moe")}
+            result["k1_launches"] = pa.paged_attention.launches
+        out.put((rank, result))
+    except Exception:
+        out.put((rank, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_sharded_ranks(validate, config, steps: int, world: int = 1, device: str = "cuda",
+                      families: bool = True, timeout: float = 600):
+    """`_sharded_rank` in ``world`` spawned workers; their results by rank,
+    or raise with the first failure's traceback.  Every worker is stopped
+    before this returns."""
+    import multiprocessing
+    import queue
+
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    plan = {"config": dataclasses.asdict(config), "steps": steps, "device": device,
+            "world": world, "families": families}
+    init = f"tcp://127.0.0.1:{validate._free_port()}"
+    workers = [ctx.Process(target=_sharded_rank, args=(r, init, plan, out), daemon=True)
+               for r in range(world)]
+    for w in workers:
+        w.start()
+    got = {}
+    try:
+        deadline = time.monotonic() + timeout
+        while len(got) < world and time.monotonic() < deadline:
+            try:
+                rank, res = out.get(timeout=1.0)
+            except queue.Empty:
+                if any(w.exitcode is not None and r not in got for r, w in enumerate(workers)):
+                    break  # a worker died without a result
+                continue
+            got[rank] = res
+            if isinstance(res, str):
+                break
+    finally:
+        for w in workers:
+            w.join(timeout=60)
+            if w.is_alive():
+                w.kill()
+                w.join()
+    failed = {r: res for r, res in got.items() if isinstance(res, str)}
+    if failed or len(got) < world:
+        missing = sorted(set(range(world)) - set(got))
+        raise AssertionError(f"sharded training workers failed: {failed}; no result from {missing}")
+    return [got[r] for r in range(world)]
+
+
+def check_sharded_run(got, cfg, steps: int, single_losses, single_p50: float) -> str:
+    """The sharded run against the contract: ok, K2 launched steps x 2 x
+    layers, the losses those of the single-device run on the same weights
+    (bitwise, or within `FIRST_LOSS_RTOL`, the gap printed), the two
+    families ok with K1 never launched.  Returns the run's line."""
+    report, losses = got["report"], got["losses"]
+    if not report["ok"] or report["error"] or report["steps"] != steps:
+        raise AssertionError(f"sharded train: {report}")
+    if got["launches"] != steps * 2 * cfg.n_layers:
+        raise AssertionError(f"sharded train: {got['launches']} K2 launches != {steps} steps x 2 "
+                             f"x {cfg.n_layers} layers")
+    if losses == single_losses:
+        how = "bitwise equal to"
+    else:
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, single_losses))
+        if len(losses) != len(single_losses) or gap > FIRST_LOSS_RTOL:
+            raise AssertionError(f"sharded losses {losses} vs one device {single_losses}: "
+                                 f"rel gap {gap} > {FIRST_LOSS_RTOL}")
+        how = f"within a relative gap of {gap:.3e} (tol {FIRST_LOSS_RTOL}) of"
+    for name, fam in got["families"].items():
+        if not fam["ok"] or fam["steps"] != 2 or not fam["loss_last"] < fam["loss_first"]:
+            raise AssertionError(f"train_family({name!r}, mesh): {fam}")
+    if got["k1_launches"]:
+        raise AssertionError(f"K1 launched {got['k1_launches']} times in the families' training")
+    fams = "; ".join(f"{name} loss {f['loss_first']:.6f} -> {f['loss_last']:.6f}, step p50 "
+                     f"{f['step_seconds_p50'] * 1e3:.3f} ms" for name, f in got["families"].items())
+    return (f"{report['steps']} steps, losses {losses} {how} the one-device run's; step p50 "
+            f"{report['step_seconds_p50'] * 1e3:.3f} ms against burnin.train's "
+            f"{single_p50 * 1e3:.3f} ms; {got['launches']} K2 launches; peak memory allocated "
+            f"{got['peak_gb']:.3f} GB; families on the same mesh: {fams}; 0 K1 launches")
+
+
+def phase_sharded(torch, fa, flash, mfu, validate, single_losses, single_p50: float, steps: int = 6):
+    """Sharded training: K2 rank by rank (`sharded_kernel`), then the
+    flash family at the trainer's width sharded over a one-rank NCCL mesh
+    in a spawned worker, held to phase 10's one-device run, and the
+    long-context and MoE families on that mesh.  Returns K2's sharded
+    row and the sharded run's launches."""
+    row = sharded_kernel(torch, fa, flash)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True)
+    got = run_sharded_ranks(validate, cfg, steps)[0]
+    log("sharded train (flash, full width, burnin_mesh([0]) over NCCL): "
+        + check_sharded_run(got, cfg, steps, single_losses, single_p50))
+    row["launches"] = got["launches"]
+    return row, got["launches"]
+
+
+# The sharded step on several cards against the one-card step on the same
+# weights: bf16 partial sums rounded a rank and summed across ranks move
+# the losses by rounding (the CPU tests' 8-rank tolerances).
+CARDS_FIRST_LOSS_RTOL = 1e-3
+CARDS_LOSS_RTOL = 1e-2
+
+
+def phase_cards(torch, burnin, mfu, validate, cards: int, steps: int = 6) -> dict:
+    """``--cards N``: the flash family at the trainer's width on card 0
+    alone, then sharded over `burnin_mesh` of N ranks, a card each, in N
+    spawned workers (one global loss on every rank, K2's launches ==
+    steps x 2 x layers on every rank, the losses against the one-card
+    losses within ``CARDS_*_RTOL``); then ``python -m
+    tpu_dra_torch.parallel.validate --train 2`` over the N cards (the
+    checks, the bus bandwidth, the sharded, ring and MoE stages) and
+    ``--family moe --train 2`` (over `moe_mesh` when N divides by 4).
+    Returns the numbers for the JSON line."""
+    cfg = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True)
+    with recorded_losses(burnin) as losses:
+        single = burnin.train(cfg, steps=steps, device="cuda")
+    single_losses = [float(l) for l in losses]
+    del losses
+    if not single.ok:
+        raise AssertionError(f"one-card train: {single}")
+    log(f"one card: losses {single_losses}, step p50 {single.step_seconds_p50 * 1e3:.3f} ms")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    results = run_sharded_ranks(validate, cfg, steps, world=cards, families=False, timeout=900)
+    wall = time.perf_counter() - t
+    first = results[0]
+    for rank, res in enumerate(results):
+        rep = res["report"]
+        if not rep["ok"] or rep["steps"] != steps or res["losses"] != first["losses"]:
+            raise AssertionError(f"rank {rank}: {rep}, losses {res['losses']}")
+        if res["launches"] != steps * 2 * cfg.n_layers:
+            raise AssertionError(f"rank {rank}: {res['launches']} K2 launches")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(first["losses"], single_losses)]
+    if gaps[0] > CARDS_FIRST_LOSS_RTOL or max(gaps) > CARDS_LOSS_RTOL:
+        raise AssertionError(f"{cards} cards {first['losses']} vs one {single_losses}: gaps {gaps}")
+    p50s = [res["report"]["step_seconds_p50"] for res in results]
+    log(f"sharded over {cards} cards, mesh {first['mesh']}: losses {first['losses']} (relative "
+        f"gaps to one card {gaps}); step p50 by rank {[f'{p * 1e3:.3f}' for p in p50s]} ms "
+        f"against one card's {single.step_seconds_p50 * 1e3:.3f} ms; {first['launches']} K2 "
+        f"launches a rank; peak memory by rank {[round(r['peak_gb'], 3) for r in results]} GB; "
+        f"workers' wall {wall:.3f} s")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPU_VISIBLE_DEVICES=",".join(str(i) for i in range(cards)))
+    reports = {}
+    for args in (["--train", "2"], ["--family", "moe", "--train", "2"]):
+        p = subprocess.run([sys.executable, "-m", "tpu_dra_torch.parallel.validate", *args],
+                           cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        lines = p.stdout.strip().splitlines()
+        rep = json.loads(lines[-1]) if lines else {}
+        if p.returncode != 0 or rep.get("ok") is not True:
+            raise AssertionError(f"validate {' '.join(args)}: exit {p.returncode}\n{p.stdout}\n"
+                                 f"{p.stderr[-3000:]}")
+        log(f"validate {' '.join(args)} over {cards} cards: {lines[-1][:1500]}")
+        reports[" ".join(args)] = rep
+    suite = reports["--train 2"]
+    for key in ("train", "train_ring", "train_moe"):
+        if not (suite.get(key) or {}).get("ok"):
+            raise AssertionError(f"validate --train 2: {key} {suite.get(key)}")
+    return {"cards": cards, "mesh": first["mesh"], "losses": first["losses"],
+            "one_card_losses": single_losses, "step_p50_s": p50s,
+            "one_card_step_p50_s": single.step_seconds_p50,
+            "peak_gb": [r["peak_gb"] for r in results], "busbw_gbps": suite["busbw_gbps"]}
 
 
 # The payload's runs: (arguments, TPU_VISIBLE_DEVICES, exit code wanted).
@@ -2620,6 +2955,39 @@ def phase_burnin(torch, burnin, mfu, fa, data, ckpt, prng, validate, train_p50: 
     return {"train_on_stream": stream_launches, "train_with_resume": ckpt_launches}
 
 
+def main_cards(torch, cards: int) -> int:
+    """``python3 chip_smoke.py --cards N``: `phase_cards` alone, then its
+    JSON line, the card line and the result line."""
+    if torch.cuda.device_count() < cards:
+        print(f"chip_smoke: --cards {cards} needs {cards} cards, torch sees "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    from tpu_dra_torch.parallel import burnin, mfu, validate
+    from tpu_dra_torch.parallel.kernels import _build
+
+    try:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        log(f"cards: {cards} x {torch.cuda.get_device_name(0)} | nvidia-smi: {card}")
+        t = time.perf_counter()
+        log(f"build: {_build.build_all()} in {time.perf_counter() - t:.3f} s")
+        t = time.perf_counter()
+        numbers = phase_cards(torch, burnin, mfu, validate, cards)
+        log(f"phase cards: {time.perf_counter() - t:.3f} s")
+    except Exception:
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+    print(json.dumps({"sharded_cards": numbers}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -2629,6 +2997,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
         return 1
+    args = sys.argv[1:]
+    if args:
+        if len(args) != 2 or args[0] != "--cards" or not args[1].isdigit() or int(args[1]) < 2:
+            print("usage: chip_smoke.py [--cards N], N >= 2", file=sys.stderr)
+            return 2
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return main_cards(torch, int(args[1]))
     started = time.perf_counter()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -2709,13 +3084,21 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        flash_row["launches"], train_p50 = phase_train(torch, burnin, mfu, fa, flash)
+        flash_row["launches"], train_p50, train_losses = phase_train(torch, burnin, mfu, fa,
+                                                                     flash)
         log(f"phase train: {time.perf_counter() - t:.3f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        sharded_row, sharded_launches = phase_sharded(torch, fa, flash, mfu, validate,
+                                                      train_losses, train_p50)
+        log(f"phase sharded training: {time.perf_counter() - t:.3f} s")
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
         flash_row["launches_by_path"] = {
             "train": flash_row["launches"],
+            "sharded train": sharded_launches,
             **phase_burnin(torch, burnin, mfu, fa, data, ckpt, prng, validate, train_p50),
         }
         log(f"phase burn-in: {time.perf_counter() - t:.3f} s; flash launches "
@@ -2726,7 +3109,7 @@ def main() -> int:
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    print(json.dumps({"kernels": [paged_row, flash_row, int8_row]}))
+    print(json.dumps({"kernels": [paged_row, flash_row, sharded_row, int8_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

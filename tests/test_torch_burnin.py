@@ -86,6 +86,14 @@ class TestConfig:
             with pytest.raises(ValueError, match=f"not supported with {field}"):
                 td.make_generate(cfg, prompt_len=8, steps=2, prefill_chunk=4)
             return
+        if field == "ring_attention":
+            # Ported on a mesh: the config takes it, and a forward on one
+            # device is refused with the reference's message.
+            cfg = tb.BurninConfig(**{**_SHAPE, field: value})
+            params = tb.init_params(cfg, device="cpu")
+            with pytest.raises(ValueError, match="context-parallel attention requires a device mesh"):
+                tb.forward(params, torch.zeros((1, cfg.seq), dtype=torch.int32), cfg)
+            return
         with pytest.raises(ValueError, match=field):
             tb.BurninConfig(**{field: value})
 

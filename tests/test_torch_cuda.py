@@ -12,7 +12,10 @@ reference attention's; the kernel over tables whose rows share blocks
 (the prefix cache's); the engine with the prefix cache on; Threefry on
 the card bitwise against the CPU's; the sampled engine's three
 schedulings; one greedy speculative run against `make_generate`; the
-flash kernel at the families' small head widths; the prefetch onto the
+flash kernel at the families' small head widths; the kernel rank by
+rank over tp head slices (bitwise one launch over every head) and the
+ring's one-rank fold and backward against the reference attention; the
+prefetch onto the
 card (order, contents, a side stream and an event wait a batch) and a
 checkpoint's bitwise round trip and resume on the card.
 
@@ -495,6 +498,51 @@ class TestFlashKernel:
             grads.append(torch.autograd.grad(fn(*qkv), qkv, g))
         for got, want in zip(*grads):
             torch.testing.assert_close(got.float(), want.float(), atol=1e-5, rtol=0)
+
+
+class _OneRank:
+    """The place of the only rank on a one-rank ring (no process group)."""
+
+    sizes, coords = {"model": 1}, {"model": 0}
+
+    def size(self, axis):
+        return 1
+
+    def index(self, axis):
+        return 0
+
+
+@pytest.mark.cuda
+class TestShardedFlash:
+    @pytest.mark.parametrize("model", [2, 4, 8])
+    def test_ranks_heads_equal_one_launch(self, model, cuda):
+        """Each tp rank's launch on its own heads (contiguous, as its
+        column-parallel product leaves them): concatenated, bitwise the
+        launch over every head."""
+        g = torch.Generator(device=cuda).manual_seed(9)
+        qkv = torch.randn((2, 256, 3, 8, 128), generator=g, device=cuda).to(torch.bfloat16)
+        whole = flash_attention_forward(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        n = 8 // model
+        before = flash_attention_forward.launches
+        parts = []
+        for r in range(model):
+            local = qkv[:, :, :, r * n:(r + 1) * n].contiguous()
+            parts.append(flash.flash_attention_sharded(local[:, :, 0], local[:, :, 1],
+                                                       local[:, :, 2], {"model": model}))
+        assert flash_attention_forward.launches - before == model
+        assert torch.equal(torch.cat(parts, dim=2), whole)
+
+    def test_ring_on_one_rank_matches_reference_attention(self, cuda):
+        qkv = _qkv(cuda, 2, 256, 4, 64, torch.float32, seed=10)
+        g = torch.randn((2, 256, 4, 64), device=cuda)
+        outs = []
+        for fn in (lambda *t: ring.ring_attention(*t, _OneRank(), "model"),
+                   lambda *t: ring.reference_attention(*t, causal=True)):
+            inputs = [t.detach().clone().requires_grad_() for t in qkv]
+            out = fn(*inputs)
+            outs.append([out.detach()] + list(torch.autograd.grad(out, inputs, g)))
+        for got, want in zip(*outs):
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda

@@ -113,3 +113,32 @@ def test_the_spawned_validate_worker_pulls_in_neither():
     )
     assert result.returncode == 0, result.stdout + result.stderr
     assert result.stdout.strip().endswith("ok")
+
+
+def test_the_workers_sharded_training_stage_pulls_in_neither():
+    """The training stage a worker runs on more than one device
+    (`validate._train_on_mesh`: the sharded step over `burnin_mesh`) and
+    the families it trains over a mesh (ring attention, experts), on a
+    one-rank gloo group, under the tripwire."""
+    code = TRIPWIRE + (
+        "import socket\n"
+        "from tpu_dra_torch import models\n"
+        "from tpu_dra_torch.parallel import gang, mesh, validate\n"
+        "with socket.socket() as s:\n"
+        "    s.bind(('127.0.0.1', 0))\n"
+        "    port = s.getsockname()[1]\n"
+        "gang.join_group(f'tcp://127.0.0.1:{port}', world_size=1, rank=0, device='cpu')\n"
+        "result = {'checks': [], 'train': None, 'train_ring': None, 'train_moe': None}\n"
+        "validate._train_on_mesh(1, result, mesh.slice_mesh('1x1x1'), [0])\n"
+        "assert result['train']['ok'] and result['train']['steps'] == 2, result\n"
+        "for name in ('long_context', 'moe', 'flash'):\n"
+        "    r = models.train_family(name, [0], steps=2, device='cpu', n_layers=1)\n"
+        "    assert r.ok, (name, r)\n"
+        "print('ok')\n"
+    )
+    result = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO_ROOT,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert result.returncode == 0, result.stdout + result.stderr
+    assert result.stdout.strip().endswith("ok")

@@ -9,8 +9,14 @@ collective check as a list (`RANK_CHECKS`), each rank reporting what it
 saw; `validate_slice` spawns its own workers.  Reports are compared
 whole, ignoring only what a run times (``seconds_p50``, ``busbw_gbps``),
 the platform's name and the framework's name in the device-count error.
-Every collective check is exact: it moves small integers in f32."""
+Every collective check is exact: it moves small integers in f32.
 
+Sharded training in those ranks and workers (the families over their
+meshes, validate's training stage) is held to the reference's contract:
+the same report keys, ok with a descending loss, the same refusals; its
+numbers against the reference's are tests/test_torch_sharded.py's."""
+
+import dataclasses
 import json
 import multiprocessing
 import os
@@ -24,7 +30,9 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from tpu_dra import models as jmodels
 from tpu_dra.api.topology import Topology as JTopology
+from tpu_dra.parallel import burnin as jburnin
 from tpu_dra.parallel import collectives as jcoll
 from tpu_dra.parallel import gang as jgang
 from tpu_dra.parallel import mesh as jmesh
@@ -123,8 +131,24 @@ def _rank_gang(rank):
     return out
 
 
+# train_family over the 8 ranks: (family, what its report must show).
+FAMILY_RUNS = {"dense": "ok", "flash": "ok", "rope": "ok", "moe": "ok", "long_context": "ok",
+               "long_context_a2a": "ulysses_attention", "long_context_moe": "long_context_moe",
+               "pipelined": "pipeline_stages"}
+
+
+def _rank_families(rank):
+    out = {}
+    for name in FAMILY_RUNS:
+        r = tmodels.train_family(name, list(range(WORLD)), steps=2, device="cpu")
+        out[name] = (r.ok, r.steps, r.loss_first, r.loss_last, r.error)
+    for name in ("dense", "moe"):
+        out[f"mesh {name}"] = tmesh.mesh_shape(tmodels.family_mesh(name))
+    return out
+
+
 RANK_CHECKS = [("meshes", _rank_meshes), ("collectives", _rank_collectives),
-               ("gang", _rank_gang)]
+               ("gang", _rank_gang), ("families", _rank_families)]
 
 
 def _rank_main(rank, init_method, out):
@@ -329,6 +353,26 @@ VALIDATE_CASES = {
 }
 
 
+class TestFamilies:
+    @pytest.mark.parametrize("name", sorted(FAMILY_RUNS))
+    def test_train_family_on_eight_ranks(self, ranks, name):
+        """Each family the port trains does so sharded over its mesh of the
+        8 ranks (one global loss, descending); the others report their
+        refusal by name."""
+        reports = [res["families"][name] for res in ranks]
+        assert all(rep == reports[0] for rep in reports)
+        ok, steps, first, last, error = reports[0]
+        if FAMILY_RUNS[name] == "ok":
+            assert ok and steps == 2 and last < first and error == "", reports[0]
+        else:
+            assert not ok and steps == 0 and FAMILY_RUNS[name] in error, reports[0]
+
+    @pytest.mark.parametrize("name", ["dense", "moe"])
+    def test_family_mesh_equals_the_references(self, ranks, devices, name):
+        want = dict(jmodels.family_mesh(name, devices).shape)
+        assert all(res["families"][f"mesh {name}"] == want for res in ranks)
+
+
 class TestValidateSlice:
     @pytest.mark.parametrize("name", sorted(VALIDATE_CASES))
     def test_report_equals_the_references(self, name):
@@ -349,13 +393,29 @@ class TestValidateSlice:
         assert r.train["ok"] and r.train["steps"] == 2
         assert r.train["loss_last"] < r.train["loss_first"]
 
-    def test_sharded_training_is_refused_by_name(self):
-        r = tval.validate_slice(topology="2x1x1", env={}, train_steps=2, bandwidth_mbytes=1,
-                                device="cpu", local_devices=2)
-        assert not r.ok
-        assert [c["ok"] for c in r.checks] == [True] * 4
-        assert r.errors == [f"burnin train: {r.train['error']}"]
-        assert r.train["error"].startswith("NotImplementedError: sharded training over 2 devices")
+    def test_sharded_training_stage_on_eight_ranks(self):
+        """The reference's stage on a mesh with model > 1: the sharded
+        step, then ring attention and experts, each ok after 2 steps; the
+        report's and each stage's keys are the reference's."""
+        r = tval.validate_slice(topology="2x2x2", env={}, train_steps=2, bandwidth_mbytes=1,
+                                device="cpu", local_devices=WORLD)
+        assert r.ok, r.errors
+        got = json.loads(r.to_json())
+        assert set(got) == set(json.loads(jval.SliceReport().to_json()))
+        want_keys = set(dataclasses.asdict(jburnin.TrainReport(True, 0, 0.0, 0.0, 0.0, 0.0)))
+        for key in ("train", "train_ring", "train_moe"):
+            tr = got[key]
+            assert set(tr) == want_keys, key
+            assert tr["ok"] and tr["steps"] == 2 and tr["loss_last"] < tr["loss_first"], (key, tr)
+
+    def test_sharded_training_with_model_1_skips_ring_and_moe(self):
+        """Three ranks give burnin_mesh a model axis of 1: the sharded step
+        alone, as the reference's stage runs it there."""
+        r = tval.validate_slice(topology="3x1x1", env={}, train_steps=2, bandwidth_mbytes=1,
+                                device="cpu", local_devices=3)
+        assert r.ok, r.errors
+        assert r.train["ok"] and r.train["steps"] == 2
+        assert r.train_ring is None and r.train_moe is None
 
     def test_a_gang_of_two_hosts(self):
         init = f"127.0.0.1:{_free_port()}"
@@ -435,6 +495,12 @@ class TestCli:
         assert tval.main(argv, device="cpu") == 0
         out = json.loads(capsys.readouterr().out)
         assert out["family"] == argv[1] and out["ok"] is True
+
+    def test_family_trains_over_workers_on_eight_devices(self, capsys):
+        assert tval.main(["--family", "moe", "--train", "2"], device="cpu",
+                         local_devices=WORLD) == 0
+        out = json.loads(capsys.readouterr().out)
+        assert out["family"] == "moe" and out["ok"] is True and out["steps"] == 2
 
     def test_family_probe_without_a_card_fails(self, capsys):
         if torch.cuda.is_available():

@@ -224,6 +224,14 @@ class TestFamilies:
             report = models.train_family(name, steps=3, device="cpu", pipeline_stages=2)
             assert not report.ok and "pipeline_stages" in report.error and reason not in report.error
             return
+        if name == "long_context":
+            # Ported on a mesh: the config takes it, and one device is
+            # refused with the reference's forward's message.
+            report = models.train_family(name, steps=3, device="cpu")
+            assert not report.ok and report.steps == 0
+            assert report.error == "ValueError: context-parallel attention requires a device mesh"
+            assert models.family_config(name).ring_attention
+            return
         report = models.train_family(name, steps=3, device="cpu")
         assert not report.ok and report.steps == 0
         assert report.error.startswith("ValueError") and reason in report.error

@@ -1,20 +1,20 @@
-"""Canonical workload families of the burn-in LM, on one device.
+"""Canonical workload families of the burn-in LM.
 
 Counterpart of `tpu_dra.models` for the families the port runs:
 
-- ``dense`` — the baseline transformer LM;
-- ``flash`` — the same LM with attention through the flash kernel;
-- ``rope``  — rotary position embeddings + the flash kernel;
-- ``moe``   — switch-routed mixture-of-experts MLPs.
+- ``dense``        — the baseline transformer LM;
+- ``long_context`` — the same LM with ring attention (cp; a mesh only);
+- ``flash``        — the same LM with attention through the flash kernel;
+- ``rope``         — rotary position embeddings + the flash kernel;
+- ``moe``          — switch-routed mixture-of-experts MLPs.
 
-`train_family` runs a family's training step and `serve_family` its
-serving acceptance (a health-checked KV-cache generation, bf16 or the
-full int8 stack), both on one device.  The other families
-(context-parallel, pipelined) are named here as in the reference, but
-the port's `BurninConfig` rejects their fields until the multi-device
-slice: both entry points report that rejection (``ok=False`` with the
-config's reason), honoring the reference's "reports, never raises"
-contract.
+`train_family` runs a family's training step on one device or sharded
+over `family_mesh` of a set of ranks, and `serve_family` its serving
+acceptance (a health-checked KV-cache generation, bf16 or the full int8
+stack) on one device.  The other families (Ulysses, cp x ep, pipelined)
+are named here as in the reference, but the port does not run them:
+both entry points report the refusal (``ok=False`` with its reason),
+honoring the reference's "reports, never raises" contract.
 """
 
 from __future__ import annotations
@@ -24,14 +24,25 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
-from tpu_dra_torch.parallel.burnin import BurninConfig, TrainReport, init_params, train
+from tpu_dra_torch.parallel.burnin import (
+    BurninConfig,
+    TrainReport,
+    burnin_mesh,
+    init_params,
+    train,
+)
 from tpu_dra_torch.parallel.decode import make_generate
 from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.moe import moe_mesh
 from tpu_dra_torch.parallel.quant import quantize_params
 from tpu_dra_torch.parallel.weights import cast_matrices
 
-__all__ = ["FAMILIES", "ServeReport", "family_config", "serve_family", "train_family"]
+__all__ = [
+    "FAMILIES", "ServeReport", "family_config", "family_mesh", "serve_family", "train_family",
+]
 
 
 def _preset(defaults: dict) -> "Callable[..., BurninConfig]":
@@ -66,24 +77,45 @@ def family_config(name: str, **overrides) -> BurninConfig:
     return factory(**overrides)
 
 
-def train_family(name: str, *, steps: int = 5, device: "str | torch.device" = "cuda",
-                 **overrides) -> TrainReport:
-    """Train the named family for ``steps`` steps on one device.
+def family_mesh(name: str, ranks=None):
+    """The mesh the family shards over, on ``ranks`` (default: every rank
+    of the process group): (data, fsdp, model, expert) for moe when the
+    count divides by 4 (`moe.moe_mesh`, model 2 x expert 2: ep x tp),
+    else `burnin.burnin_mesh`.  The pipelined and cp x ep families'
+    meshes are not ported: asking for them raises, by name."""
+    if name in ("pipelined", "long_context_moe"):
+        raise ValueError(f"the {name} family's mesh is not ported to tpu_dra_torch yet")
+    if ranks is None:
+        ranks = range(dist.get_world_size()) if dist.is_initialized() else [0]
+    ranks = list(ranks)
+    if name == "moe" and len(ranks) % 4 == 0:
+        return moe_mesh(ranks, model=2, expert=2)
+    return burnin_mesh(ranks)
 
-    Reports, never raises, for a known family: a config the port rejects
-    comes back as ``TrainReport(ok=False, error=...)`` carrying the
-    config's reason."""
+
+def train_family(name: str, mesh=None, *, steps: int = 5,
+                 device: "str | torch.device" = "cuda", **overrides) -> TrainReport:
+    """Train the named family for ``steps`` steps: on one ``device`` when
+    ``mesh`` is None, else sharded over ``mesh`` — a `DeviceMesh`, or the
+    ranks to build `family_mesh` over (the reference's ``devices``); every
+    rank of it calls this.
+
+    Reports, never raises, for a known family: a config or a mesh the
+    port refuses comes back as ``TrainReport(ok=False, error=...)``
+    carrying the reason (``long_context`` without a mesh: "requires a
+    device mesh", as the reference's forward says)."""
     if name not in FAMILIES:
         family_config(name)  # raises: an unknown name is the caller's error
     try:
         config = family_config(name, **overrides)
-    except ValueError as e:  # the port's config rejects the family's fields
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            mesh = family_mesh(name, mesh)
+    except ValueError as e:  # the port refuses the family's fields or mesh
         return TrainReport(
             ok=False, steps=0, loss_first=0.0, loss_last=0.0,
-            step_seconds_p50=0.0, tokens_per_second=0.0,
-            error=f"{type(e).__name__}: {e}",
+            step_seconds_p50=0.0, tokens_per_second=0.0, error=f"{type(e).__name__}: {e}",
         )
-    return train(config, steps=steps, device=device)
+    return train(config, mesh, steps=steps, device=device)
 
 
 @dataclasses.dataclass

@@ -1,11 +1,33 @@
 """The burn-in LM in PyTorch: config, parameters, forward and training.
 
-Counterpart of `tpu_dra.parallel.burnin` for one device.  The config,
-the parameter tree and the arithmetic are the reference's; what differs
-is idiom: tensors instead of pytrees of jax arrays, a `torch.Generator`
-instead of a PRNG key, a Python loop over the stacked layers instead of
-``lax.scan``, `torch.utils.checkpoint` instead of ``jax.checkpoint``,
-and an optimizer state updated in place where the reference donates it.
+Counterpart of `tpu_dra.parallel.burnin`, on one device or sharded over
+a `DeviceMesh` of ranks.  The config, the parameter tree and the
+arithmetic are the reference's; what differs is idiom: tensors instead
+of pytrees of jax arrays, a `torch.Generator` instead of a PRNG key, a
+Python loop over the stacked layers instead of ``lax.scan``,
+`torch.utils.checkpoint` instead of ``jax.checkpoint``, and an optimizer
+state updated in place where the reference donates it.
+
+On a mesh (``data``, ``fsdp``, ``model`` and optionally ``expert``, one
+process a rank) each rank holds its shards of the state (`param_specs`)
+and its batch rows, and the collectives the reference's sharding
+constraints make XLA insert are explicit (`spmd`):
+
+- dp: the batch over ``data`` x ``fsdp``; gradients summed over every
+  axis a leaf is replicated on after the backward (`spmd.reduce_grads`);
+- fsdp (ZeRO-3): every matrix's non-tp dim over ``fsdp``, all-gathered
+  at its use inside the block, its gradient reduce-scattered back;
+- tp (Megatron): heads and the MLP hidden dim over ``model``, the
+  column-parallel product local, the row-parallel one a partial sum;
+- sp: the residual stream sharded over the sequence on ``model``; the
+  norms run on the shard, an all-gather of the sequence enters the tp
+  region (its backward a reduce-scatter) and a reduce-scatter of the
+  row-parallel partial sums leaves it (its backward an all-gather);
+- cp (``ring_attention``): the sequence stays sharded through the whole
+  block, attention by `ring.ring_attention_sharded`, weights replicated
+  over ``model``;
+- ep (``moe_experts``): experts over ``expert`` (each expert's FFN over
+  ``model``) or, without that axis, over ``model`` (`moe.moe_mlp_sharded`).
 
 Rounding follows the reference's source point for point, so that the
 parity tests can hold the two to bf16 ulps:
@@ -26,32 +48,42 @@ summed load-balance term.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import statistics
 import time
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import checkpoint
 
-from tpu_dra_torch.parallel import prng
+from tpu_dra_torch.parallel import prng, spmd
 from tpu_dra_torch.parallel.device import resolve_device
-from tpu_dra_torch.parallel.moe import moe_mlp
+from tpu_dra_torch.parallel.mesh import logical_mesh
+from tpu_dra_torch.parallel.moe import moe_mlp, moe_mlp_sharded, moe_param_specs
 from tpu_dra_torch.parallel.quant import dequantize_bf16
+from tpu_dra_torch.parallel.ring import ring_attention_sharded
+from tpu_dra_torch.parallel.spmd import mesh_sizes
 
 __all__ = [
     "BurninConfig",
     "TrainReport",
     "assemble_train_report",
     "bf16_scalar",
+    "burnin_mesh",
     "forward",
     "init_params",
     "make_train_step",
+    "param_specs",
     "prepare_tokens",
     "rope_apply",
     "rope_tables",
     "sample_tokens",
     "schedule_lr",
+    "state_shardings",
+    "token_spec",
     "train",
 ]
 
@@ -61,10 +93,10 @@ _NEG_INF = -1e30
 @dataclass(frozen=True)
 class BurninConfig:
     """Model + data shape for the burn-in LM — the reference's fields and
-    defaults.  The context- and pipeline-parallel fields are kept so that
-    a config reads the same in both packages, but this package runs only
-    the single-device model (dense, through the flash kernel, or with
-    switch-routed experts): setting any of them raises."""
+    defaults.  ``ring_attention`` (context parallelism over a mesh's
+    ``model`` axis) runs on a mesh only; the Ulysses and pipeline fields
+    are kept so that a config reads the same in both packages, but the
+    port does not run them: setting either raises."""
 
     vocab: int = 256
     d_model: int = 128
@@ -96,7 +128,6 @@ class BurninConfig:
         unserved = [
             name
             for name, on in (
-                ("ring_attention", self.ring_attention),
                 ("ulysses_attention", self.ulysses_attention),
                 ("pipeline_stages", self.pipeline_stages > 0),
             )
@@ -105,7 +136,8 @@ class BurninConfig:
         if unserved:
             raise ValueError(
                 f"{', '.join(unserved)} not ported to tpu_dra_torch yet: "
-                "it runs the single-device model only"
+                "it runs the model on one device or sharded over dp/fsdp/tp/sp, "
+                "ring attention and experts"
             )
 
     @property
@@ -113,6 +145,114 @@ class BurninConfig:
         if self.d_model % self.n_heads:
             raise ValueError(f"d_model {self.d_model} not divisible by n_heads {self.n_heads}")
         return self.d_model // self.n_heads
+
+    @property
+    def context_parallel(self) -> bool:
+        """Either cp flavor: the sequence stays sharded through the whole
+        block (attention by the ring, the MLP position-wise)."""
+        return self.ring_attention or self.ulysses_attention
+
+    def scaled_to(self, mesh) -> "BurninConfig":
+        """The reference's sizes grown minimally so that every sharded dim
+        divides its mesh axis (``mesh``: a `DeviceMesh` or ``{axis:
+        size}``; absent axes count as 1)."""
+        shape = mesh_sizes(mesh)
+        fsdp = shape.get("fsdp", 1)
+        model = shape.get("model", 1)
+        data = shape.get("data", 1) * fsdp
+        if self.context_parallel:
+            # cp shards the batch over every non-model axis.
+            data *= shape.get("expert", 1)
+        n_heads = _round_up(self.n_heads, model)
+        experts = (
+            _round_up(self.moe_experts, shape.get("expert", model)) if self.moe_experts else 0
+        )
+        return dataclasses.replace(
+            self, batch=_round_up(self.batch, data), n_heads=n_heads,
+            d_model=_round_up(self.d_model, n_heads * max(fsdp, 1)),
+            d_ff=_round_up(self.d_ff, model * fsdp), seq=_round_up(self.seq, model),
+            vocab=_round_up(self.vocab, fsdp * model), moe_experts=experts,
+        )
+
+
+def _round_up(v: int, m: int) -> int:
+    return v if m <= 1 else ((v + m - 1) // m) * m
+
+
+def _pow2_divisor(n: int, cap: int) -> int:
+    p = 1
+    while p * 2 <= min(n, cap) and n % (p * 2) == 0:
+        p *= 2
+    return p
+
+
+def burnin_mesh(ranks=None):
+    """The (data, fsdp, model) mesh over ``ranks`` (default: every rank of
+    the process group) with every axis non-trivial when the count allows:
+    ``model`` the largest power of two up to 2 dividing it, ``fsdp`` the
+    same of what is left, ``data`` the rest — so that a burn-in step moves
+    the tp, sp and ZeRO-3 collectives, not only the gradient all-reduce.
+    ``model`` is innermost (the nearest ranks carry the per-layer
+    collectives)."""
+    if ranks is None:
+        ranks = range(dist.get_world_size()) if dist.is_initialized() else [0]
+    ranks = list(ranks)
+    n = len(ranks)
+    model = _pow2_divisor(n, cap=2)
+    fsdp = _pow2_divisor(n // model, cap=2)
+    return logical_mesh(ranks, data=-1, fsdp=fsdp, model=model)
+
+
+def param_specs(config: BurninConfig, mesh=None):
+    """The reference's parameter layout as the port's specs (a tuple a
+    leaf, an axis name or None a dim; ``mesh`` a `DeviceMesh` or ``{axis:
+    size}``): fsdp shards the non-tp dim of every matrix, ``model`` (tp)
+    the heads, the MLP hidden dim and the embedding's d_model.  Experts
+    ride the mesh's ``expert`` axis when it has one (ep x tp), else
+    ``model``.  With ring attention the model axis carries the sequence,
+    so no weight is sharded over it and fsdp alone shards them."""
+    if config.context_parallel:
+        matrices = {
+            "wqkv": (None, "fsdp", None, None, None),
+            "wo": (None, None, None, "fsdp"),
+            "w1": (None, "fsdp", None),
+            "w2": (None, None, "fsdp"),
+        }
+    else:
+        matrices = {
+            "wqkv": (None, "fsdp", None, "model", None),
+            "wo": (None, "model", None, "fsdp"),
+            "w1": (None, "fsdp", "model"),
+            "w2": (None, "model", "fsdp"),
+        }
+    if config.moe_experts > 0:
+        del matrices["w1"], matrices["w2"]
+        expert_axis = "expert" if mesh is not None and "expert" in mesh_sizes(mesh) else "model"
+        matrices.update(moe_param_specs(expert_axis, ring=config.context_parallel))
+    cp = config.context_parallel
+    return {
+        "embed": ("fsdp", None) if cp else ("fsdp", "model"),
+        "pos": (None, None) if cp else (None, "model"),
+        "layers": {**matrices, "ln1": (None, None), "ln2": (None, None)},
+        "ln_f": (None,),
+    }
+
+
+def token_spec(config: BurninConfig):
+    """The token batch's spec: rows over ``("data", "fsdp")``."""
+    return (("data", "fsdp"), None)
+
+
+def state_shardings(config: BurninConfig, mesh=None):
+    """The training state's layout, ``(params, opt)`` of specs: the
+    momentum (or AdamW's ``m`` and ``v``) laid out as the params, AdamW's
+    step counter replicated (``()``).  With `spmd.local_slices` it gives
+    the dims and slices of every leaf a rank holds (`weights.shard_state`
+    cuts the reference's state by it, `_init_state` the port's)."""
+    one = param_specs(config, mesh)
+    if config.optimizer == "adamw":
+        return one, {"m": one, "v": one, "t": ()}
+    return one, one
 
 
 def bf16_scalar(x: float) -> float:
@@ -272,17 +412,66 @@ def _logits(params, x):
     return (x @ dequantize_bf16(params["embed"]).to(torch.bfloat16).T).float()
 
 
-def forward(params, tokens, config: BurninConfig, *, return_aux: bool = False):
-    """Logits (B, S, vocab) f32 for ``tokens`` (B, S) with S == seq, the
-    reference's training forward on one device; with ``return_aux``,
-    ``(logits, aux)``, ``aux`` the blocks' summed load-balance term (a
-    0-dim f32 tensor, zero without experts).  Where grad is enabled,
-    each block runs under `torch.utils.checkpoint` (the reference's
-    ``jax.checkpoint``): the backward recomputes a block's activations
-    instead of keeping them."""
+def _check_parallelism(c: BurninConfig, mesh) -> None:
+    """The reference's refusals in ``forward`` (burnin.py:547-600), with
+    its messages, and the cp x ep path this package does not run."""
+    if c.ring_attention and c.ulysses_attention:
+        raise ValueError(
+            "ring_attention and ulysses_attention are two flavors of the "
+            "same context parallelism; pick one"
+        )
+    if c.rope and c.context_parallel:
+        raise ValueError(
+            "rope is not supported with context parallelism: each "
+            "sequence shard would need its global position offset wired "
+            "through the ring/a2a paths"
+        )
+    if c.ring_attention and c.flash_attention:
+        raise ValueError(
+            "ring_attention and flash_attention are mutually exclusive "
+            "(the ring shards the sequence over the model axis; flash "
+            "tiles the full sequence per tp shard).  ulysses_attention "
+            "DOES compose with flash (the kernel runs on the head-sharded "
+            "full-sequence view)"
+        )
+    if c.context_parallel and c.moe_experts > 0:
+        if mesh is None or "expert" not in mesh_sizes(mesh):
+            raise ValueError(
+                "context parallelism + moe_experts needs a mesh with a "
+                "dedicated expert axis (tpu_dra.parallel.moe.moe_mesh): cp "
+                "shards the sequence over the model axis, so experts cannot "
+                "ride it"
+            )
+        raise ValueError(
+            "context parallelism + moe_experts (group-local routing, "
+            "moe_mlp_local) is not ported to tpu_dra_torch yet"
+        )
+    if mesh is None and c.context_parallel:
+        # A silent dense fallback would report the long-context
+        # configuration as trained without running the ring.
+        raise ValueError("context-parallel attention requires a device mesh")
+
+
+def forward(params, tokens, config: BurninConfig, mesh=None, *, return_aux: bool = False):
+    """Logits f32 for ``tokens`` of full sequences (S == seq), the
+    reference's training forward; with ``return_aux``, ``(logits, aux)``,
+    ``aux`` the blocks' summed load-balance term (a 0-dim f32 tensor,
+    zero without experts).  Where grad is enabled, each block runs under
+    `torch.utils.checkpoint` (the reference's ``jax.checkpoint``): the
+    backward recomputes a block's activations instead of keeping them.
+
+    On one device (``mesh=None``) ``tokens`` is (B, S) and the logits
+    (B, S, vocab).  On a `DeviceMesh` the arguments are this rank's:
+    params its shards (`param_specs`), ``tokens`` its batch rows
+    (`prepare_tokens`), and the logits its block of the global ones,
+    (B / (data x fsdp), S / model, vocab), the sequence block being the
+    rank's place on ``model``."""
     c = config
     if tokens.shape[1] != c.seq:
         raise ValueError(f"forward takes full sequences of {c.seq} tokens, got {tokens.shape[1]}")
+    _check_parallelism(c, mesh)
+    if mesh is not None:
+        return _forward_sharded(params, tokens, c, spmd.Place(mesh), return_aux)
     x = params["embed"][tokens]
     if not c.rope:
         x = x + params["pos"][None, :, :]
@@ -305,6 +494,103 @@ def forward(params, tokens, config: BurninConfig, *, return_aux: bool = False):
     return (logits, aux) if return_aux else logits
 
 
+def _seq_block(place: "spmd.Place", seq: int) -> "tuple[int, int]":
+    """(first position, length) of the rank's block of the sequence on
+    ``model`` (sp and cp)."""
+    n = seq // place.size("model")
+    return place.index("model") * n, n
+
+
+def _block_sharded(layer, x, *, config: BurninConfig, place: "spmd.Place", specs,
+                   rope_tab=None):
+    """One pre-norm block on the rank's shards: ``x`` (B_local,
+    S / model, d) f32, its block of the residual stream, ``layer`` its
+    shards of one layer's leaves, ``specs`` their layouts.  Each matrix
+    is all-gathered over ``fsdp`` as bf16 at its use.  Returns ``(x,
+    aux)`` as `_block` does, ``x`` the same block."""
+    c = config
+    bf16 = torch.bfloat16
+
+    def weight(name):
+        return spmd.gather_leaf(layer[name], specs[name], place, dtype=bf16)
+
+    h = _rms_norm(x, layer["ln1"]).to(bf16)
+    if c.context_parallel:
+        # cp: the sequence stays sharded; all heads here, K/V rotate.
+        qkv = _matmul_bf16(h, weight("wqkv"), 1)
+        att = ring_attention_sharded(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], place.mesh,
+                                     "model", causal=True)
+        x = x + _matmul_bf16(att, weight("wo"), 2)
+    else:
+        # sp -> tp: the whole sequence, this rank's heads (the
+        # column-parallel product's own output, so q, k and v keep the
+        # contiguous head and feature dims the flash kernel needs).
+        h = spmd.gather(h, place, "model", 1)
+        qkv = _matmul_bf16(h, weight("wqkv"), 1)  # (B, S, 3, H / model, K)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if c.rope:
+            q = rope_apply(q, rope_tab)
+            k = rope_apply(k, rope_tab)
+        if c.flash_attention:
+            block = math.gcd(128, c.seq)
+            if block < 8:
+                raise ValueError(f"flash_attention needs seq % 8 == 0, got seq={c.seq}")
+            from tpu_dra_torch.parallel.flash import flash_attention_sharded
+
+            att = flash_attention_sharded(q, k, v, place.mesh, "model", block_q=block,
+                                          block_k=block)
+        else:
+            S = h.shape[1]
+            mask = torch.ones((S, S), dtype=torch.bool, device=x.device).tril()
+            att = _attend_dense(q, k, v, mask[None, None], c.d_head)
+        # Row-parallel out: each rank's heads give a partial sum, summed
+        # and split back over the sequence (tp -> sp).
+        x = x + spmd.scatter(_matmul_bf16(att, weight("wo"), 2), place, "model", 1)
+
+    h = _rms_norm(x, layer["ln2"]).to(bf16)
+    if c.moe_experts > 0:
+        out, aux = moe_mlp_sharded(layer, spmd.gather(h, place, "model", 1), c, place, specs)
+        return x + out, aux
+    if not c.context_parallel:
+        h = spmd.gather(h, place, "model", 1)
+    h = _matmul_bf16(h, weight("w1"), 1)
+    h = torch.where(h > 0, h, bf16_scalar(0.01) * h)
+    h = _matmul_bf16(h, weight("w2"), 1)
+    if not c.context_parallel:  # cp's MLP is position-wise: no partial sums
+        h = spmd.scatter(h, place, "model", 1)
+    return x + h, None
+
+
+def _forward_sharded(params, tokens, c: BurninConfig, place: "spmd.Place", return_aux: bool):
+    specs = param_specs(c, place.sizes)
+    lo, n = _seq_block(place, c.seq)
+    # The embedding is (vocab / fsdp, d / model) a rank: the lookup and
+    # the tied logits product take the whole table, and its gradient is
+    # reduce-scattered back to the shard.
+    embed = spmd.gather_leaf(params["embed"], specs["embed"], place, axes=("fsdp", "model"))
+    x = embed[tokens[:, lo:lo + n]]
+    if not c.rope:
+        pos = spmd.gather_leaf(params["pos"], specs["pos"], place, axes=("model",))
+        x = x + pos[None, lo:lo + n]
+    rope_tab = (
+        rope_tables(torch.arange(c.seq, device=tokens.device), c.d_head) if c.rope else None
+    )
+    layer_specs = {name: spec[1:] for name, spec in specs["layers"].items()}
+    remat = torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in _layers(params):
+        kw = dict(config=c, place=place, specs=layer_specs, rope_tab=rope_tab)
+        if remat:
+            x, aux_l = checkpoint(_block_sharded, layer, x, use_reentrant=False, **kw)
+        else:
+            x, aux_l = _block_sharded(layer, x, **kw)
+        if aux_l is not None:
+            aux = aux + aux_l
+    x = _rms_norm(x, params["ln_f"]).to(torch.bfloat16)
+    logits = (x @ embed.to(torch.bfloat16).T).float()
+    return (logits, aux) if return_aux else logits
+
+
 # ---------------------------------------------------------------------------
 # Training.
 # ---------------------------------------------------------------------------
@@ -324,10 +610,13 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _loss(params, tokens, config: BurninConfig):
+def _loss(params, tokens, config: BurninConfig, mesh=None):
     """Mean next-token cross-entropy, written out as the reference does:
     the max-shifted log-sum-exp minus the picked logit; with experts, plus
-    ``moe_aux_weight`` times the load-balance term."""
+    ``moe_aux_weight`` times the load-balance term.  On a mesh, this
+    rank's share of it (`_loss_sharded`)."""
+    if mesh is not None:
+        return _loss_sharded(params, tokens, config, spmd.Place(mesh))
     logits, aux = forward(params, tokens, config, return_aux=True)
     targets = tokens[:, 1:].long()
     logits = logits[:, :-1]
@@ -338,6 +627,41 @@ def _loss(params, tokens, config: BurninConfig):
     if config.moe_experts > 0:
         ce = ce + config.moe_aux_weight * aux
     return ce
+
+
+def _loss_sharded(params, tokens, config: BurninConfig, place: "spmd.Place"):
+    """This rank's share of the loss; the shares of every rank sum to it.
+
+    The rank scores its block of positions: a position's target is the
+    next token, which the rank holds (its rows are whole), and only the
+    sequence's last position, on the last ``model`` block, has none.  The
+    mean is over the global B x (S - 1) targets.  On a mesh with an
+    ``expert`` axis the token rows repeat over it, so each of those ranks
+    counts 1/expert of its sum; the load-balance term is the same number
+    on every rank (global means), so each counts 1/world of it."""
+    c = config
+    logits, aux = _forward_sharded(params, tokens, c, place, True)
+    lo, n = _seq_block(place, c.seq)
+    n = min(n, c.seq - 1 - lo)
+    logits = logits[:, :n]
+    targets = tokens[:, lo + 1:lo + 1 + n].long()
+    zmax = logits.amax(-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(logits - zmax), -1)) + zmax[..., 0]
+    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
+    repeat = place.world // (place.size("data") * place.size("fsdp") * place.size("model"))
+    ce = torch.sum(lse - picked) / (c.batch * (c.seq - 1) * repeat)
+    if c.moe_experts > 0:
+        ce = ce + c.moe_aux_weight * aux / place.world
+    return ce
+
+
+def _total(x, place: "spmd.Place"):
+    """The sum of ``x`` over every rank of the mesh (no gradient)."""
+    x = x.detach().clone()
+    for axis in place.sizes:
+        if place.size(axis) > 1:
+            dist.all_reduce(x, group=place.group(axis))
+    return x
 
 
 def schedule_lr(config: BurninConfig, t):
@@ -356,11 +680,21 @@ def schedule_lr(config: BurninConfig, t):
     return lr
 
 
-def _clip_grads(grads, clip_norm: float):
+def _clip_grads(grads, clip_norm: float, specs=None, place: "spmd.Place | None" = None):
     """Global-norm clipping, in place: scale the gradient tensors
     ``grads`` (a list) so that their joint L2 norm is at most
-    ``clip_norm``; returns the list."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    ``clip_norm``; returns the list.  On a mesh (``specs`` the leaves'
+    layouts, ``place`` the rank's) the norm is the global gradient's: a
+    shard repeated over k ranks counts 1/k on each, summed over them all."""
+    if place is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    else:
+        sq = sum(
+            torch.sum(torch.square(g.float()))
+            * (math.prod(place.size(a) for a in spmd.spec_axes(spec)) / place.world)
+            for g, spec in zip(grads, specs)
+        )
+        gnorm = torch.sqrt(_total(sq, place))
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     torch._foreach_mul_(grads, scale)
     return grads
@@ -408,11 +742,32 @@ def _adamw_update(c: BurninConfig, params, opt, grads) -> None:
         p.sub_(update.mul_(lr))
 
 
-def make_train_step(config: BurninConfig, device: "str | torch.device" = "cuda", *,
+def _apply_update(c: BurninConfig, leaves, opt, grads) -> None:
+    """The optimizer step on ``leaves`` in place: SGD with momentum 0.9 at
+    the constant ``learning_rate``, or `_adamw_update`."""
+    if c.optimizer == "adamw":
+        _adamw_update(c, leaves, opt, grads)
+    else:
+        mom = _leaves(opt)
+        torch._foreach_mul_(mom, 0.9)
+        torch._foreach_add_(mom, grads)
+        torch._foreach_add_(leaves, mom, alpha=-c.learning_rate)
+
+
+def _placement(mesh, device):
+    """``(mesh, device)`` from the reference's ``mesh`` argument, which
+    may also be a device (the single-device form's positional device)."""
+    if mesh is None or isinstance(mesh, DeviceMesh):
+        return mesh, device
+    return None, mesh
+
+
+def make_train_step(config: BurninConfig, mesh=None, *, device: "str | torch.device" = "cuda",
                     with_state: bool = True):
-    """Build ``(train_step, init_state)`` for one device (``init_state``
-    None with ``with_state=False``: a caller about to restore a state
-    never holds a fresh one beside it).
+    """Build ``(train_step, init_state)`` (``init_state`` None with
+    ``with_state=False``: a caller about to restore a state never holds a
+    fresh one beside it), on one ``device`` or over a `DeviceMesh`
+    (``mesh`` may also be the device, the single-device form).
 
     ``train_step(state, tokens) -> (state, loss)`` takes one optimizer
     step and returns the same ``state`` updated in place (the reference
@@ -422,9 +777,19 @@ def make_train_step(config: BurninConfig, device: "str | torch.device" = "cuda",
     ``learning_rate``), or ``{"m", "v", "t"}`` for ``"adamw"`` (with
     `schedule_lr` and ``weight_decay``).  ``grad_clip_norm`` clips the
     global norm for both.  ``init_state`` comes from `init_params`' seeded
-    generator; `weights.state_from_numpy` gives the reference's own."""
+    generator; `weights.state_from_numpy` gives the reference's own.
+
+    On a mesh every rank calls the step with its shards of the state
+    (`state_shardings`; `weights.shard_state` cuts the reference's) and
+    its batch rows (`prepare_tokens`); the loss is the global one on every
+    rank.  ``config`` must fit the mesh (`BurninConfig.scaled_to`)."""
     c = config
     _validate_optim(c)
+    mesh, device = _placement(mesh, device)
+    if mesh is not None:
+        place = spmd.Place(mesh)
+        return _sharded_step(c, place), (_init_state(c, place.device, place) if with_state
+                                         else None)
     dev = resolve_device(device)
 
     def step(state, tokens):
@@ -441,20 +806,61 @@ def make_train_step(config: BurninConfig, device: "str | torch.device" = "cuda",
         with torch.no_grad():
             if c.grad_clip_norm > 0:
                 _clip_grads(grads, c.grad_clip_norm)
-            if c.optimizer == "adamw":
-                _adamw_update(c, leaves, opt, grads)
-            else:
-                mom = _leaves(opt)
-                torch._foreach_mul_(mom, 0.9)
-                torch._foreach_add_(mom, grads)
-                torch._foreach_add_(leaves, mom, alpha=-c.learning_rate)
+            _apply_update(c, leaves, opt, grads)
         return state, loss.detach()
 
     return step, (_init_state(c, dev) if with_state else None)
 
 
-def _init_state(config: BurninConfig, device: "str | torch.device" = "cuda"):
+def _sharded_step(c: BurninConfig, place: "spmd.Place"):
+    specs = _leaves(param_specs(c, place.sizes))
+
+    def step(state, tokens):
+        params, opt = state
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss = _loss_sharded(params, tokens, c, place)
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                             materialize_grads=True))
+        with torch.no_grad():
+            # A leaf replicated over an axis (every leaf over data; the
+            # norms, the router and the position table over model too,
+            # whose inputs are sequence-sharded) holds a partial gradient
+            # on each rank of it.
+            spmd.reduce_grads(grads, specs, place)
+            if c.grad_clip_norm > 0:
+                _clip_grads(grads, c.grad_clip_norm, specs, place)
+            _apply_update(c, leaves, opt, grads)
+        return state, _total(loss, place)
+
+    return step
+
+
+def _shard(t, spec, place: "spmd.Place"):
+    """The rank's block of a whole leaf ``t`` (the leaf itself when it is
+    not split), in storage of its own."""
+    sl = spmd.local_slices(spec, t.shape, place.sizes, place.coords)
+    if all(s == slice(0, n) for s, n in zip(sl, t.shape)):
+        return t
+    return t[sl].clone(memory_format=torch.contiguous_format)
+
+
+def _init_state(config: BurninConfig, device: "str | torch.device" = "cuda",
+                place: "spmd.Place | None" = None):
+    """`init_params`' seeded state; with ``place``, the rank's shards of
+    it (the same whole tree drawn on every rank, then cut)."""
     params = init_params(config, device=device)
+    if place is not None:
+        specs = param_specs(config, place.sizes)
+        params = {
+            "embed": _shard(params["embed"], specs["embed"], place),
+            "pos": _shard(params["pos"], specs["pos"], place),
+            "layers": {n: _shard(t, specs["layers"][n], place)
+                       for n, t in params["layers"].items()},
+            "ln_f": params["ln_f"],
+        }
     if config.optimizer == "adamw":
         return params, {
             "m": _tree_map(torch.zeros_like, params),
@@ -495,10 +901,17 @@ def sample_tokens(config: BurninConfig, generator: "torch.Generator | None" = No
     return torch.where(noise, rand, walk).to(torch.int32)
 
 
-def prepare_tokens(config: BurninConfig, device: "str | torch.device" = "cuda"):
-    """The synthetic batch on ``device`` (the single-device form of the
-    reference's, which also places it on a mesh)."""
-    return sample_tokens(config, device=device)
+def prepare_tokens(config: BurninConfig, mesh=None, *, device: "str | torch.device" = "cuda"):
+    """The synthetic batch on ``device``; on a `DeviceMesh` (``mesh`` may
+    also be the device), this rank's rows of it (`token_spec`: the same
+    batch drawn on every rank, rows split over ``data`` x ``fsdp``)."""
+    mesh, device = _placement(mesh, device)
+    if mesh is None:
+        return sample_tokens(config, device=device)
+    place = spmd.Place(mesh)
+    tokens = sample_tokens(config, device=place.device)
+    return tokens[spmd.local_slices(token_spec(config), tokens.shape, place.sizes,
+                                    place.coords)].contiguous()
 
 
 @dataclass
@@ -514,16 +927,21 @@ class TrainReport:
     error: str = ""
 
 
-def train(config: "BurninConfig | None" = None, steps: int = 10,
+def train(config: "BurninConfig | None" = None, mesh=None, steps: int = 10,
           device: "str | torch.device" = "cuda") -> TrainReport:
-    """Run the burn-in on one device: ``max(2, steps)`` steps on the
-    synthetic batch from `init_params`' seeded weights, the loss fetched
-    once a step.  Reports, never raises: a failure comes back as
+    """Run the burn-in on one ``device``, or sharded over a `DeviceMesh`
+    (every rank of it calls this; ``config`` is scaled to the mesh
+    first): ``max(2, steps)`` steps on the synthetic batch from
+    `init_params`' seeded weights, the loss fetched once a step.
+    Reports, never raises: a failure comes back as
     ``TrainReport(ok=False, error=...)``."""
     c = config or BurninConfig()
     try:
-        step_fn, state = make_train_step(c, device)
-        tokens = prepare_tokens(c, device)
+        mesh, device = _placement(mesh, device)
+        if mesh is not None:
+            c = c.scaled_to(mesh)
+        step_fn, state = make_train_step(c, mesh, device=device)
+        tokens = prepare_tokens(c, mesh, device=device)
         losses, times = [], []
         for _ in range(max(2, steps)):
             t0 = time.perf_counter()

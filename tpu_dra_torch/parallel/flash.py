@@ -11,7 +11,9 @@ dtype and divides the f32 scores by sqrt(d)); the reference accepts
 that, and so does the port.
 
 ``interpret`` has no counterpart: the tensors' device picks the path.
-``flash_attention_sharded`` waits for the multi-device slice.
+`flash_attention_sharded` is the reference's ``shard_map`` of the kernel
+over the head axis: one process a rank holds its own heads already, so
+it is the kernel (and the same backward) on them, with no collective.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 
 from tpu_dra_torch.parallel.kernels.flash_attn import flash_attention_forward
 from tpu_dra_torch.parallel.ring import reference_attention
+from tpu_dra_torch.parallel.spmd import mesh_sizes
 
-__all__ = ["flash_attention"]
+__all__ = ["flash_attention", "flash_attention_sharded"]
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -46,3 +49,19 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128, block_k: i
     the same shape; differentiable.  ``block_q``/``block_k`` must divide
     s (a ValueError says so)."""
     return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
+
+
+def flash_attention_sharded(q, k, v, mesh, axis_name: str = "model", *, causal: bool = True,
+                            block_q: int = 128, block_k: int = 128):
+    """Flash attention with the heads sharded over ``axis_name`` of
+    ``mesh`` (the tensor-parallel layout), on this rank's tensors: q, k, v
+    (b_local, s, h / n, d), the batch over the other axes.  Attention is
+    independent a head, so each rank runs `flash_attention` (the kernel
+    forward, the reference attention's backward) on its own heads and no
+    collective runs, as none runs in the reference's ``shard_map``.  The
+    kernel takes q, k and v as they come from the column-parallel
+    product (contiguous head and feature dims), never a slice of a
+    global qkv tensor."""
+    if axis_name not in mesh_sizes(mesh):
+        raise ValueError(f"mesh has no axis {axis_name!r}: {tuple(mesh_sizes(mesh))}")
+    return flash_attention(q, k, v, causal, block_q, block_k)

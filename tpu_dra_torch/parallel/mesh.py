@@ -94,6 +94,15 @@ def slice_mesh(
     check_topology(topology, len(ranks))
     names = (axis_names[2], axis_names[1], axis_names[0])
     shape = (topology.z, topology.y, topology.x)
+    return _mesh_over(device_type, ranks, shape, names)
+
+
+def _mesh_over(device_type: str, ranks: "list[int]", shape, names) -> DeviceMesh:
+    """A mesh of ``shape`` over ``ranks``: every rank of the group, or one
+    host's block of them (``host * n ... host * n + n - 1``), which is
+    taken as the host's slice of one mesh over every host, so that all
+    ranks build the same process groups."""
+    world = dist.get_world_size()
     if len(ranks) == world:
         return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape), mesh_dim_names=names)
     n = len(ranks)
@@ -115,7 +124,8 @@ def logical_mesh(
     expert: "int | None" = None,
 ) -> DeviceMesh:
     """Logical training mesh with (data, fsdp, model[, expert]) axes over
-    ``ranks`` (default: every rank of the process group).
+    ``ranks`` (default: every rank of the process group; in a gang, this
+    host's block of them, as `slice_mesh` takes it).
 
     One axis may be -1 (inferred).  Rank order is kept, so the innermost
     axis joins the nearest ranks; ``expert`` (when given) appends a
@@ -144,5 +154,4 @@ def logical_mesh(
         sizes[unknown[0]] = n // known
     elif known != n:
         raise ValueError(f"mesh {sizes} needs {known} devices, have {n}")
-    return DeviceMesh(_device_type(), torch.tensor(ranks).reshape(*sizes.values()),
-                      mesh_dim_names=tuple(sizes))
+    return _mesh_over(_device_type(), ranks, tuple(sizes.values()), tuple(sizes))

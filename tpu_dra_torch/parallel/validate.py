@@ -22,8 +22,12 @@ n_local`` ranks (through a free localhost port when solo, through the
 gang's coordinator in a gang), builds the meshes and runs the checks,
 and the launcher joins the workers' reports into one.  A worker that
 dies or outstays ``timeout_s`` is an error in the report, never a hang.
-Training runs on one device; a slice of more asks for sharded training,
-which the port does not have yet, and the report says so.
+Training runs in the same workers: on one device alone, and over more
+as the reference's stage does, sharded over `burnin.burnin_mesh` of the
+host's ranks, then with ring attention and with experts when the mesh's
+``model`` axis is larger than 1.  ``--family NAME --train N`` on more
+than one local device trains in such workers too, over
+`models.family_mesh` of every rank.
 
     python -m tpu_dra_torch.parallel.validate [topology] [--train N]
                                               [--family NAME [--serve [--int8]]]
@@ -59,8 +63,8 @@ _GRACE_S = 10.0
 @dataclass
 class SliceReport:
     """Everything the burn-in learned about the claimed slice (the
-    reference's schema: ``train_ring`` and ``train_moe`` stay None until
-    the port trains on more than one device)."""
+    reference's schema: ``train_ring`` and ``train_moe`` are set when a
+    mesh of more than one rank has a ``model`` axis larger than 1)."""
 
     ok: bool = False
     n_devices: int = 0
@@ -178,11 +182,14 @@ def validate_slice(
     sizes = {"z": topology.z, "y": topology.y, "x": topology.x}
     axes = [a for a, n in sizes.items() if n > 1]
     world = n_local * (gang.size if gang is not None else 1)
-    train_here = train_steps > 0 and world == 1 and not report.errors
+    # Training is skipped once acceptance has failed, as the reference's
+    # is: training over a broken link could hang, and the verdict is in.
+    train_here = train_steps > 0 and not report.errors
     if axes or gang is not None or train_here:
         plan = {
             "device": dev.type, "n_local": n_local, "topology": topology.dims(), "axes": axes,
             "mbytes": bandwidth_mbytes, "train_steps": train_steps if train_here else 0,
+            "train_on_mesh": world > 1,
             "gang": asdict(gang) if gang is not None else None,
             "init_method": f"tcp://127.0.0.1:{_free_port()}", "timeout_s": timeout_s,
         }
@@ -200,26 +207,23 @@ def validate_slice(
         report.errors += [f"worker {r}: {res['error']}" for r, res in sorted(results.items())
                           if res["error"]]
         _join_checks(report, results)
-        if train_here and 0 in results and results[0]["train"] is not None:
-            report.train = results[0]["train"]
-            if not report.train["ok"]:
-                report.errors.append(
-                    f"burnin train: {report.train['error'] or 'loss did not decrease'}")
-
-    if train_steps > 0 and not report.errors and world > 1:
-        # The reference trains sharded over the slice here (and its ring
-        # and MoE stages after); the port trains on one device only.
-        tr = TrainReport(
-            ok=False, steps=0, loss_first=0.0, loss_last=0.0, step_seconds_p50=0.0,
-            tokens_per_second=0.0,
-            error=(f"NotImplementedError: sharded training over {world} devices is not "
-                   "ported to tpu_dra_torch yet (it trains on one device)"),
-        )
-        report.train = asdict(tr)
-        report.errors.append(f"burnin train: {tr.error}")
+        if train_here and 0 in results:
+            # Every rank reports the same global losses: rank 0's report.
+            for key, label in _TRAIN_STAGES:
+                tr = results[0].get(key)
+                if tr is None:
+                    continue
+                setattr(report, key, tr)
+                if not tr["ok"]:
+                    report.errors.append(f"{label}: {tr['error'] or 'loss did not decrease'}")
 
     report.ok = not report.errors
     return report
+
+
+# The training stages, each with the reference's label in its error.
+_TRAIN_STAGES = (("train", "burnin train"), ("train_ring", "burnin train[ring]"),
+                 ("train_moe", "burnin train[moe]"))
 
 
 def _join_checks(report: SliceReport, results: "dict[int, dict]") -> None:
@@ -291,7 +295,11 @@ def _run_workers(plan: dict, timeout_s: float):
                 joined.add(rank)
                 continue
             results[rank] = res
-            if res["error"]:
+            # A rank whose training failed may leave the others waiting in
+            # a collective of the step.
+            failed_train = any(res.get(key) is not None and not res[key]["ok"]
+                               for key, _ in _TRAIN_STAGES)
+            if res["error"] or failed_train:
                 deadline = min(deadline, time.monotonic() + _GRACE_S)
     finally:
         for r, p in enumerate(procs):
@@ -315,9 +323,9 @@ def _run_workers(plan: dict, timeout_s: float):
 
 def _worker(local_rank: int, plan: dict, out) -> None:
     """One rank: bind the device, join the group (and say so on ``out``),
-    run the checks (and the one-device training) and put its result on
-    ``out``."""
-    result = {"checks": [], "train": None, "error": ""}
+    run the checks and the training stage, or a family's training, and
+    put its result on ``out``."""
+    result = {"checks": [], "train": None, "train_ring": None, "train_moe": None, "error": ""}
     try:
         _run_rank(local_rank, plan, result, lambda: out.put((local_rank, "joined", None)))
     except Exception as e:  # reported to the launcher, which reports it
@@ -355,10 +363,19 @@ def _run_rank(local_rank: int, plan: dict, result: dict, on_joined) -> None:
     if gang is not None:
         initialize_gang(gang, local_rank=local_rank, n_local=n_local, device=dev,
                         timeout_s=plan["timeout_s"])
-    elif axes:
+    elif n_local > 1:
         join_group(plan["init_method"], world_size=n_local, rank=local_rank, device=dev,
                    timeout_s=plan["timeout_s"])
     on_joined()
+    if plan.get("family"):
+        from tpu_dra_torch.models import train_family
+
+        # Over every rank of the group, as the reference trains a family
+        # over every device it sees.
+        ranks = range(dist.get_world_size()) if dist.is_initialized() else [0]
+        result["train"] = asdict(train_family(plan["family"], list(ranks),
+                                              steps=plan["train_steps"], device=dev))
+        return
     checks = result["checks"]
     host = gang.rank if gang is not None else 0
     if axes or gang is not None:
@@ -376,8 +393,65 @@ def _run_rank(local_rank: int, plan: dict, result: dict, on_joined) -> None:
             checks.append(("hierarchical", _compact(hierarchical_psum_check(mesh, inner, outer))))
         if gang is not None:
             checks.append(("gang", _compact(gang_allreduce(mbytes=plan["mbytes"], host=host))))
-    if plan["train_steps"] > 0:
+    if plan["train_steps"] > 0 and plan.get("train_on_mesh"):
+        _train_on_mesh(plan["train_steps"], result, mesh,
+                       range(host * n_local, (host + 1) * n_local))
+    elif plan["train_steps"] > 0:
         result["train"] = asdict(burnin.train(steps=plan["train_steps"], device=dev))
+
+
+def _train_on_mesh(steps: int, result: dict, mesh, ranks) -> None:
+    """The reference's training stage over the host's ``ranks`` (its
+    local devices): the burn-in step sharded over `burnin.burnin_mesh`,
+    then, when it learned and the mesh's ``model`` axis is larger than 1,
+    the same with ring attention and with 4 experts.  Skipped when a
+    check failed on any of the host's ranks (``mesh``, the slice mesh,
+    carries that vote)."""
+    from tpu_dra_torch.parallel import burnin
+    from tpu_dra_torch.parallel.collectives import rank_device
+    from tpu_dra_torch.parallel.mesh import mesh_shape
+
+    vote = torch.tensor([int(all(e["ok"] for _, e in result["checks"]))],
+                        device=rank_device(mesh))
+    for axis, n in mesh_shape(mesh).items():
+        if n > 1:
+            dist.all_reduce(vote, op=dist.ReduceOp.MIN, group=mesh.get_group(axis))
+    if not int(vote.item()):
+        return
+    bmesh = burnin.burnin_mesh(ranks)
+    tr = burnin.train(mesh=bmesh, steps=steps)
+    result["train"] = asdict(tr)
+    if tr.ok and mesh_shape(bmesh)["model"] > 1:
+        # Long-context acceptance (the K/V ring on the links), then
+        # expert parallelism (the dispatch on the same links).
+        result["train_ring"] = asdict(
+            burnin.train(burnin.BurninConfig(ring_attention=True), bmesh, steps))
+        result["train_moe"] = asdict(
+            burnin.train(burnin.BurninConfig(moe_experts=4), bmesh, steps))
+
+
+def _train_family_on_workers(family: str, steps: int, device, n_local: int):
+    """``--family NAME --train N`` on ``n_local`` local devices: one worker
+    a device (in the gang's group, when there is one), the family trained
+    over `models.family_mesh` of every rank.  Returns ``(rank 0's
+    TrainReport, the GangEnv or None)``; a worker that fails or outstays
+    the time is a failed report."""
+    gang = GangEnv.from_env(os.environ)
+    if gang is not None and gang.size <= 1:
+        gang = None
+    plan = {
+        "device": resolve_device(device).type, "n_local": n_local, "topology": (n_local, 1, 1),
+        "axes": [], "mbytes": 0, "train_steps": steps, "family": family,
+        "gang": asdict(gang) if gang is not None else None,
+        "init_method": f"tcp://127.0.0.1:{_free_port()}", "timeout_s": GROUP_TIMEOUT_S,
+    }
+    results, failures, _ = _run_workers(plan, GROUP_TIMEOUT_S)
+    if 0 in results and results[0]["train"] is not None:
+        return TrainReport(**results[0]["train"]), gang
+    errors = [f"worker {r}: {e}" for r, e in sorted(failures.items())]
+    errors += [f"worker {r}: {res['error']}" for r, res in sorted(results.items()) if res["error"]]
+    return TrainReport(ok=False, steps=0, loss_first=0.0, loss_last=0.0, step_seconds_p50=0.0,
+                       tokens_per_second=0.0, error="; ".join(errors)), gang
 
 
 def main(argv: "list[str] | None" = None, *, device: "str | torch.device" = "cuda",
@@ -387,9 +461,11 @@ def main(argv: "list[str] | None" = None, *, device: "str | torch.device" = "cud
     flags, argument errors and JSON on every outcome.
 
     ``--family`` runs one workload family (`tpu_dra_torch.models`)
-    instead of the acceptance suite; ``--serve`` probes its serving half
-    (``--int8``: the full int8 stack).  ``device`` and ``local_devices``
-    are `validate_slice`'s (the command line runs on the cards)."""
+    instead of the acceptance suite: on one device in this process, or
+    on more in one worker a device, sharded over the family's mesh;
+    ``--serve`` probes its serving half on one device (``--int8``: the
+    full int8 stack).  ``device`` and ``local_devices`` are
+    `validate_slice`'s (the command line runs on the cards)."""
     argv = sys.argv[1:] if argv is None else argv
     train_steps = 0
     train_given = False
@@ -454,15 +530,27 @@ def main(argv: "list[str] | None" = None, *, device: "str | torch.device" = "cud
                 "probe always trains; to probe the serving half instead, "
                 "use --family NAME --serve)"
             )
-        try:
-            gang = initialize_gang(device=device)
-        except Exception as e:
-            return arg_error(f"gang initialization failed: {type(e).__name__}: {e}")
-        if serve:
-            r = serve_family(family, int8=int8, device=device)
+        steps = train_steps if train_given else 5
+        n_local = 1
+        if not serve:
+            try:
+                n_local = _local_device_count(resolve_device(device), local_devices)
+            except RuntimeError:  # no card: the one-device probe reports it
+                pass
+        if n_local > 1:
+            try:
+                r, gang = _train_family_on_workers(family, steps, device, n_local)
+            except (ValueError, TypeError) as e:
+                return arg_error(f"malformed gang env: {e}")
         else:
-            kwargs = {"steps": train_steps} if train_given else {}
-            r = train_family(family, device=device, **kwargs)
+            try:
+                gang = initialize_gang(device=device)
+            except Exception as e:
+                return arg_error(f"gang initialization failed: {type(e).__name__}: {e}")
+            if serve:
+                r = serve_family(family, int8=int8, device=device)
+            else:
+                r = train_family(family, steps=steps, device=device)
         extra = asdict(r)
         if gang is not None:
             extra["gang"] = {"rank": gang.rank, "size": gang.size}

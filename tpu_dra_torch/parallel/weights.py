@@ -5,18 +5,24 @@ gives other numbers from the same seed.  So a parity test takes the
 reference's own tree as numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``) and hands it to
 `params_from_numpy` (the serving form) or its training state to
-`state_from_numpy` — this module never sees JAX itself.
+`state_from_numpy` — this module never sees JAX itself.  For the sharded
+step, `shard_state` cuts that state into one rank's shards and
+`gather_state` puts the ranks' shards back together.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from tpu_dra_torch.parallel import spmd
+from tpu_dra_torch.parallel.burnin import state_shardings
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.quant import is_quantized_leaf
 
 __all__ = [
-    "EXPERT_MATRICES", "MATRICES", "cast_matrices", "params_from_numpy", "state_from_numpy",
+    "EXPERT_MATRICES", "MATRICES", "cast_matrices", "gather_state", "params_from_numpy",
+    "shard_state", "state_from_numpy",
 ]
 
 # The per-layer matrices every use casts to bf16, the dense MLP's and the
@@ -88,3 +94,86 @@ def state_from_numpy(state, config, device: "str | torch.device" = "cuda"):
     else:
         opt = _f32_tree(opt, dev)
     return _f32_tree(params, dev), opt
+
+
+def _coords(mesh, rank: int) -> "dict[str, int]":
+    """The place of ``rank`` on each axis: in a `DeviceMesh`, where its
+    rank tensor holds ``rank``; in ``{axis: size}``, ``rank`` read as a
+    row-major index over the axes."""
+    sizes = spmd.mesh_sizes(mesh)
+    if hasattr(mesh, "mesh"):
+        where = (mesh.mesh == rank).nonzero()
+        if len(where) != 1:
+            raise ValueError(f"rank {rank} is not in the mesh {mesh.mesh.tolist()}")
+        return dict(zip(sizes, (int(i) for i in where[0])))
+    coords = {}
+    for axis in reversed(list(sizes)):
+        rank, coords[axis] = divmod(rank, sizes[axis])
+    return dict(reversed(list(coords.items())))
+
+
+def _zip_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {key: _zip_map(fn, tree[key], specs[key]) for key in tree}
+    return fn(tree, specs)
+
+
+def shard_state(state, config, mesh, rank: int, device: "str | torch.device" = "cuda"):
+    """One rank's shards of the reference's ``(params, opt)`` as numpy
+    arrays (`state_from_numpy`'s input): each leaf cut by
+    `burnin.state_shardings` at the rank's place on ``mesh`` (a
+    `DeviceMesh`, ``rank`` a rank it holds; or ``{axis: size}``, ``rank``
+    the row-major index), as f32 tensors on ``device`` (AdamW's ``t``
+    int32) — the state `burnin.make_train_step`'s step takes on that
+    rank.  ``config`` must fit the mesh (`BurninConfig.scaled_to`)."""
+    dev = resolve_device(device)
+    sizes, coords = spmd.mesh_sizes(mesh), _coords(mesh, rank)
+
+    def cut(a, spec):
+        a = np.asarray(a)
+        if spec == ():
+            return torch.tensor(a, dtype=torch.int32, device=dev)
+        block = a[spmd.local_slices(spec, a.shape, sizes, coords)]
+        return torch.tensor(np.ascontiguousarray(block), dtype=torch.float32, device=dev)
+
+    specs = state_shardings(config, sizes)
+    return tuple(_zip_map(cut, part, spec) for part, spec in zip(state, specs))
+
+
+def gather_state(shards, config, mesh):
+    """The whole state as numpy arrays from every rank's shards
+    (``shards[r]`` the state of the rank at row-major index ``r`` of
+    ``mesh``, ``{axis: size}`` or a `DeviceMesh` whose rank tensor is
+    read row-major): the inverse of `shard_state`.  A leaf replicated
+    over an axis is taken from any one of its ranks."""
+    sizes = spmd.mesh_sizes(mesh)
+    ranks = mesh.mesh.reshape(-1).tolist() if hasattr(mesh, "mesh") else range(len(shards))
+
+    def whole(specs, *leaves):
+        if specs == ():
+            return np.asarray(_numpy(leaves[0]))
+        shape = [n * _split_ways(sizes, entry) for n, entry in zip(_numpy(leaves[0]).shape, specs)]
+        out = np.zeros(shape, dtype=np.float32)
+        for rank, leaf in zip(ranks, leaves):
+            out[spmd.local_slices(specs, shape, sizes, _coords(mesh, rank))] = _numpy(leaf)
+        return out
+
+    def walk(specs, *trees):
+        if isinstance(trees[0], dict):
+            return {key: walk(specs[key], *(t[key] for t in trees)) for key in trees[0]}
+        return whole(specs, *trees)
+
+    specs = state_shardings(config, sizes)
+    return tuple(walk(spec, *(shard[i] for shard in shards)) for i, spec in enumerate(specs))
+
+
+def _split_ways(sizes: "dict[str, int]", entry) -> int:
+    """How many ways a spec entry splits its dim."""
+    n = 1
+    for axis in () if entry is None else (entry if isinstance(entry, tuple) else (entry,)):
+        n *= sizes.get(axis, 1)
+    return n
+
+
+def _numpy(leaf):
+    return leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
