@@ -113,7 +113,22 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    ``FIRST_LOSS_RTOL`` of phase 10's, step p50 beside phase 10's) and the
    long-context (ring) and MoE families over that mesh for 2 steps (loss
    descending, no K1 launch);
-12. burn-in, the payload a claiming pod runs: the card's entry in
+12. long-context training: K2 on Ulysses' head-swapped views at the
+   trainer's shape (P 2, 4 and 8: each rank's (b, s, 3, h / P, d) view laid
+   out by the all-to-all's own packing, one launch a rank on its strided
+   q/k/v views within one bf16 ulp of the plain version, the ranks' heads
+   concatenated bitwise one launch over every head; one rank at P 2 timed
+   beside its bound, its plain version and `scaled_dot_product_attention`);
+   then a spawned worker on a one-rank NCCL group trains the
+   long_context_a2a family (Ulysses + flash) at the trainer's width
+   through ``burnin.train(cfg, burnin_mesh([0]), steps=6)`` (K2's launches
+   == steps x 2 x layers, the losses bitwise or within
+   ``FIRST_LOSS_RTOL`` of phase 10's, step p50 and peak memory beside
+   phase 10's) and the long_context_moe family (ring + group-local
+   experts) at the serving width cut to 2 layers on ``moe_mesh([0],
+   model=1, expert=1)`` for 3 steps (loss descending, 0 K1 and 0 K2
+   launches); the activation bound needs 4 ranks and is said not to run;
+13. burn-in, the payload a claiming pod runs: the card's entry in
    `mfu.CHIP_PERF` and the saxpy probe of its memory rate (at most 1.05
    of the peak); `data.synthetic_stream` against the same draws on the
    card, `prefetch_to_device` (a side stream, an event wait a batch, every
@@ -129,10 +144,16 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    refused with exit 1; ``--family flash --train 2`` and ``--family dense
    --serve`` ok) and a one-rank NCCL group in a spawned worker running the
    collective checks;
-13. the kernels' JSON line (K1's rows also list each path's launches, K2's
-    the trainer's, the sharded trainer's, the stream-fed and the
-    checkpointed paths'; K2's sharded form a row of its own), the card's
-    line, and the result line.
+14. the kernels' JSON line (K1's rows also list each path's launches, K2's
+    the trainer's, the sharded trainer's, the Ulysses trainer's, the
+    stream-fed and the checkpointed paths', and its times on the swapped
+    view; K2's sharded form a row of its own), the card's line, and the
+    result line.
+
+``python3 chip_smoke.py --cards N`` (N a multiple of 4, N cards) runs the
+flash and long_context_a2a families sharded over N ranks against one
+card, the activation bound (`moe.routing_temp_comparison`, ``local * 1.4
+< global``) and ``validate`` over the N cards.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
 """
@@ -2242,7 +2263,8 @@ def phase_families(models):
     lines = []
     for name, int8, want_ok in (("dense", False, True), ("flash", False, True),
                                 ("rope", False, True), ("moe", False, True), ("moe", True, True),
-                                ("long_context", False, False), ("pipelined", False, False)):
+                                ("long_context", False, False), ("long_context_a2a", False, False),
+                                ("long_context_moe", False, False), ("pipelined", False, False)):
         report = models.serve_family(name, int8=int8, device="cuda")
         if report.ok != want_ok or (not want_ok and not report.error.startswith("ValueError")):
             raise AssertionError(f"serve_family({name!r}, int8={int8}): {report}")
@@ -2281,8 +2303,8 @@ def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
     """Single-device training of the flash family at full width: the
     width `chip_sized_config` gives an 80 GB card, params from init_params'
     seeded generator, momentum at the config's lr.  Returns the kernel's
-    launches in the ``train`` run, its step p50 in seconds and its
-    losses."""
+    launches in the ``train`` run, its step p50 in seconds, its losses
+    and its peak memory in GB."""
     cfg = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True)
     log(f"train config: vocab {cfg.vocab}, d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff "
         f"{cfg.d_ff}, {cfg.n_layers} layers, seq {cfg.seq}, batch {cfg.batch}, "
@@ -2361,7 +2383,7 @@ def phase_train(torch, burnin, mfu, fa, flash, steps: int = 6):
         f"(tol {FIRST_LOSS_RTOL})")
 
     profile_train(torch, burnin, cfg)
-    return launches, report.step_seconds_p50, losses
+    return launches, report.step_seconds_p50, losses, peak_gb
 
 
 def profile_train(torch, burnin, cfg, steps: int = 2):
@@ -2456,19 +2478,46 @@ def sharded_kernel(torch, fa, flash):
     }
 
 
+def _rank_run(torch, burnin, moe, fa, pa, run: dict, world: int, on_card: bool) -> dict:
+    """One training run of a rank: ``run["config"]`` over its mesh of
+    every rank (`burnin.burnin_mesh`, or `moe.moe_mesh` with
+    ``run["moe_mesh"]``'s axes) for ``run["steps"]`` steps through
+    `burnin.train`, K1's and K2's launches counted from 0."""
+    ranks = range(world)
+    mesh = (moe.moe_mesh(ranks, **run["moe_mesh"]) if run.get("moe_mesh")
+            else burnin.burnin_mesh(ranks))
+    cfg = burnin.BurninConfig(**run["config"])
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_forward.launches = 0
+    pa.paged_attention.launches = 0
+    with recorded_losses(burnin) as losses:
+        report = burnin.train(cfg, mesh, steps=run["steps"])
+    return {"report": dataclasses.asdict(report), "losses": [float(l) for l in losses],
+            "launches": fa.flash_attention_forward.launches,
+            "k1_launches": pa.paged_attention.launches,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0}
+
+
 def _sharded_rank(rank: int, init_method: str, plan: dict, out) -> None:
     """Rank ``rank`` of a group of ``plan["world"]`` (NCCL, a card a rank;
     gloo on the CPU) training ``plan["config"]`` sharded over
     `burnin.burnin_mesh` of every rank for ``plan["steps"]`` steps through
-    `burnin.train`, K2's launches counted; then, with
-    ``plan["families"]``, the long-context and MoE families over the same
-    mesh at their preset width for 2 steps, K1's launches counted.  Puts
-    ``(rank, result)`` on ``out``.  Runs in a spawned process."""
+    `burnin.train`, K2's launches counted; then each run of
+    ``plan["also"]`` (`_rank_run`); with ``plan["families"]``, the
+    long-context and MoE families over the same mesh at their preset
+    width for 2 steps, K1's launches counted; with ``plan["bound"]``,
+    `moe.routing_temp_comparison` on `moe.moe_mesh` (model 2, expert 2)
+    of every rank.  Puts ``(rank, result)`` on ``out``.  Runs in a
+    spawned process."""
     try:
         import torch
 
         from tpu_dra_torch import models
-        from tpu_dra_torch.parallel import burnin, gang
+        from tpu_dra_torch.parallel import burnin, gang, moe
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
         from tpu_dra_torch.parallel.kernels import paged_attn as pa
 
@@ -2478,29 +2527,26 @@ def _sharded_rank(rank: int, init_method: str, plan: dict, out) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         on_card = plan["device"] == "cuda"
-        gang.join_group(init_method, world_size=plan["world"], rank=rank,
+        world = plan["world"]
+        gang.join_group(init_method, world_size=world, rank=rank,
                         device=f"cuda:{rank}" if on_card else "cpu", timeout_s=300)
-        mesh = burnin.burnin_mesh(range(plan["world"]))
-        cfg = burnin.BurninConfig(**plan["config"])
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention_forward.launches = 0
-        with recorded_losses(burnin) as losses:
-            report = burnin.train(cfg, mesh, steps=plan["steps"])
-        result = {"report": dataclasses.asdict(report), "losses": [float(l) for l in losses],
-                  "launches": fa.flash_attention_forward.launches,
-                  "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
-                  "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0}
-        del losses
+        result = _rank_run(torch, burnin, moe, fa, pa,
+                           {"config": plan["config"], "steps": plan["steps"]}, world, on_card)
+        result["also"] = [_rank_run(torch, burnin, moe, fa, pa, run, world, on_card)
+                          for run in plan["also"]]
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
         if plan["families"]:
+            mesh = burnin.burnin_mesh(range(world))
             pa.paged_attention.launches = 0
             result["families"] = {
                 name: dataclasses.asdict(models.train_family(name, mesh, steps=2))
                 for name in ("long_context", "moe")}
-            result["k1_launches"] = pa.paged_attention.launches
+            result["families_k1_launches"] = pa.paged_attention.launches
+        if plan["bound"]:
+            result["bound"] = moe.routing_temp_comparison(
+                moe.moe_mesh(range(world), model=2, expert=2))
         out.put((rank, result))
     except Exception:
         out.put((rank, traceback.format_exc()))
@@ -2512,17 +2558,21 @@ def _sharded_rank(rank: int, init_method: str, plan: dict, out) -> None:
 
 
 def run_sharded_ranks(validate, config, steps: int, world: int = 1, device: str = "cuda",
-                      families: bool = True, timeout: float = 600):
-    """`_sharded_rank` in ``world`` spawned workers; their results by rank,
-    or raise with the first failure's traceback.  Every worker is stopped
-    before this returns."""
+                      families: bool = True, also=(), bound: bool = False,
+                      timeout: float = 600):
+    """`_sharded_rank` in ``world`` spawned workers (``also``: further
+    runs, each ``{"config": BurninConfig, "steps": N}`` and optionally
+    ``"moe_mesh": {axis: size}``); their results by rank, or raise with
+    the first failure's traceback.  Every worker is stopped before this
+    returns."""
     import multiprocessing
     import queue
 
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
     plan = {"config": dataclasses.asdict(config), "steps": steps, "device": device,
-            "world": world, "families": families}
+            "world": world, "families": families, "bound": bound,
+            "also": [dict(run, config=dataclasses.asdict(run["config"])) for run in also]}
     init = f"tcp://127.0.0.1:{validate._free_port()}"
     workers = [ctx.Process(target=_sharded_rank, args=(r, init, plan, out), daemon=True)
                for r in range(world)]
@@ -2554,30 +2604,45 @@ def run_sharded_ranks(validate, config, steps: int, world: int = 1, device: str 
     return [got[r] for r in range(world)]
 
 
+def held_to(losses, single_losses, label: str) -> str:
+    """How ``losses`` stand to the one-device run's on the same weights:
+    bitwise, or within `FIRST_LOSS_RTOL` (the gap returned); else raise."""
+    if losses == single_losses:
+        return "bitwise equal to"
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, single_losses))
+    if len(losses) != len(single_losses) or gap > FIRST_LOSS_RTOL:
+        raise AssertionError(f"{label} losses {losses} vs one device {single_losses}: "
+                             f"rel gap {gap} > {FIRST_LOSS_RTOL}")
+    return f"within a relative gap of {gap:.3e} (tol {FIRST_LOSS_RTOL}) of"
+
+
+def check_run(got, cfg, steps: int, label: str, k2: "int | None" = None) -> None:
+    """A run's report ok over ``steps`` steps, the loss descending, K1
+    never launched and K2 launched ``k2`` times (default: steps x 2 x
+    layers, a forward and the checkpoint's recompute a layer)."""
+    report = got["report"]
+    if not report["ok"] or report["error"] or report["steps"] != steps:
+        raise AssertionError(f"{label}: {report}")
+    want = steps * 2 * cfg.n_layers if k2 is None else k2
+    if got["launches"] != want or got["k1_launches"]:
+        raise AssertionError(f"{label}: {got['launches']} K2 launches (want {want}), "
+                             f"{got['k1_launches']} K1 launches (want 0)")
+
+
 def check_sharded_run(got, cfg, steps: int, single_losses, single_p50: float) -> str:
     """The sharded run against the contract: ok, K2 launched steps x 2 x
     layers, the losses those of the single-device run on the same weights
     (bitwise, or within `FIRST_LOSS_RTOL`, the gap printed), the two
     families ok with K1 never launched.  Returns the run's line."""
     report, losses = got["report"], got["losses"]
-    if not report["ok"] or report["error"] or report["steps"] != steps:
-        raise AssertionError(f"sharded train: {report}")
-    if got["launches"] != steps * 2 * cfg.n_layers:
-        raise AssertionError(f"sharded train: {got['launches']} K2 launches != {steps} steps x 2 "
-                             f"x {cfg.n_layers} layers")
-    if losses == single_losses:
-        how = "bitwise equal to"
-    else:
-        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, single_losses))
-        if len(losses) != len(single_losses) or gap > FIRST_LOSS_RTOL:
-            raise AssertionError(f"sharded losses {losses} vs one device {single_losses}: "
-                                 f"rel gap {gap} > {FIRST_LOSS_RTOL}")
-        how = f"within a relative gap of {gap:.3e} (tol {FIRST_LOSS_RTOL}) of"
+    check_run(got, cfg, steps, "sharded train")
+    how = held_to(losses, single_losses, "sharded")
     for name, fam in got["families"].items():
         if not fam["ok"] or fam["steps"] != 2 or not fam["loss_last"] < fam["loss_first"]:
             raise AssertionError(f"train_family({name!r}, mesh): {fam}")
-    if got["k1_launches"]:
-        raise AssertionError(f"K1 launched {got['k1_launches']} times in the families' training")
+    if got["families_k1_launches"]:
+        raise AssertionError(f"K1 launched {got['families_k1_launches']} times in the families' "
+                             "training")
     fams = "; ".join(f"{name} loss {f['loss_first']:.6f} -> {f['loss_last']:.6f}, step p50 "
                      f"{f['step_seconds_p50'] * 1e3:.3f} ms" for name, f in got["families"].items())
     return (f"{report['steps']} steps, losses {losses} {how} the one-device run's; step p50 "
@@ -2603,6 +2668,129 @@ def phase_sharded(torch, fa, flash, mfu, validate, single_losses, single_p50: fl
     return row, got["launches"]
 
 
+# The Ulysses axis sizes at which K2 runs on each rank's head-swapped view.
+ULYSSES_RANKS = (2, 4, 8)
+
+
+def ulysses_kernel(torch, fa, flash, spmd, tp_rank_ms: float):
+    """K2 on Ulysses' head-swapped view at the trainer's shape: for each
+    axis size P, every rank's (b, s, 3, h / P, d) view laid out by the
+    all-to-all's own packing (`spmd.all_to_all_local`, what
+    `ulysses.ulysses_attention` receives), q, k and v strided views of it;
+    one launch a rank through `flash.flash_attention` (Ulysses' call),
+    each within `FLASH_BF16_TOL` of the plain version on the same views,
+    and the ranks' outputs concatenated over heads bitwise one launch
+    over every head.  One rank's launch at P = 2 timed beside its bound,
+    its plain version, `scaled_dot_product_attention` on the same heads
+    and ``tp_rank_ms``, the contiguous tp-2 rank's time in this run.
+    Returns the numbers for K2's row."""
+    b, s, h, d = 16, 1024, 32, 128
+    g = torch.Generator(device="cuda").manual_seed(41)
+    qkv = torch.randn((b, s, 3, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    err = 0.0
+    with torch.no_grad():
+        whole = fa.flash_attention_forward(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True, 128, 128)
+        for p in ULYSSES_RANKS:
+            views = spmd.all_to_all_local(list(qkv.chunk(p, dim=1)), 3, 1)
+            fa.flash_attention_forward.launches = 0
+            parts = [flash.flash_attention(v[:, :, 0], v[:, :, 1], v[:, :, 2], True, 128, 128)
+                     for v in views]
+            if fa.flash_attention_forward.launches != p:
+                raise AssertionError(f"P {p}: {fa.flash_attention_forward.launches} K2 launches")
+            for v, part in zip(views, parts):
+                if v.shape != (b, s, 3, h // p, d) or not v.is_contiguous():
+                    raise AssertionError(f"P {p}: swapped view {tuple(v.shape)} {v.stride()}")
+                want = fa.flash_attention_plain(v[:, :, 0], v[:, :, 1], v[:, :, 2], True, 128,
+                                                128).float()
+                err = max(err, (part.float() - want).abs().max().item())
+                if not torch.allclose(part.float(), want, **FLASH_BF16_TOL):
+                    raise AssertionError(f"P {p}: K2 on the swapped view vs plain max abs err "
+                                         f"{err}")
+            if not torch.equal(torch.cat(parts, dim=2), whole):
+                raise AssertionError(f"P {p}: the ranks' heads differ from one launch over every "
+                                     "head")
+            del views, parts, want
+        log(f"K2 on Ulysses' head-swapped views at ({b}, {s}, {h}, {d}) bf16 causal, P "
+            f"{ULYSSES_RANKS}: one launch a rank each on strided q/k/v views of a contiguous "
+            f"(b, s, 3, h / P, d) swap, the ranks' heads concatenated bitwise equal to one launch "
+            f"over every head; max abs err {err} vs plain (tol {FLASH_BF16_TOL})")
+        del whole
+        view = spmd.all_to_all_local(list(qkv.chunk(2, dim=1)), 3, 1)[0]
+        del qkv
+        q, k, v = view[:, :, 0], view[:, :, 1], view[:, :, 2]
+        scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > the 50 MB L2
+        flush = scrub.zero_
+        ms = time_ms(lambda: fa.flash_attention_forward(q, k, v, True, 128, 128), flush)
+        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, True, 128, 128), flush,
+                           n=20, warmup=2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush)
+    bound_ms, bound_by = flash_bound_ms(q, True)
+    log(f"K2 one rank's swapped view at P 2 ({b}, {s}, {h // 2}, {d}), q/k/v strided views: kernel "
+        f"{ms:.6f} ms (the contiguous tp-2 rank in this run: {tp_rank_ms:.6f} ms), plain "
+        f"{plain_ms:.6f} ms, scaled_dot_product_attention {library_ms:.6f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def param_count(cfg) -> int:
+    """Parameters of ``cfg``'s tree, experts included (`mfu.param_count`
+    counts the dense MLP)."""
+    d = cfg.d_model
+    mlp = cfg.moe_experts * (d + 2 * d * cfg.d_ff) if cfg.moe_experts else 2 * d * cfg.d_ff
+    return cfg.vocab * d + cfg.seq * d + d + cfg.n_layers * (4 * d * d + 2 * d + mlp)
+
+
+def phase_long_context(torch, fa, flash, mfu, models, spmd, validate, single_losses,
+                       single_p50: float, single_peak_gb: float, tp_rank_ms: float,
+                       steps: int = 6, moe_steps: int = 3):
+    """Long-context training on a mesh: K2 on Ulysses' swapped views
+    (`ulysses_kernel`); then, in a spawned worker over a one-rank NCCL
+    mesh, the long_context_a2a family at the trainer's width (Ulysses +
+    flash) through `burnin.train(cfg, burnin_mesh([0]))` (K2 launched
+    steps x 2 x layers, the losses held to phase 10's one-device run,
+    where the all-to-all is the identity) and the long_context_moe family
+    (ring + group-local experts) at the serving width cut to 2 layers on
+    `moe_mesh([0], model=1, expert=1)` (ok, the loss descending, 0 K1 and
+    0 K2 launches: the reference refuses ring + flash).  Returns the
+    numbers for K2's row and the Ulysses run's launches."""
+    view = ulysses_kernel(torch, fa, flash, spmd, tp_rank_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    a2a = dataclasses.replace(mfu.chip_sized_config(80), ulysses_attention=True,
+                              flash_attention=True)
+    lc_moe = models.family_config("long_context_moe", **dict(SERVE_WIDTH, n_layers=2))
+    got = run_sharded_ranks(validate, a2a, steps, families=False,
+                            also=[{"config": lc_moe, "steps": moe_steps,
+                                   "moe_mesh": {"model": 1, "expert": 1}}])[0]
+    check_run(got, a2a, steps, "long_context_a2a")
+    how = held_to(got["losses"], single_losses, "long_context_a2a")
+    rep = got["report"]
+    log(f"long_context_a2a (Ulysses + flash, {param_count(a2a)} params, batch {a2a.batch}, "
+        f"seq {a2a.seq}, {a2a.n_layers} layers) on burnin_mesh([0]) over NCCL: {rep['steps']} "
+        f"steps, losses {got['losses']} {how} phase 10's one-device run; step p50 "
+        f"{rep['step_seconds_p50'] * 1e3:.3f} ms against phase 10's {single_p50 * 1e3:.3f} ms; "
+        f"peak memory allocated {got['peak_gb']:.3f} GB against phase 10's "
+        f"{single_peak_gb:.3f} GB; {got['launches']} K2 launches; 0 K1 launches")
+    moe_run = got["also"][0]
+    check_run(moe_run, lc_moe, moe_steps, "long_context_moe", k2=0)
+    rep = moe_run["report"]
+    if not rep["loss_last"] < rep["loss_first"]:
+        raise AssertionError(f"long_context_moe: loss not descending: {rep}")
+    log(f"long_context_moe (ring + group-local routing, {lc_moe.moe_experts} experts, capacity "
+        f"{lc_moe.moe_capacity}, {param_count(lc_moe)} params, {lc_moe.n_layers} layers) on "
+        f"moe_mesh([0], model=1, expert=1) {moe_run['mesh']}: {rep['steps']} steps, loss "
+        f"{rep['loss_first']:.6f} -> {rep['loss_last']:.6f}, step p50 "
+        f"{rep['step_seconds_p50'] * 1e3:.3f} ms, peak memory allocated "
+        f"{moe_run['peak_gb']:.3f} GB; 0 K1 and 0 K2 launches")
+    log("activation bound (local * 1.4 < global, moe.routing_temp_comparison): not run on one "
+        "card; it needs moe_mesh(model=2, expert=2), 4 ranks, as the reference's stanza needs "
+        "n_devices % 4 == 0; `--cards 4` runs it")
+    return view, got["launches"]
+
+
 # The sharded step on several cards against the one-card step on the same
 # weights: bf16 partial sums rounded a rank and summed across ranks move
 # the losses by rounding (the CPU tests' 8-rank tolerances).
@@ -2610,17 +2798,41 @@ CARDS_FIRST_LOSS_RTOL = 1e-3
 CARDS_LOSS_RTOL = 1e-2
 
 
+def check_cards_run(runs, cfg, steps: int, single_losses, label: str):
+    """One run on every rank of the cards' mesh (``runs``, by rank)
+    against the one-card run: ok with one global loss on every rank, K2
+    launched steps x 2 x layers on each, the losses within
+    ``CARDS_*_RTOL`` of one card's.  Returns the relative gaps."""
+    first = runs[0]
+    for rank, res in enumerate(runs):
+        check_run(res, cfg, steps, f"{label}, rank {rank}")
+        if res["losses"] != first["losses"]:
+            raise AssertionError(f"{label}, rank {rank}: losses {res['losses']} vs rank 0's "
+                                 f"{first['losses']}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(first["losses"], single_losses)]
+    if gaps[0] > CARDS_FIRST_LOSS_RTOL or max(gaps) > CARDS_LOSS_RTOL:
+        raise AssertionError(f"{label}: {first['losses']} vs one card {single_losses}: gaps {gaps}")
+    return gaps
+
+
 def phase_cards(torch, burnin, mfu, validate, cards: int, steps: int = 6) -> dict:
-    """``--cards N``: the flash family at the trainer's width on card 0
-    alone, then sharded over `burnin_mesh` of N ranks, a card each, in N
-    spawned workers (one global loss on every rank, K2's launches ==
+    """``--cards N`` (N a multiple of 4): the flash family at the
+    trainer's width on card 0 alone, then in N spawned workers, a card
+    each, the same sharded over `burnin_mesh` of N ranks and the
+    long_context_a2a family (Ulysses + flash, the same width) over the
+    same mesh (each: one global loss on every rank, K2's launches ==
     steps x 2 x layers on every rank, the losses against the one-card
-    losses within ``CARDS_*_RTOL``); then ``python -m
-    tpu_dra_torch.parallel.validate --train 2`` over the N cards (the
+    losses within ``CARDS_*_RTOL``: on one card Ulysses is the flash
+    family's arithmetic), and the activation bound on every rank
+    (`moe.routing_temp_comparison` on `moe_mesh` with model 2 and expert
+    2: ``local * 1.4 < global``, the reference's stanza); then ``python
+    -m tpu_dra_torch.parallel.validate --train 2`` over the N cards (the
     checks, the bus bandwidth, the sharded, ring and MoE stages) and
-    ``--family moe --train 2`` (over `moe_mesh` when N divides by 4).
-    Returns the numbers for the JSON line."""
+    ``--family NAME --train 2`` for moe, long_context_a2a and
+    long_context_moe (each over its `models.family_mesh`).  Returns the
+    numbers for the JSON line."""
     cfg = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True)
+    a2a = dataclasses.replace(cfg, ulysses_attention=True)
     with recorded_losses(burnin) as losses:
         single = burnin.train(cfg, steps=steps, device="cuda")
     single_losses = [float(l) for l in losses]
@@ -2631,29 +2843,39 @@ def phase_cards(torch, burnin, mfu, validate, cards: int, steps: int = 6) -> dic
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    results = run_sharded_ranks(validate, cfg, steps, world=cards, families=False, timeout=900)
+    results = run_sharded_ranks(validate, cfg, steps, world=cards, families=False,
+                                also=[{"config": a2a, "steps": steps}], bound=True, timeout=900)
     wall = time.perf_counter() - t
-    first = results[0]
-    for rank, res in enumerate(results):
-        rep = res["report"]
-        if not rep["ok"] or rep["steps"] != steps or res["losses"] != first["losses"]:
-            raise AssertionError(f"rank {rank}: {rep}, losses {res['losses']}")
-        if res["launches"] != steps * 2 * cfg.n_layers:
-            raise AssertionError(f"rank {rank}: {res['launches']} K2 launches")
-    gaps = [abs(a - b) / abs(b) for a, b in zip(first["losses"], single_losses)]
-    if gaps[0] > CARDS_FIRST_LOSS_RTOL or max(gaps) > CARDS_LOSS_RTOL:
-        raise AssertionError(f"{cards} cards {first['losses']} vs one {single_losses}: gaps {gaps}")
-    p50s = [res["report"]["step_seconds_p50"] for res in results]
-    log(f"sharded over {cards} cards, mesh {first['mesh']}: losses {first['losses']} (relative "
-        f"gaps to one card {gaps}); step p50 by rank {[f'{p * 1e3:.3f}' for p in p50s]} ms "
-        f"against one card's {single.step_seconds_p50 * 1e3:.3f} ms; {first['launches']} K2 "
-        f"launches a rank; peak memory by rank {[round(r['peak_gb'], 3) for r in results]} GB; "
-        f"workers' wall {wall:.3f} s")
+    numbers = {"cards": cards, "one_card_losses": single_losses,
+               "one_card_step_p50_s": single.step_seconds_p50}
+    for label, c, runs in (("flash", cfg, results), ("long_context_a2a", a2a,
+                                                     [r["also"][0] for r in results])):
+        gaps = check_cards_run(runs, c, steps, single_losses, label)
+        p50s = [res["report"]["step_seconds_p50"] for res in runs]
+        log(f"{label} sharded over {cards} cards, mesh {runs[0]['mesh']}: losses "
+            f"{runs[0]['losses']} (relative gaps to one card {gaps}); step p50 by rank "
+            f"{[f'{p * 1e3:.3f}' for p in p50s]} ms against one card's "
+            f"{single.step_seconds_p50 * 1e3:.3f} ms; {runs[0]['launches']} K2 launches a rank; "
+            f"peak memory by rank {[round(r['peak_gb'], 3) for r in runs]} GB")
+        numbers[label] = {"mesh": runs[0]["mesh"], "losses": runs[0]["losses"],
+                          "step_p50_s": p50s, "peak_gb": [r["peak_gb"] for r in runs]}
+    bounds = [res["bound"] for res in results]
+    for rank, (glob, local) in enumerate(bounds):
+        if not local * 1.4 < glob:
+            raise AssertionError(f"activation bound, rank {rank}: local {local} B * 1.4 >= "
+                                 f"global {glob} B")
+    log(f"activation bound on moe_mesh(model=2, expert=2) of {cards} ranks: (global, local) peak "
+        f"bytes above the start of one MoE forward by rank {bounds}; ratios "
+        f"{[round(g / l, 3) for g, l in bounds]} (local * 1.4 < global on every rank); workers' "
+        f"wall {wall:.3f} s")
+    numbers["activation_bound_bytes"] = bounds
 
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, TPU_VISIBLE_DEVICES=",".join(str(i) for i in range(cards)))
     reports = {}
-    for args in (["--train", "2"], ["--family", "moe", "--train", "2"]):
+    for args in (["--train", "2"], ["--family", "moe", "--train", "2"],
+                 ["--family", "long_context_a2a", "--train", "2"],
+                 ["--family", "long_context_moe", "--train", "2"]):
         p = subprocess.run([sys.executable, "-m", "tpu_dra_torch.parallel.validate", *args],
                            cwd=root, env=env, capture_output=True, text=True, timeout=600)
         lines = p.stdout.strip().splitlines()
@@ -2667,10 +2889,8 @@ def phase_cards(torch, burnin, mfu, validate, cards: int, steps: int = 6) -> dic
     for key in ("train", "train_ring", "train_moe"):
         if not (suite.get(key) or {}).get("ok"):
             raise AssertionError(f"validate --train 2: {key} {suite.get(key)}")
-    return {"cards": cards, "mesh": first["mesh"], "losses": first["losses"],
-            "one_card_losses": single_losses, "step_p50_s": p50s,
-            "one_card_step_p50_s": single.step_seconds_p50,
-            "peak_gb": [r["peak_gb"] for r in results], "busbw_gbps": suite["busbw_gbps"]}
+    numbers["busbw_gbps"] = suite["busbw_gbps"]
+    return numbers
 
 
 # The payload's runs: (arguments, TPU_VISIBLE_DEVICES, exit code wanted).
@@ -2999,8 +3219,9 @@ def main() -> int:
         return 1
     args = sys.argv[1:]
     if args:
-        if len(args) != 2 or args[0] != "--cards" or not args[1].isdigit() or int(args[1]) < 2:
-            print("usage: chip_smoke.py [--cards N], N >= 2", file=sys.stderr)
+        if (len(args) != 2 or args[0] != "--cards" or not args[1].isdigit()
+                or int(args[1]) < 4 or int(args[1]) % 4):
+            print("usage: chip_smoke.py [--cards N], N a multiple of 4", file=sys.stderr)
             return 2
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return main_cards(torch, int(args[1]))
@@ -3010,7 +3231,7 @@ def main() -> int:
         from tpu_dra_torch import models
         from tpu_dra_torch.parallel import (
             burnin, ckpt, data, decode, disagg, flash, mfu, moe, paged, prng, quant, ring,
-            serve, speculative, swap, validate, weights,
+            serve, speculative, spmd, swap, validate, weights,
         )
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
@@ -3084,8 +3305,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        flash_row["launches"], train_p50, train_losses = phase_train(torch, burnin, mfu, fa,
-                                                                     flash)
+        flash_row["launches"], train_p50, train_losses, train_peak = phase_train(
+            torch, burnin, mfu, fa, flash)
         log(f"phase train: {time.perf_counter() - t:.3f} s")
         gc.collect()
         torch.cuda.empty_cache()
@@ -3096,9 +3317,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        flash_row["ulysses_view_p2"], ulysses_launches = phase_long_context(
+            torch, fa, flash, mfu, models, spmd, validate, train_losses, train_p50, train_peak,
+            sharded_row["ms"])
+        log(f"phase long-context training: {time.perf_counter() - t:.3f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
         flash_row["launches_by_path"] = {
             "train": flash_row["launches"],
             "sharded train": sharded_launches,
+            "ulysses train": ulysses_launches,
             **phase_burnin(torch, burnin, mfu, fa, data, ckpt, prng, validate, train_p50),
         }
         log(f"phase burn-in: {time.perf_counter() - t:.3f} s; flash launches "

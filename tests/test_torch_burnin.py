@@ -86,7 +86,7 @@ class TestConfig:
             with pytest.raises(ValueError, match=f"not supported with {field}"):
                 td.make_generate(cfg, prompt_len=8, steps=2, prefill_chunk=4)
             return
-        if field == "ring_attention":
+        if field in ("ring_attention", "ulysses_attention"):
             # Ported on a mesh: the config takes it, and a forward on one
             # device is refused with the reference's message.
             cfg = tb.BurninConfig(**{**_SHAPE, field: value})

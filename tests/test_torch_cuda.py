@@ -13,8 +13,8 @@ reference attention's; the kernel over tables whose rows share blocks
 the card bitwise against the CPU's; the sampled engine's three
 schedulings; one greedy speculative run against `make_generate`; the
 flash kernel at the families' small head widths; the kernel rank by
-rank over tp head slices (bitwise one launch over every head) and the
-ring's one-rank fold and backward against the reference attention; the
+rank over tp head slices and over Ulysses' head-swapped views (bitwise
+one launch over every head) and the ring's one-rank fold and backward against the reference attention; the
 prefetch onto the
 card (order, contents, a side stream and an event wait a batch) and a
 checkpoint's bitwise round trip and resume on the card.
@@ -46,6 +46,7 @@ from tpu_dra_torch.parallel import (
     quant,
     ring,
     speculative,
+    spmd,
 )
 from tpu_dra_torch.parallel.kernels import (
     flash_attention_forward,
@@ -530,6 +531,26 @@ class TestShardedFlash:
             parts.append(flash.flash_attention_sharded(local[:, :, 0], local[:, :, 1],
                                                        local[:, :, 2], {"model": model}))
         assert flash_attention_forward.launches - before == model
+        assert torch.equal(torch.cat(parts, dim=2), whole)
+
+    @pytest.mark.parametrize("model", [2, 4, 8])
+    def test_ulysses_view_matches_plain_and_one_launch(self, model, cuda):
+        """K2 on each rank's head-swapped view as Ulysses lays it out (the
+        sequence blocks' qkv swapped by the all-to-all's own packing, q, k
+        and v strided views of one (b, s, 3, h / model, d) tensor): within
+        one bf16 ulp of the plain version, and the ranks' outputs
+        concatenated over heads bitwise one launch over every head."""
+        g = torch.Generator(device=cuda).manual_seed(12)
+        qkv = torch.randn((2, 256, 3, 8, 128), generator=g, device=cuda).to(torch.bfloat16)
+        whole = flash_attention_forward(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        views = spmd.all_to_all_local(list(qkv.chunk(model, dim=1)), 3, 1)
+        before = flash_attention_forward.launches
+        parts = [flash_attention_forward(v[:, :, 0], v[:, :, 1], v[:, :, 2]) for v in views]
+        assert flash_attention_forward.launches - before == model
+        for v, part in zip(views, parts):
+            assert v.shape == (2, 256, 3, 8 // model, 128) and v.is_contiguous()
+            want = flash_attention_plain(v[:, :, 0], v[:, :, 1], v[:, :, 2])
+            torch.testing.assert_close(part.float(), want.float(), **PAGED_TOL)
         assert torch.equal(torch.cat(parts, dim=2), whole)
 
     def test_ring_on_one_rank_matches_reference_attention(self, cuda):

@@ -48,8 +48,8 @@ def _modules():
 def test_port_has_the_slice_modules():
     mods = set(_modules())
     for name in ("burnin", "ckpt", "collectives", "data", "decode", "disagg", "flash", "gang",
-                 "mesh", "mfu", "paged", "prefixcache", "quant", "ring", "serve", "swap",
-                 "validate", "weights", "kernels.flash_attn", "kernels.paged_attn"):
+                 "mesh", "mfu", "paged", "prefixcache", "quant", "ring", "serve", "spmd", "swap",
+                 "ulysses", "validate", "weights", "kernels.flash_attn", "kernels.paged_attn"):
         assert f"tpu_dra_torch.parallel.{name}" in mods
     for name in ("tpu_dra_torch.models", "tpu_dra_torch.fleet", "tpu_dra_torch.fleet.digest",
                  "tpu_dra_torch.api", "tpu_dra_torch.api.topology"):

@@ -133,8 +133,7 @@ def _rank_gang(rank):
 
 # train_family over the 8 ranks: (family, what its report must show).
 FAMILY_RUNS = {"dense": "ok", "flash": "ok", "rope": "ok", "moe": "ok", "long_context": "ok",
-               "long_context_a2a": "ulysses_attention", "long_context_moe": "long_context_moe",
-               "pipelined": "pipeline_stages"}
+               "long_context_a2a": "ok", "long_context_moe": "ok", "pipelined": "pipeline_stages"}
 
 
 def _rank_families(rank):
@@ -142,7 +141,7 @@ def _rank_families(rank):
     for name in FAMILY_RUNS:
         r = tmodels.train_family(name, list(range(WORLD)), steps=2, device="cpu")
         out[name] = (r.ok, r.steps, r.loss_first, r.loss_last, r.error)
-    for name in ("dense", "moe"):
+    for name in ("dense", "moe", "long_context_a2a", "long_context_moe"):
         out[f"mesh {name}"] = tmesh.mesh_shape(tmodels.family_mesh(name))
     return out
 
@@ -367,7 +366,7 @@ class TestFamilies:
         else:
             assert not ok and steps == 0 and FAMILY_RUNS[name] in error, reports[0]
 
-    @pytest.mark.parametrize("name", ["dense", "moe"])
+    @pytest.mark.parametrize("name", ["dense", "moe", "long_context_a2a", "long_context_moe"])
     def test_family_mesh_equals_the_references(self, ranks, devices, name):
         want = dict(jmodels.family_mesh(name, devices).shape)
         assert all(res["families"][f"mesh {name}"] == want for res in ranks)
@@ -496,11 +495,12 @@ class TestCli:
         out = json.loads(capsys.readouterr().out)
         assert out["family"] == argv[1] and out["ok"] is True
 
-    def test_family_trains_over_workers_on_eight_devices(self, capsys):
-        assert tval.main(["--family", "moe", "--train", "2"], device="cpu",
+    @pytest.mark.parametrize("family", ["moe", "long_context_a2a", "long_context_moe"])
+    def test_family_trains_over_workers_on_eight_devices(self, capsys, family):
+        assert tval.main(["--family", family, "--train", "2"], device="cpu",
                          local_devices=WORLD) == 0
         out = json.loads(capsys.readouterr().out)
-        assert out["family"] == "moe" and out["ok"] is True and out["steps"] == 2
+        assert out["family"] == family and out["ok"] is True and out["steps"] == 2
 
     def test_family_probe_without_a_card_fails(self, capsys):
         if torch.cuda.is_available():

@@ -404,9 +404,13 @@ class TestLayout:
         assert str(got.value) == str(want.value)
 
     def test_ulysses_and_pipeline_stay_refused_by_name(self):
-        for field, value in (("ulysses_attention", True), ("pipeline_stages", 2)):
-            with pytest.raises(ValueError, match=f"{field} not ported"):
-                tb.BurninConfig(**{field: value})
+        """The pipeline is refused by name; Ulysses is ported, and its
+        config is accepted as the reference's is."""
+        with pytest.raises(ValueError, match="pipeline_stages not ported"):
+            tb.BurninConfig(pipeline_stages=2)
+        cfg = tb.BurninConfig(ulysses_attention=True)
+        assert cfg.context_parallel
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jb.BurninConfig(ulysses_attention=True))
 
 
 class _TwoRanks:
@@ -444,6 +448,24 @@ class TestCollectivesHandNcclContiguousTensors:
                                    .permute(0, 2, 1))
         torch.testing.assert_close(g, torch.full_like(g, 2.0))
         assert torch.equal(x.detach(), base.permute(2, 0, 1))  # the input is not written
+
+    def test_all_to_all_of_a_permuted_view(self, monkeypatch):
+        """The all-to-all of a permuted view, and its backward, hand NCCL
+        contiguous send and receive buffers (the fake exchanges nothing:
+        two ranks of equal blocks, each sending itself its own chunks)."""
+        def all_to_all_single(out, inp, group=None):
+            assert inp.is_contiguous() and out.is_contiguous()
+            out.copy_(inp)
+
+        monkeypatch.setattr(dist, "all_to_all_single", all_to_all_single)
+        base = torch.randn(4, 6, 2, 3)
+        x = base.permute(1, 0, 3, 2).requires_grad_()  # (6, 4, 3, 2)
+        out = spmd.all_to_all(x, _TwoRanks(), "model", split_dim=1, concat_dim=0)
+        assert out.shape == (12, 2, 3, 2) and out.is_contiguous()
+        torch.testing.assert_close(out, torch.cat(x.detach().chunk(2, dim=1), dim=0))
+        g = torch.randn(2, 12, 3, 2).transpose(0, 1)  # a non-contiguous cotangent
+        (back,) = torch.autograd.grad(out, x, g)
+        torch.testing.assert_close(back, torch.cat(g.chunk(2, dim=0), dim=1))
 
     def test_shift_receives_into_contiguous_buffers(self, monkeypatch):
         handed = []

@@ -2,18 +2,23 @@
 
 Counterpart of `tpu_dra.models` for the families the port runs:
 
-- ``dense``        — the baseline transformer LM;
-- ``long_context`` — the same LM with ring attention (cp; a mesh only);
-- ``flash``        — the same LM with attention through the flash kernel;
-- ``rope``         — rotary position embeddings + the flash kernel;
-- ``moe``          — switch-routed mixture-of-experts MLPs.
+- ``dense``            — the baseline transformer LM;
+- ``long_context``     — the same LM with ring attention (cp; a mesh only);
+- ``long_context_a2a`` — Ulysses attention (cp by all-to-all) through the
+  flash kernel (a mesh only);
+- ``moe``              — switch-routed mixture-of-experts MLPs;
+- ``long_context_moe`` — ring attention with group-local expert routing
+  (cp x ep; a mesh with an ``expert`` axis only);
+- ``flash``            — the same LM with attention through the flash kernel;
+- ``rope``             — rotary position embeddings + the flash kernel.
 
 `train_family` runs a family's training step on one device or sharded
 over `family_mesh` of a set of ranks, and `serve_family` its serving
 acceptance (a health-checked KV-cache generation, bf16 or the full int8
-stack) on one device.  The other families (Ulysses, cp x ep, pipelined)
-are named here as in the reference, but the port does not run them:
-both entry points report the refusal (``ok=False`` with its reason),
+stack) on one device.  The pipelined family is named here as in the
+reference, but the port does not run it; the context-parallel families
+do not serve (decode has one query position, as the reference says).
+Both entry points report a refusal (``ok=False`` with its reason),
 honoring the reference's "reports, never raises" contract.
 """
 
@@ -80,15 +85,17 @@ def family_config(name: str, **overrides) -> BurninConfig:
 def family_mesh(name: str, ranks=None):
     """The mesh the family shards over, on ``ranks`` (default: every rank
     of the process group): (data, fsdp, model, expert) for moe when the
-    count divides by 4 (`moe.moe_mesh`, model 2 x expert 2: ep x tp),
-    else `burnin.burnin_mesh`.  The pipelined and cp x ep families'
-    meshes are not ported: asking for them raises, by name."""
-    if name in ("pipelined", "long_context_moe"):
+    count divides by 4, and always for long_context_moe (`moe.moe_mesh`,
+    model 2 x expert 2: the ring owns the model axis, so the experts need
+    their own; a count that does not factor raises, as the reference's
+    does), else `burnin.burnin_mesh`.  The pipelined family's mesh is not
+    ported: asking for it raises, by name."""
+    if name == "pipelined":
         raise ValueError(f"the {name} family's mesh is not ported to tpu_dra_torch yet")
     if ranks is None:
         ranks = range(dist.get_world_size()) if dist.is_initialized() else [0]
     ranks = list(ranks)
-    if name == "moe" and len(ranks) % 4 == 0:
+    if name == "long_context_moe" or (name == "moe" and len(ranks) % 4 == 0):
         return moe_mesh(ranks, model=2, expert=2)
     return burnin_mesh(ranks)
 

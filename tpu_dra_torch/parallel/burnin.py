@@ -23,11 +23,15 @@ constraints make XLA insert are explicit (`spmd`):
   norms run on the shard, an all-gather of the sequence enters the tp
   region (its backward a reduce-scatter) and a reduce-scatter of the
   row-parallel partial sums leaves it (its backward an all-gather);
-- cp (``ring_attention``): the sequence stays sharded through the whole
-  block, attention by `ring.ring_attention_sharded`, weights replicated
-  over ``model``;
+- cp (``ring_attention`` or ``ulysses_attention``): the sequence stays
+  sharded through the whole block, attention by
+  `ring.ring_attention_sharded` or `ulysses.ulysses_attention_sharded`
+  (the flash kernel on the head-swapped view with ``flash_attention``),
+  weights replicated over ``model``;
 - ep (``moe_experts``): experts over ``expert`` (each expert's FFN over
-  ``model``) or, without that axis, over ``model`` (`moe.moe_mlp_sharded`).
+  ``model``) or, without that axis, over ``model`` (`moe.moe_mlp_sharded`);
+  under cp, on a mesh with an ``expert`` axis only, group-local routing,
+  one group a rank's sequence block (`moe.moe_mlp_local_sharded`).
 
 Rounding follows the reference's source point for point, so that the
 parity tests can hold the two to bf16 ulps:
@@ -62,10 +66,16 @@ from torch.utils.checkpoint import checkpoint
 from tpu_dra_torch.parallel import prng, spmd
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.mesh import logical_mesh
-from tpu_dra_torch.parallel.moe import moe_mlp, moe_mlp_sharded, moe_param_specs
+from tpu_dra_torch.parallel.moe import (
+    moe_mlp,
+    moe_mlp_local_sharded,
+    moe_mlp_sharded,
+    moe_param_specs,
+)
 from tpu_dra_torch.parallel.quant import dequantize_bf16
 from tpu_dra_torch.parallel.ring import ring_attention_sharded
 from tpu_dra_torch.parallel.spmd import mesh_sizes
+from tpu_dra_torch.parallel.ulysses import ulysses_attention_sharded
 
 __all__ = [
     "BurninConfig",
@@ -93,10 +103,10 @@ _NEG_INF = -1e30
 @dataclass(frozen=True)
 class BurninConfig:
     """Model + data shape for the burn-in LM — the reference's fields and
-    defaults.  ``ring_attention`` (context parallelism over a mesh's
-    ``model`` axis) runs on a mesh only; the Ulysses and pipeline fields
-    are kept so that a config reads the same in both packages, but the
-    port does not run them: setting either raises."""
+    defaults.  ``ring_attention`` and ``ulysses_attention`` (context
+    parallelism over a mesh's ``model`` axis) run on a mesh only; the
+    pipeline fields are kept so that a config reads the same in both
+    packages, but the port does not run them: setting them raises."""
 
     vocab: int = 256
     d_model: int = 128
@@ -125,19 +135,11 @@ class BurninConfig:
     pipeline_microbatches: int = 4
 
     def __post_init__(self):
-        unserved = [
-            name
-            for name, on in (
-                ("ulysses_attention", self.ulysses_attention),
-                ("pipeline_stages", self.pipeline_stages > 0),
-            )
-            if on
-        ]
-        if unserved:
+        if self.pipeline_stages > 0:
             raise ValueError(
-                f"{', '.join(unserved)} not ported to tpu_dra_torch yet: "
+                "pipeline_stages not ported to tpu_dra_torch yet: "
                 "it runs the model on one device or sharded over dp/fsdp/tp/sp, "
-                "ring attention and experts"
+                "ring and Ulysses attention and experts"
             )
 
     @property
@@ -149,7 +151,7 @@ class BurninConfig:
     @property
     def context_parallel(self) -> bool:
         """Either cp flavor: the sequence stays sharded through the whole
-        block (attention by the ring, the MLP position-wise)."""
+        block (attention by the ring or Ulysses, the MLP position-wise)."""
         return self.ring_attention or self.ulysses_attention
 
     def scaled_to(self, mesh) -> "BurninConfig":
@@ -209,8 +211,8 @@ def param_specs(config: BurninConfig, mesh=None):
     size}``): fsdp shards the non-tp dim of every matrix, ``model`` (tp)
     the heads, the MLP hidden dim and the embedding's d_model.  Experts
     ride the mesh's ``expert`` axis when it has one (ep x tp), else
-    ``model``.  With ring attention the model axis carries the sequence,
-    so no weight is sharded over it and fsdp alone shards them."""
+    ``model``.  Under context parallelism the model axis carries the
+    sequence, so no weight is sharded over it and fsdp alone shards them."""
     if config.context_parallel:
         matrices = {
             "wqkv": (None, "fsdp", None, None, None),
@@ -414,7 +416,7 @@ def _logits(params, x):
 
 def _check_parallelism(c: BurninConfig, mesh) -> None:
     """The reference's refusals in ``forward`` (burnin.py:547-600), with
-    its messages, and the cp x ep path this package does not run."""
+    its messages."""
     if c.ring_attention and c.ulysses_attention:
         raise ValueError(
             "ring_attention and ulysses_attention are two flavors of the "
@@ -434,21 +436,17 @@ def _check_parallelism(c: BurninConfig, mesh) -> None:
             "DOES compose with flash (the kernel runs on the head-sharded "
             "full-sequence view)"
         )
-    if c.context_parallel and c.moe_experts > 0:
-        if mesh is None or "expert" not in mesh_sizes(mesh):
-            raise ValueError(
-                "context parallelism + moe_experts needs a mesh with a "
-                "dedicated expert axis (tpu_dra.parallel.moe.moe_mesh): cp "
-                "shards the sequence over the model axis, so experts cannot "
-                "ride it"
-            )
+    if c.context_parallel and c.moe_experts > 0 and (
+            mesh is None or "expert" not in mesh_sizes(mesh)):
         raise ValueError(
-            "context parallelism + moe_experts (group-local routing, "
-            "moe_mlp_local) is not ported to tpu_dra_torch yet"
+            "context parallelism + moe_experts needs a mesh with a "
+            "dedicated expert axis (tpu_dra.parallel.moe.moe_mesh): cp "
+            "shards the sequence over the model axis, so experts cannot "
+            "ride it"
         )
     if mesh is None and c.context_parallel:
         # A silent dense fallback would report the long-context
-        # configuration as trained without running the ring.
+        # configuration as trained without running the ring or the swaps.
         raise ValueError("context-parallel attention requires a device mesh")
 
 
@@ -516,10 +514,20 @@ def _block_sharded(layer, x, *, config: BurninConfig, place: "spmd.Place", specs
 
     h = _rms_norm(x, layer["ln1"]).to(bf16)
     if c.context_parallel:
-        # cp: the sequence stays sharded; all heads here, K/V rotate.
+        # cp: the sequence stays sharded; all heads here.  The ring
+        # rotates K/V; Ulysses swaps to the rank's heads over the whole
+        # sequence and back.
         qkv = _matmul_bf16(h, weight("wqkv"), 1)
-        att = ring_attention_sharded(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], place.mesh,
-                                     "model", causal=True)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if c.ulysses_attention:
+            block = math.gcd(128, c.seq)
+            if c.flash_attention and block < 8:
+                raise ValueError(f"flash_attention needs seq % 8 == 0, got seq={c.seq}")
+            att = ulysses_attention_sharded(q, k, v, place.mesh, "model", causal=True,
+                                            flash=c.flash_attention, flash_block=block,
+                                            seq=c.seq)
+        else:
+            att = ring_attention_sharded(q, k, v, place.mesh, "model", causal=True)
         x = x + _matmul_bf16(att, weight("wo"), 2)
     else:
         # sp -> tp: the whole sequence, this rank's heads (the
@@ -548,6 +556,10 @@ def _block_sharded(layer, x, *, config: BurninConfig, place: "spmd.Place", specs
         x = x + spmd.scatter(_matmul_bf16(att, weight("wo"), 2), place, "model", 1)
 
     h = _rms_norm(x, layer["ln2"]).to(bf16)
+    if c.moe_experts > 0 and c.context_parallel:
+        # cp x ep: group-local routing, the rank's sequence block its group.
+        out, aux = moe_mlp_local_sharded(layer, h, c, place, specs)
+        return x + out, aux
     if c.moe_experts > 0:
         out, aux = moe_mlp_sharded(layer, spmd.gather(h, place, "model", 1), c, place, specs)
         return x + out, aux

@@ -75,9 +75,9 @@ __all__ = [
 def serving_config(config: BurninConfig) -> BurninConfig:
     """The serving view of a training config: the training-only
     parallelism (ring/Ulysses context parallelism, pipeline stages)
-    stripped, everything the params depend on untouched: ring-trained
-    weights serve under the config this returns (the port's config
-    refuses the Ulysses and pipeline fields already)."""
+    stripped, everything the params depend on untouched: ring- and
+    Ulysses-trained weights serve under the config this returns (the
+    port's config refuses the pipeline fields already)."""
     return dataclasses.replace(
         config, ring_attention=False, ulysses_attention=False, pipeline_stages=0,
     )

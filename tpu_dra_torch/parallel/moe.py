@@ -20,8 +20,15 @@ On a mesh (`moe_mesh`, `moe_param_specs`, `moe_mlp_sharded`) the
 tokens entering the MLP are whole over the axes the experts ride (the tp
 region), so each rank dispatches to its own experts from the same
 routing, and the combine's partial sums are reduced back into the
-sequence-sharded stream; the load-balance term takes global means.  The
-cp x ep form (`moe_mlp_local`, group-local routing) is not ported.
+sequence-sharded stream; the load-balance term takes global means.
+
+Under context parallelism the sequence stays sharded over ``model``, and
+`moe_mlp_local` routes it in groups (GShard's groups): the capacity
+queues run over a group, not the whole sequence.  On a mesh
+(`moe_mlp_local_sharded`) a rank's sequence block is its group, so no
+sequence is gathered: a rank routes its own block, dispatches to its
+own experts on ``expert``, and the combine's partial sums are summed
+over ``expert``.  `routing_temp_comparison` measures what that saves.
 """
 
 from __future__ import annotations
@@ -33,7 +40,10 @@ import torch
 from tpu_dra_torch.parallel import spmd
 from tpu_dra_torch.parallel.mesh import logical_mesh
 
-__all__ = ["expert_capacity", "moe_mesh", "moe_mlp", "moe_mlp_sharded", "moe_param_specs"]
+__all__ = [
+    "expert_capacity", "moe_mesh", "moe_mlp", "moe_mlp_local", "moe_mlp_local_sharded",
+    "moe_mlp_sharded", "moe_param_specs", "routing_temp_comparison",
+]
 
 
 def moe_mesh(ranks=None, *, data: int = -1, fsdp: int = 1, model: int = 1, expert: int = 1):
@@ -88,6 +98,24 @@ def route(layer, h):
     return torch.softmax(h.float() @ layer["router"], dim=-1)
 
 
+def _dispatch(probs, C: int, dim: int):
+    """Switch routing of the router's ``probs`` (.., S, E) into queues of
+    ``C`` along ``dim`` (the sequence, or a group's positions): the
+    one-hot choice (f32) and the dispatch and combine tensors (.., S, E,
+    C), f32.  The gate is the largest probability (its gradient splits
+    over ties, as jnp.max's) and the choice the first maximum."""
+    gate = probs.amax(dim=-1)
+    onehot = torch.nn.functional.one_hot(probs.argmax(dim=-1), probs.shape[-1])  # int64
+    # Each token's place in its expert's queue, in sequence order: -1 for
+    # the experts it did not choose, C or more when the queue is full.
+    # Both match no capacity slot, so such tokens drop out of the dispatch
+    # (the reference's one_hot maps out-of-range indices to a zero row).
+    pos = torch.cumsum(onehot, dim=dim) - 1
+    slots = torch.arange(C, device=probs.device)
+    dispatch = ((pos[..., None] == slots) & onehot.bool()[..., None]).float()
+    return onehot.float(), dispatch, dispatch * gate[..., None, None]
+
+
 def moe_mlp(layer, h, config, capacity: "int | None" = None):
     """The MoE MLP half of a block: ``h`` (B, S, d) bf16 post-norm hidden
     states through ``layer``'s ``router`` (d, E) f32 and expert weights
@@ -103,19 +131,7 @@ def moe_mlp(layer, h, config, capacity: "int | None" = None):
     bf16 = torch.bfloat16
 
     probs = route(layer, h)
-    gate = probs.amax(dim=-1)  # (B, S); its gradient splits over ties, as jnp.max's
-    choice = probs.argmax(dim=-1)  # (B, S): the first maximum
-    onehot = torch.nn.functional.one_hot(choice, E)  # (B, S, E) int64
-    # Each token's place in its expert's queue, in sequence order: -1 for
-    # the experts it did not choose, C or more when the queue is full.
-    # Both match no capacity slot, so such tokens drop out of the dispatch
-    # (the reference's one_hot maps out-of-range indices to a zero row).
-    pos = torch.cumsum(onehot, dim=1) - 1
-    slots = torch.arange(C, device=h.device)
-    dispatch = ((pos[..., None] == slots) & onehot.bool()[..., None]).float()  # (B, S, E, C)
-    combine = dispatch * gate[..., None, None]
-
-    onehot = onehot.float()
+    onehot, dispatch, combine = _dispatch(probs, C, dim=1)  # dispatch (B, S, E, C)
     frac = onehot.mean(dim=(0, 1))
     meanp = probs.mean(dim=(0, 1))
     aux = E * torch.sum(frac * meanp)
@@ -153,17 +169,11 @@ def moe_mlp_sharded(layer, h, config, place: "spmd.Place", specs):
     e0 = place.index(ep) * n_local
 
     router = spmd.gather_leaf(layer["router"], specs["router"], place)
-    probs = torch.softmax(h.float() @ router, dim=-1)
-    gate = probs.amax(dim=-1)
-    choice = probs.argmax(dim=-1)
-    onehot = torch.nn.functional.one_hot(choice, E)
-    pos = torch.cumsum(onehot, dim=1) - 1
-    slots = torch.arange(C, device=h.device)
-    dispatch = ((pos[..., None] == slots) & onehot.bool()[..., None]).float()
-    combine = dispatch * gate[..., None, None]
+    probs = route({"router": router}, h)
+    onehot, dispatch, combine = _dispatch(probs, C, dim=1)
 
     batch_ranks = place.size("data") * place.size("fsdp")
-    frac = spmd.psum(onehot.float().mean(dim=(0, 1)), place, ("data", "fsdp"))
+    frac = spmd.psum(onehot.mean(dim=(0, 1)), place, ("data", "fsdp"))
     meanp = spmd.psum(probs.mean(dim=(0, 1)), place, ("data", "fsdp"))
     if batch_ranks > 1:
         frac, meanp = frac / batch_ranks, meanp / batch_ranks
@@ -186,3 +196,141 @@ def moe_mlp_sharded(layer, h, config, place: "spmd.Place", specs):
     n = out.shape[1] // place.size("model")
     lo = place.index("model") * n
     return out[:, lo:lo + n], aux
+
+
+def moe_mlp_local(layer, h, config, groups: int):
+    """Group-local switch routing (the reference's ``moe_mlp_local`` on
+    one device): ``h`` (B, S, d) bf16 split into ``groups`` groups of
+    S / groups positions, (B, S, d) -> (B, G, S/G, d), each routed on its
+    own: the capacity cumsum runs over the group's positions and the
+    capacity is `expert_capacity` per group.  The load-balance term takes
+    the means over every token.  Rounding points as `moe_mlp`'s.
+    Returns ``(out, aux)`` as `moe_mlp` does."""
+    E = config.moe_experts
+    B, S, D = h.shape
+    if S % groups:
+        raise ValueError(f"seq {S} not divisible by {groups} routing groups")
+    C = expert_capacity(config, groups=groups)
+    bf16 = torch.bfloat16
+
+    hg = h.reshape(B, groups, S // groups, D)
+    probs = route(layer, hg)  # (B, G, Sl, E)
+    onehot, dispatch, combine = _dispatch(probs, C, dim=2)
+    frac = onehot.mean(dim=(0, 1, 2))
+    meanp = probs.mean(dim=(0, 1, 2))
+    aux = E * torch.sum(frac * meanp)
+
+    expert_in = torch.einsum("bgsec,bgsd->ebgcd", dispatch.to(bf16), hg)
+    h1 = torch.einsum("ebgcd,edf->ebgcf", expert_in, layer["w1e"].to(bf16))
+    h1 = torch.where(h1 > 0, h1, _SLOPE * h1)
+    out_e = torch.einsum("ebgcf,efd->ebgcd", h1, layer["w2e"].to(bf16))
+    out = torch.einsum("bgsec,ebgcd->bgsd", combine.to(bf16), out_e)
+    return out.reshape(B, S, D), aux
+
+
+def moe_mlp_local_sharded(layer, h, config, place: "spmd.Place", specs):
+    """`moe_mlp_local` on a rank's shards, one group a rank's sequence
+    block on ``model`` (the cp layout): ``h`` (B_local, S / model, d)
+    bf16 is the rank's block, routed where it lies (no sequence gather),
+    with the capacity of ``model`` groups.  The rank dispatches to its
+    own experts on ``expert`` (the leaves' ``specs`` put them there; the
+    router and the expert matrices are gathered over ``fsdp`` at use,
+    d_ff whole), and the combine's partial sums are summed over
+    ``expert``.  ``frac`` and ``meanp`` are averaged over the batch axes
+    and ``model`` (every token of the global batch) before their product.
+
+    Returns ``(out, aux)``: ``out`` (B_local, S / model, d) bf16, the
+    rank's block of the outputs; ``aux`` the load-balance term."""
+    E = config.moe_experts
+    G = place.size("model")
+    C = expert_capacity(config, groups=G)
+    bf16 = torch.bfloat16
+    n_local = E // place.size("expert")
+    e0 = place.index("expert") * n_local
+
+    router = spmd.gather_leaf(layer["router"], specs["router"], place)
+    probs = route({"router": router}, h)  # (B, Sl, E)
+    onehot, dispatch, combine = _dispatch(probs, C, dim=1)
+    axes = ("data", "fsdp", "model")
+    ranks = math.prod(place.size(a) for a in axes)
+    frac = spmd.psum(onehot.mean(dim=(0, 1)), place, axes)
+    meanp = spmd.psum(probs.mean(dim=(0, 1)), place, axes)
+    if ranks > 1:
+        frac, meanp = frac / ranks, meanp / ranks
+    aux = E * torch.sum(frac * meanp)
+
+    dispatch = dispatch[:, :, e0:e0 + n_local]
+    combine = combine[:, :, e0:e0 + n_local]
+    w1e = spmd.gather_leaf(layer["w1e"], specs["w1e"], place, dtype=bf16)
+    w2e = spmd.gather_leaf(layer["w2e"], specs["w2e"], place, dtype=bf16)
+    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(bf16), h)
+    h1 = torch.einsum("ebcd,edf->ebcf", expert_in, w1e)
+    h1 = torch.where(h1 > 0, h1, _SLOPE * h1)
+    out_e = torch.einsum("ebcf,efd->ebcd", h1, w2e)
+    out = torch.einsum("bsec,ebcd->bsd", combine.to(bf16), out_e)
+    return spmd.psum(out, place, "expert"), aux
+
+
+def routing_temp_comparison(mesh, *, seq: int = 512, d_model: int = 16, d_ff: int = 32,
+                            experts: int = 4):
+    """The activation bound of group-local routing (the reference's
+    ``routing_temp_comparison``): on this rank of ``mesh`` (a `moe_mesh`
+    with a ``model`` axis), the card's peak allocation above the start
+    during one forward of each MoE form on the same sequence-sharded
+    input — the global form (the sequence gathered over ``model``, then
+    `moe_mlp_sharded`) and the group-local one (`moe_mlp_local_sharded`
+    on the rank's block).  Returns ``(global_bytes, local_bytes)``, or
+    None off CUDA (the reference returns None where the backend has no
+    memory analysis).  Every rank of the mesh calls it.  The caller
+    asserts with a margin (``local * 1.4 < global`` at ``model`` 2)."""
+    place = spmd.Place(mesh)
+    if place.device.type != "cuda":
+        return None
+    return _routing_peaks(place, _cuda_peak_bytes, seq=seq, d_model=d_model, d_ff=d_ff,
+                          experts=experts)
+
+
+def _cuda_peak_bytes(fn, device) -> int:
+    """The card's peak allocation above the start while ``fn`` runs."""
+    torch.cuda.synchronize(device)
+    start = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    del out
+    return torch.cuda.max_memory_allocated(device) - start
+
+
+def _routing_peaks(place: "spmd.Place", peak, *, seq: int, d_model: int, d_ff: int,
+                   experts: int):
+    """``(peak(global form), peak(local form))`` on the rank's shards of
+    one layer (`routing_temp_comparison`'s config and input), each form
+    a no-grad forward handed to ``peak(fn, device)``."""
+    from tpu_dra_torch.parallel import burnin  # burnin imports this module
+
+    c = burnin.BurninConfig(n_layers=1, seq=seq, d_model=d_model, d_ff=d_ff,
+                            ring_attention=True, moe_experts=experts).scaled_to(place.sizes)
+    whole = {k: v[0] for k, v in burnin.init_params(c, device=place.device)["layers"].items()}
+
+    def layer(ring: bool):
+        # The rank's shards of layer 0 and their specs: the global form's
+        # expert FFN is over model (ep x tp), the local one's is whole.
+        specs = {name: spec[1:] for name, spec in moe_param_specs("expert", ring=ring).items()}
+        return {name: whole[name][spmd.local_slices(spec, whole[name].shape, place.sizes,
+                                                     place.coords)]
+                for name, spec in specs.items()}, specs
+
+    rows = c.batch // (place.size("data") * place.size("fsdp"))
+    h = torch.zeros((rows, c.seq // place.size("model"), c.d_model), dtype=torch.bfloat16,
+                    device=place.device)
+    (g_layer, g_specs), (l_layer, l_specs) = layer(False), layer(True)
+
+    @torch.no_grad()
+    def global_form():
+        return moe_mlp_sharded(g_layer, spmd.gather(h, place, "model", 1), c, place, g_specs)[0]
+
+    @torch.no_grad()
+    def local_form():
+        return moe_mlp_local_sharded(l_layer, h, c, place, l_specs)[0]
+
+    return peak(global_form, place.device), peak(local_form, place.device)

@@ -12,7 +12,9 @@ PyTorch runs one process a rank, so the port states both itself:
 - `gather`, `scatter` and `psum` are autograd collectives over one axis,
   each the other's adjoint: an all-gather whose backward reduce-scatters
   the gradient, a reduce-scatter whose backward all-gathers it, an
-  all-reduce whose backward all-reduces it; `shift` is one hop of a ring.
+  all-reduce whose backward all-reduces it; `all_to_all` swaps which dim
+  is split over an axis (its backward is the inverse swap); `shift` is
+  one hop of a ring.
 
 A step is differentiated as the sum of every rank's local loss: a rank
 adds only its share (work repeated on k ranks is counted 1/k on each),
@@ -40,8 +42,8 @@ from tpu_dra_torch.parallel.collectives import rank_device
 from tpu_dra_torch.parallel.mesh import mesh_shape
 
 __all__ = [
-    "Place", "gather", "gather_leaf", "local_slices", "mesh_sizes", "psum", "reduce_grads",
-    "scatter", "shift", "spec_axes",
+    "Place", "all_to_all", "all_to_all_local", "gather", "gather_leaf", "local_slices",
+    "mesh_sizes", "psum", "reduce_grads", "scatter", "shift", "spec_axes",
 ]
 
 
@@ -171,6 +173,69 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _sum(g, ctx.group), None
+
+
+def _a2a_send(x, split_dim: int, n: int):
+    """``x`` cut into ``n`` chunks along ``split_dim``, chunk j at index j
+    of a new leading dim, in storage of its own (NCCL refuses a tensor
+    that is not contiguous)."""
+    shape = x.shape
+    parts = x.reshape(*shape[:split_dim], n, shape[split_dim] // n, *shape[split_dim + 1:])
+    return parts.movedim(split_dim, 0).contiguous()
+
+
+def _a2a_recv(recv, concat_dim: int, n: int):
+    """The chunks received (chunk i from rank i at index i of the leading
+    dim) concatenated along ``concat_dim`` in rank order."""
+    shape = list(recv.shape[1:])
+    shape[concat_dim] *= n
+    return recv.movedim(0, concat_dim).reshape(shape)
+
+
+def _a2a(x, split_dim: int, concat_dim: int, group, n: int):
+    send = _a2a_send(x, split_dim, n)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return _a2a_recv(recv, concat_dim, n)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group, n):
+        ctx.dims, ctx.group, ctx.n = (split_dim, concat_dim), group, n
+        return _a2a(x, split_dim, concat_dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _a2a(g, concat_dim, split_dim, ctx.group, ctx.n), None, None, None, None
+
+
+def all_to_all(x, place: Place, axis: str, split_dim: int, concat_dim: int):
+    """The all-to-all over ``axis`` that ``jax.lax.all_to_all(...,
+    tiled=True)`` is: ``split_dim`` cut into as many chunks as the axis
+    has ranks, chunk j sent to rank j, and the chunks received
+    concatenated along ``concat_dim`` in rank order.  Returns a
+    contiguous tensor; the backward is the same call with the two dims
+    swapped (the inverse permutation, which is its adjoint)."""
+    n = place.size(axis)
+    if n == 1:
+        return x
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not split over {axis} "
+                         f"({n} ways)")
+    return _AllToAll.apply(x, split_dim, concat_dim, place.group(axis), n)
+
+
+def all_to_all_local(xs, split_dim: int, concat_dim: int):
+    """What `all_to_all` gives every rank of an axis whose ranks hold
+    ``xs`` (in rank order), computed in one process by the same packing
+    and unpacking, the exchange done by indexing: a rank's output without
+    a process group (the smoke run lays out each rank's tensors so)."""
+    n = len(xs)
+    sends = [_a2a_send(x, split_dim, n) for x in xs]
+    return [_a2a_recv(torch.stack([s[r] for s in sends]), concat_dim, n)
+            for r in range(n)]
 
 
 def gather(x, place: Place, axis: str, dim: int, dtype=None):
