@@ -94,6 +94,16 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    2 layers (3 steps, loss descending, the load-balance term) and
    `serve_family` for every single-device family (moe also int8), the
    context-parallel and pipelined ones reporting their refusal;
+   then sharded serving: a spawned worker on a one-rank NCCL mesh
+   (`burnin_mesh([0])`) serves the main stream at full width through
+   ``ServeEngine(mesh=)`` on the paged layout, bf16 and int8 (weights cut
+   by ``weights.shard_params``, ``kv_int8``), its tokens bitwise phase
+   5's gather engines'; the rows engine, ``make_generate_padded`` and
+   rope ``make_generate`` on the mesh bitwise their one-device runs;
+   `serve_family` for dense, flash and moe over the mesh (long_context
+   refused); K1 and K2 at 0 launches on every mesh path; tokens/s, TTFT,
+   step time and the weight and pool bytes a rank beside the one-device
+   gather engine's in the same worker;
 10. train: 6 momentum steps of the flash family at the same width (batch
    16, seq 1024; f32 masters, about 1.75 B parameters) through
    ``burnin.train``: the loss must descend, every flash launch counted;
@@ -153,7 +163,11 @@ Phases, each asserted; any failure exits non-zero and prints no result:
 ``python3 chip_smoke.py --cards N`` (N a multiple of 4, N cards) runs the
 flash and long_context_a2a families sharded over N ranks against one
 card, the activation bound (`moe.routing_temp_comparison`, ``local * 1.4
-< global``) and ``validate`` over the N cards.
+< global``) and ``validate`` over the N cards; then serves the main
+stream at full width over N ranks (bf16 and int8; every rank's tokens the
+same and one card's up to near-ties; each rank's numbers and bytes) and
+runs ``validate --family dense --serve`` and ``--family moe --serve
+--int8`` over the N cards.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
 """
@@ -668,31 +682,41 @@ def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=Fals
     return eng, done, wall, step_walls, synced
 
 
-def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8, kv_int8=False, **engine_kw):
+def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8, kv_int8=False,
+                   backend: str = "cuda", form: "str | None" = None, report: bool = True,
+                   **engine_kw):
     """Where a decode step's device time goes: 8 rows mid-decode (contexts
-    256..480 tokens), ``steps`` steps under torch.profiler.  Returns the
-    kernel time a step in ms."""
+    256..480 tokens), ``steps`` steps under torch.profiler (on a mesh,
+    ``mesh`` in ``engine_kw``, every rank steps and only a ``report`` one
+    is profiled).  Returns the kernel time a step in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
-                      attn_backend="cuda", kv_int8=kv_int8, **engine_kw)
+                      attn_backend=backend, kv_int8=kv_int8, **engine_kw)
     for i in range(8):
         eng.submit([(7 * i + j) % cfg.vocab for j in range(256 + 32 * i)], 64)
     eng.tick()  # admits all eight, then one step
     eng.tick()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if report \
+            else contextlib.nullcontext() as prof:
         for _ in range(steps):
             eng.tick()
         torch.cuda.synchronize()
     eng.close()
-    form = ("int8" if kv_int8 else "bf16") + (" sampled" if engine_kw else "")
+    if not report:
+        return None
+    if form is None:
+        form = ("int8" if kv_int8 else "bf16") + (" sampled" if engine_kw else "")
     return report_profile(prof, f"chip_smoke_decode_{form.replace(' ', '_')}_trace.json",
                           f"{steps} {form} decode steps of 8 rows", steps,
                           INT8_DECODE_KINDS if kv_int8 else KERNEL_KINDS)
 
 
 KERNEL_KINDS = (  # (substring of a kernel's name, kind), first match wins
+    ("AllGather", "NCCL all-gather"),
+    ("AllReduce", "NCCL all-reduce"),
+    ("ReduceScatter", "NCCL reduce-scatter"),
     ("paged_attention_kernel", "paged attention (K1)"),
     ("flash_fwd_kernel", "flash attention (K2)"),
     ("nvjet", "cuBLAS GEMM"),
@@ -934,7 +958,7 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     for leaf in pool.values():
         leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * 0.5)
     check_step_logits(torch, paged, params, cfg, pool, "bf16")
-    return launches, line, done
+    return launches, line, done, {rid: list(r.tokens) for rid, r in g_done.items()}
 
 
 def dequant_routes(torch):
@@ -1000,21 +1024,8 @@ def phase_engine_int8(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
         f"{bf16_weight_bytes}), pool {pool_bytes} (bf16 pool {bf16_pool_bytes})")
     g_done = serve_gather(serve_mod.ServeEngine, params, cfg, stream, "int8", kv_int8=True)
 
-    # The near-tie margin recomputed through the int8 paged prefill of the
-    # sequence so far: each window quantized at insert and read back, as
-    # the engine's own prefill and decode do.
-    slots = 640  # five 128-position windows: a 512-token prompt and its 63 tokens
-    prefill = paged.make_paged_prefill(cfg, slots, 128)
-
-    def int8_logits_at(seq):
-        pool = paged.init_block_pool(cfg, 6, 128, kv_int8=True, device="cuda")
-        toks = torch.zeros((1, slots), dtype=torch.int32, device="cuda")
-        toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
-        table = torch.arange(1, 6, dtype=torch.int32, device="cuda")[None]
-        lens = torch.tensor([len(seq)], dtype=torch.int32, device="cuda")
-        return prefill(params, toks, lens, pool, table)[0][0]
-
-    check_near_ties(torch, done, g_done, int8_logits_at, "int8 cuda vs gather")
+    check_near_ties(torch, done, g_done, int8_logits_at(torch, paged, params, cfg),
+                    "int8 cuda vs gather")
 
     pool = paged.init_block_pool(cfg, 41, 128, kv_int8=True, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1026,7 +1037,26 @@ def phase_engine_int8(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     check_step_logits(torch, paged, params, cfg, pool, "int8")
     del pool
     profile_decode(torch, serve_mod.ServeEngine, params, cfg, kv_int8=True)
-    return launches, sampled
+    return launches, sampled, {rid: list(r.tokens) for rid, r in g_done.items()}
+
+
+def int8_logits_at(torch, paged, params, cfg):
+    """``logits_at(sequence)`` for int8 serving: the near-tie margin
+    recomputed through the int8 paged prefill of the sequence so far,
+    each window quantized at insert and read back, as the engine's own
+    prefill and decode do."""
+    slots = 640  # five 128-position windows: a 512-token prompt and its 63 tokens
+    prefill = paged.make_paged_prefill(cfg, slots, 128)
+
+    def logits_at(seq):
+        pool = paged.init_block_pool(cfg, 6, 128, kv_int8=True, device="cuda")
+        toks = torch.zeros((1, slots), dtype=torch.int32, device="cuda")
+        toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
+        table = torch.arange(1, 6, dtype=torch.int32, device="cuda")[None]
+        lens = torch.tensor([len(seq)], dtype=torch.int32, device="cuda")
+        return prefill(params, toks, lens, pool, table)[0][0]
+
+    return logits_at
 
 
 def prefix_stream(vocab: int):
@@ -1515,15 +1545,22 @@ SAMPLED_SCHEDULE = {"continuous": (8, 113, 0, 113), "tick": (8, 116, 29, 29),
 # logit of each other, and each run's token is its own sampler's pick from
 # its own logits under the request's key.
 SAMPLED_TIE = 2 ** -6
-GUMBEL_RTOL = 2 ** -20  # card vs CPU gumbel: log rounds its own way on each
+# The card's gumbel against the float64 value of -log(-log(u)) on the same
+# uniforms: a float32 draw whose two logs are each within 1 ulp lies within
+# 2**-22 * max(1, |g|) of it.  The reference is float64 because the CPU's
+# float32 transcendentals are not one: on its first multithreaded call in
+# a process, torch's CPU log (and exp, sqrt, tanh, erf) sometimes returns
+# one thread's chunk of 32768 elements about 1e-4 off, and is exact on
+# every later call; its float64 log is not affected.
+GUMBEL_RTOL = 2 ** -21
 
 
 def check_prng_bitwise(torch, prng):
     """Threefry on the card equals the CPU's bit for bit: the keys of 8
     rows (``fold_in(key(seed), pos)``), then ``bits``, ``split`` and
     ``uniform`` over a (8, 32768) draw with one key a row and over one
-    (8 * 32768,) draw with one key; ``gumbel`` within ``2**-20 * max(1,
-    |g|)``."""
+    (8 * 32768,) draw with one key; ``gumbel`` within ``2**-21 * max(1,
+    |g|)`` of ``-log(-log(u))`` taken in float64 on those uniforms."""
     seeds = torch.arange(8, dtype=torch.int32) * 7919 - 3
     pos = torch.arange(8, dtype=torch.int32) * 97 + 64
     cpu_rows = prng.fold_in(prng.key(seeds), pos)
@@ -1543,14 +1580,22 @@ def check_prng_bitwise(torch, prng):
         for name, fn in draws.items():
             if not torch.equal(fn(gk).cpu(), fn(ck)):
                 raise AssertionError(f"prng {name} {label}: the card's differs from the CPU's")
-        want = prng.gumbel(ck, shape)
-        err = ((prng.gumbel(gk, shape).cpu() - want).abs() / want.abs().clamp(min=1)).max().item()
+        u = prng.uniform(ck, shape, minval=tiny).double()
+        exact = -torch.log(-torch.log(u))
+        got = prng.gumbel(gk, shape).cpu()
+        rel = (got.double() - exact).abs() / exact.abs().clamp(min=1)
+        err = rel.max().item()
         if err > GUMBEL_RTOL:
-            raise AssertionError(f"prng gumbel {label}: relative error {err} > {GUMBEL_RTOL}")
+            i = int(rel.flatten().argmax())
+            raise AssertionError(
+                f"prng gumbel {label}: relative error {err} > {GUMBEL_RTOL} at "
+                f"{int((rel > GUMBEL_RTOL).sum())} elements; the worst at u "
+                f"{u.flatten()[i].item()!r}: card {got.flatten()[i].item()!r}, float64 "
+                f"{exact.flatten()[i].item()!r}")
         worst = max(worst, err)
     log(f"prng on the card: keys, bits, split and uniform bitwise equal to the CPU's over "
         f"(8, 32768) with a key a row and (262144,) with one key; gumbel max relative error "
-        f"{worst}")
+        f"{worst} against float64")
 
 
 def check_filter_mask(torch, decode, logits):
@@ -2565,16 +2610,23 @@ def run_sharded_ranks(validate, config, steps: int, world: int = 1, device: str 
     ``"moe_mesh": {axis: size}``); their results by rank, or raise with
     the first failure's traceback.  Every worker is stopped before this
     returns."""
+    plan = {"config": dataclasses.asdict(config), "steps": steps, "device": device,
+            "world": world, "families": families, "bound": bound,
+            "also": [dict(run, config=dataclasses.asdict(run["config"])) for run in also]}
+    return run_ranks(validate, _sharded_rank, plan, world, timeout, "sharded training")
+
+
+def run_ranks(validate, target, plan: dict, world: int, timeout: float, what: str):
+    """``target(rank, init_method, plan, out)`` in ``world`` spawned
+    workers; their results by rank, or raise with the first failure's
+    traceback.  Every worker is stopped before this returns."""
     import multiprocessing
     import queue
 
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
-    plan = {"config": dataclasses.asdict(config), "steps": steps, "device": device,
-            "world": world, "families": families, "bound": bound,
-            "also": [dict(run, config=dataclasses.asdict(run["config"])) for run in also]}
     init = f"tcp://127.0.0.1:{validate._free_port()}"
-    workers = [ctx.Process(target=_sharded_rank, args=(r, init, plan, out), daemon=True)
+    workers = [ctx.Process(target=target, args=(r, init, plan, out), daemon=True)
                for r in range(world)]
     for w in workers:
         w.start()
@@ -2600,7 +2652,7 @@ def run_sharded_ranks(validate, config, steps: int, world: int = 1, device: str 
     failed = {r: res for r, res in got.items() if isinstance(res, str)}
     if failed or len(got) < world:
         missing = sorted(set(range(world)) - set(got))
-        raise AssertionError(f"sharded training workers failed: {failed}; no result from {missing}")
+        raise AssertionError(f"{what} workers failed: {failed}; no result from {missing}")
     return [got[r] for r in range(world)]
 
 
@@ -2666,6 +2718,219 @@ def phase_sharded(torch, fa, flash, mfu, validate, single_losses, single_p50: fl
         + check_sharded_run(got, cfg, steps, single_losses, single_p50))
     row["launches"] = got["launches"]
     return row, got["launches"]
+
+
+# -- sharded serving ---------------------------------------------------------
+
+
+def serving_numbers(done, wall, step_walls) -> dict:
+    """The engine's end-to-end numbers: tokens/s, TTFT p50 and decode-step
+    p50 (host clocks, seconds)."""
+    return {"tokens_per_s": sum(len(r.tokens) for r in done.values()) / wall,
+            "ttft_p50_s": statistics.median(r.ttft_s for r in done.values()),
+            "step_p50_s": statistics.median(step_walls)}
+
+
+def _launches(pa, fa):
+    return {"k1": pa.paged_attention.launches, "k2": fa.flash_attention_forward.launches}
+
+
+def _zero_launches(pa, fa):
+    pa.paged_attention.launches = 0
+    fa.flash_attention_forward.launches = 0
+
+
+def _mesh_engine_run(ServeEngine, quant, pa, fa, params, cfg, stream, mesh, form, **engine_kw):
+    """The stream through one engine on ``mesh`` (None: one device) after
+    a two-request warm-up, K1's and K2's launches counted from 0 just
+    before and read just after, held to the host-sync contract.  Returns
+    its tokens by request, numbers, bytes and launches."""
+    kv_int8 = form == "int8"
+    kw = dict(engine_kw, mesh=mesh) if mesh is not None else engine_kw
+    serve(ServeEngine, params, cfg, stream[:2], "gather", kv_int8, warm_up=True, **kw)[0].close()
+    _zero_launches(pa, fa)
+    eng, done, wall, steps, synced = serve(ServeEngine, params, cfg, stream, "gather", kv_int8,
+                                           **kw)
+    run = {"tokens": {rid: list(r.tokens) for rid, r in done.items()},
+           "numbers": serving_numbers(done, wall, steps), "synced": synced,
+           "steps": eng.device_steps, "weight_bytes": quant.tree_bytes(params),
+           "pool_bytes": quant.tree_bytes(eng._pool if eng.kv_layout == "paged" else eng._cache),
+           **_launches(pa, fa)}
+    eng.close()
+    return run
+
+
+def _serve_rank(rank: int, init_method: str, plan: dict, out) -> None:
+    """Rank ``rank`` of a group of ``plan["world"]`` (NCCL, a card a rank)
+    serving the main stream at full width over `burnin.burnin_mesh` of
+    every rank (`_mesh_serving`).  Puts ``(rank, result)`` on ``out``.
+    Runs in a spawned process."""
+    try:
+        import torch
+
+        from tpu_dra_torch import models
+        from tpu_dra_torch.parallel import burnin, decode, gang, quant, weights
+        from tpu_dra_torch.parallel.kernels import flash_attn as fa
+        from tpu_dra_torch.parallel.kernels import paged_attn as pa
+        from tpu_dra_torch.parallel.serve import ServeEngine
+
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        world = plan["world"]
+        gang.join_group(init_method, world_size=world, rank=rank, device=f"cuda:{rank}",
+                        timeout_s=300)
+        mesh = burnin.burnin_mesh(range(world))
+        out.put((rank, _mesh_serving(torch, models, burnin, decode, quant, weights, ServeEngine,
+                                     fa, pa, mesh, plan["one_card"])))
+    except Exception:
+        out.put((rank, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh_serving(torch, models, burnin, decode, quant, weights, ServeEngine, fa, pa, mesh,
+                  one_card: bool) -> dict:
+    """A rank's sharded serving at full width: the phase-5 weights (the
+    same seed on every rank), cut into the rank's shards
+    (`weights.shard_params`, int8 quantized whole first), the main stream
+    through the paged engine on ``mesh`` in bf16 and int8 (``kv_int8``).
+    With ``one_card`` (a one-rank mesh) also the one-device gather engine
+    in the same process, the rows engine on the mesh and on one device,
+    `make_generate_padded` and rope `make_generate` on the mesh and on
+    one device, and `serve_family` for dense, flash and moe over the mesh
+    (long_context refused).  Every path's K1 and K2 launches are counted
+    from 0 just before it and read just after."""
+    import numpy as np
+
+    cfg = burnin.BurninConfig(**SERVE_WIDTH)
+    stream = make_stream(cfg.vocab)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    full = burnin.init_params(cfg, gen, device="cuda")
+    wholes = {"bf16": weights.cast_matrices(full), "int8": quant.quantize_params(full)}
+    del full
+    shards = {form: weights.shard_params(w, cfg, mesh) for form, w in wholes.items()}
+    if not one_card:
+        del wholes
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+    for form in ("bf16", "int8"):
+        res[f"paged {form}"] = _mesh_engine_run(ServeEngine, quant, pa, fa, shards[form], cfg,
+                                                stream, mesh, form)
+        # Where the mesh step's device time goes, rank 0's: the NCCL
+        # kernels (the weights' all-gathers over fsdp, the sums over
+        # model) apart from the GEMMs and the rest.
+        res[f"profile {form}"] = profile_decode(
+            torch, ServeEngine, shards[form], cfg, kv_int8=form == "int8", backend="gather",
+            form=f"mesh {'x'.join(map(str, res['mesh'].values()))} {form}",
+            report=torch.distributed.get_rank() == 0,
+            mesh=mesh)
+    if not one_card:
+        return res
+    res["one-device paged bf16"] = _mesh_engine_run(ServeEngine, quant, pa, fa, wholes["bf16"],
+                                                    cfg, stream, None, "bf16")
+    for label, m, p in (("rows", mesh, shards["bf16"]), ("one-device rows", None,
+                                                          wholes["bf16"])):
+        res[label] = _mesh_engine_run(ServeEngine, quant, pa, fa, p, cfg, stream, m, "bf16",
+                                      kv_layout="rows")
+    # The factories: 8 of the stream's prompts, padded to 512, 16 tokens.
+    prompts = torch.zeros((8, 512), dtype=torch.int32, device="cuda")
+    for i, (p, _) in enumerate(stream[:8]):
+        prompts[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    lens = torch.tensor([len(p) for p, _ in stream[:8]], dtype=torch.int32, device="cuda")
+    rcfg = dataclasses.replace(cfg, rope=True)
+    for label, c, make, args in (
+            ("make_generate_padded", cfg, decode.make_generate_padded,
+             dict(prompt_slots=512, steps=16)),
+            ("rope make_generate", rcfg, decode.make_generate, dict(prompt_len=128, steps=16))):
+        call = (prompts, lens) if label == "make_generate_padded" else (prompts[:, :128],)
+        got = {}
+        for where, m, p in (("mesh", mesh, shards["bf16"]), ("one device", None,
+                                                              wholes["bf16"])):
+            fn = make(c, m, with_health=True, **args)
+            fn(p, *call)  # warm-up
+            torch.cuda.synchronize()
+            _zero_launches(pa, fa)
+            t = time.perf_counter()
+            toks, healthy = fn(p, *call)
+            healthy = bool(healthy)
+            got[where] = (toks.cpu().numpy(), healthy, time.perf_counter() - t,
+                          _launches(pa, fa))
+        res[label] = {"equal": bool(np.array_equal(got["mesh"][0], got["one device"][0])),
+                      "healthy": got["mesh"][1] and got["one device"][1],
+                      "shape": list(got["mesh"][0].shape),
+                      "mesh_s": got["mesh"][2], "one_device_s": got["one device"][2],
+                      **got["mesh"][3]}
+    del wholes, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = {}
+    _zero_launches(pa, fa)
+    for name in ("dense", "flash", "moe", "long_context"):
+        families[name] = dataclasses.asdict(models.serve_family(name, mesh))
+    res["serve_family"] = {"reports": families, **_launches(pa, fa)}
+    return res
+
+
+def check_mesh_run(run, label: str, want_tokens=None) -> str:
+    """A mesh path's run: K1 and K2 never launched; its tokens bitwise
+    ``want_tokens`` when given.  Returns its line."""
+    if run["k1"] or run["k2"]:
+        raise AssertionError(f"{label}: {run['k1']} K1 and {run['k2']} K2 launches (want 0)")
+    if want_tokens is not None and run["tokens"] != want_tokens:
+        diff = [rid for rid in want_tokens if run["tokens"].get(rid) != want_tokens[rid]]
+        raise AssertionError(f"{label}: tokens of requests {diff} differ")
+    n = run["numbers"]
+    return (f"{n['tokens_per_s']:.3f} tokens/s, TTFT p50 {n['ttft_p50_s'] * 1e3:.3f} ms, "
+            f"decode step p50 {n['step_p50_s'] * 1e3:.3f} ms (host clocks); {run['steps']} "
+            f"steps; weights {run['weight_bytes']} B and pool {run['pool_bytes']} B a rank; "
+            f"0 K1, 0 K2 launches; {run['synced']}")
+
+
+def phase_sharded_serving(torch, validate, gather_tokens, int8_gather_tokens) -> dict:
+    """Sharded serving on one card: a spawned worker on a one-rank NCCL
+    mesh (`burnin.burnin_mesh([0])`) at full width (`_mesh_serving`):
+    the paged engine on the mesh bitwise phase 5's gather engines (bf16
+    and int8), the rows engine, `make_generate_padded` and rope
+    `make_generate` on the mesh bitwise their one-device runs, the
+    serve_family probes over the mesh, K1 and K2 at 0 launches on every
+    path.  Returns the mesh paths' launches by path."""
+    got = run_ranks(validate, _serve_rank, {"world": 1, "one_card": True}, 1, 900,
+                    "sharded serving")[0]
+    mesh = got["mesh"]
+    one = got["one-device paged bf16"]
+    log(f"one-device paged gather engine, bf16 (the worker): {check_mesh_run(one, 'one device')}")
+    for form, want in (("bf16", gather_tokens), ("int8", int8_gather_tokens)):
+        line = check_mesh_run(got[f"paged {form}"], f"mesh paged {form}", want)
+        log(f"mesh {mesh} paged engine {form}, tokens bitwise phase 5's {form} gather engine's: "
+            f"{line}")
+    line = check_mesh_run(got["rows"], "mesh rows", got["one-device rows"]["tokens"])
+    log(f"mesh {mesh} rows engine bf16, tokens bitwise the one-device rows engine's: {line}; "
+        f"one-device rows: {check_mesh_run(got['one-device rows'], 'one-device rows')}")
+    for label in ("make_generate_padded", "rope make_generate"):
+        r = got[label]
+        if not (r["equal"] and r["healthy"]) or r["k1"] or r["k2"]:
+            raise AssertionError(f"{label} on the mesh: {r}")
+        log(f"{label} on the mesh, {r['shape']}: bitwise its one-device run, healthy; "
+            f"{r['mesh_s'] * 1e3:.3f} ms against {r['one_device_s'] * 1e3:.3f} ms on one "
+            f"device; 0 K1, 0 K2 launches")
+    fams = got["serve_family"]
+    for name, rep in fams["reports"].items():
+        want_ok = name != "long_context"
+        if rep["ok"] != want_ok or (not want_ok and "context parallelism" not in rep["error"]):
+            raise AssertionError(f"serve_family({name!r}, mesh): {rep}")
+    if fams["k1"] or fams["k2"]:
+        raise AssertionError(f"serve_family over the mesh: {fams['k1']} K1, {fams['k2']} K2")
+    log("serve_family over the mesh: " + "; ".join(
+        f"{n} " + (f"ok, {r['tokens_per_second']} tokens/s" if r["ok"] else "refused")
+        for n, r in fams["reports"].items()) + "; 0 K1, 0 K2 launches")
+    return {"mesh paged bf16": 0, "mesh paged int8": 0, "mesh rows": 0,
+            "mesh make_generate_padded": 0, "mesh rope make_generate": 0,
+            "mesh serve_family": 0}
 
 
 # The Ulysses axis sizes at which K2 runs on each rank's head-swapped view.
@@ -2890,6 +3155,77 @@ def phase_cards(torch, burnin, mfu, validate, cards: int, steps: int = 6) -> dic
         if not (suite.get(key) or {}).get("ok"):
             raise AssertionError(f"validate --train 2: {key} {suite.get(key)}")
     numbers["busbw_gbps"] = suite["busbw_gbps"]
+    return numbers
+
+
+def phase_cards_serving(torch, burnin, paged, quant, serve_mod, weights, validate, pa, fa,
+                        cards: int) -> dict:
+    """``--cards N``, serving: the main stream at full width through the
+    paged gather engine on card 0 alone, bf16 and int8 (``kv_int8``);
+    then in N spawned workers, a card each, the same over `burnin_mesh`
+    of N ranks (data N / 4, fsdp 2, model 2; `_mesh_serving`): every
+    rank's tokens the same, and one card's up to near-ties (PERF.md §2:
+    a first divergence at a top-2 margin within 2 bf16 ulps of the row's
+    largest logit, recomputed on card 0), K1 and K2 never launched, each
+    rank's numbers and bytes; then ``validate --family dense --serve``
+    and ``--family moe --serve --int8`` over the N cards.  Returns the
+    numbers for the JSON line."""
+    cfg = burnin.BurninConfig(**SERVE_WIDTH)
+    stream = make_stream(cfg.vocab)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    full = burnin.init_params(cfg, gen, device="cuda")
+    params = {"bf16": weights.cast_matrices(full), "int8": quant.quantize_params(full)}
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = {}
+    for form, p in params.items():
+        one[form] = _mesh_engine_run(serve_mod.ServeEngine, quant, pa, fa, p, cfg, stream, None,
+                                     form)
+        log(f"one card, paged gather engine {form}: {check_mesh_run(one[form], 'one card')}")
+    logits_at = {"bf16": dense_logits_at(burnin, params["bf16"], cfg),
+                 "int8": int8_logits_at(torch, paged, params["int8"], cfg)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    results = run_ranks(validate, _serve_rank, {"world": cards, "one_card": False}, cards, 900,
+                        "sharded serving")
+    numbers = {"cards": cards, "mesh": results[0]["mesh"],
+               "one_card": {form: {**run["numbers"], "weight_bytes": run["weight_bytes"],
+                                   "pool_bytes": run["pool_bytes"]}
+                            for form, run in one.items()}}
+    prompts = {rid: p for rid, (p, _) in enumerate(stream)}
+    for form in ("bf16", "int8"):
+        label = f"paged {form}"
+        first = results[0][label]["tokens"]
+        for rank, res in enumerate(results):
+            line = check_mesh_run(res[label], f"{cards} cards {form}, rank {rank}")
+            if res[label]["tokens"] != first:
+                raise AssertionError(f"{cards} cards {form}: rank {rank}'s tokens differ from "
+                                     "rank 0's")
+            log(f"{cards} cards, mesh {results[0]['mesh']}, paged engine {form}, rank {rank}: "
+                f"{line}")
+        got = {rid: _Gen(toks, prompts[rid]) for rid, toks in first.items()}
+        want = {rid: _Gen(toks, prompts[rid]) for rid, toks in one[form]["tokens"].items()}
+        check_near_ties(torch, got, want, logits_at[form], f"{cards} cards {form} vs one card")
+        numbers[form] = [{**res[label]["numbers"], "weight_bytes": res[label]["weight_bytes"],
+                          "pool_bytes": res[label]["pool_bytes"]} for res in results]
+    log(f"sharded serving workers' wall {time.perf_counter() - t:.3f} s")
+    del params, logits_at
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPU_VISIBLE_DEVICES=",".join(str(i) for i in range(cards)))
+    for args in (["--family", "dense", "--serve"], ["--family", "moe", "--serve", "--int8"]):
+        p = subprocess.run([sys.executable, "-m", "tpu_dra_torch.parallel.validate", *args],
+                           cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        lines = p.stdout.strip().splitlines()
+        rep = json.loads(lines[-1]) if lines else {}
+        if p.returncode != 0 or rep.get("ok") is not True:
+            raise AssertionError(f"validate {' '.join(args)}: exit {p.returncode}\n{p.stdout}\n"
+                                 f"{p.stderr[-3000:]}")
+        log(f"validate {' '.join(args)} over {cards} cards: {lines[-1][:1500]}")
+        numbers[" ".join(args)] = rep
     return numbers
 
 
@@ -3182,8 +3518,10 @@ def main_cards(torch, cards: int) -> int:
         print(f"chip_smoke: --cards {cards} needs {cards} cards, torch sees "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 1
-    from tpu_dra_torch.parallel import burnin, mfu, validate
+    from tpu_dra_torch.parallel import burnin, mfu, paged, quant, serve, validate, weights
     from tpu_dra_torch.parallel.kernels import _build
+    from tpu_dra_torch.parallel.kernels import flash_attn as fa
+    from tpu_dra_torch.parallel.kernels import paged_attn as pa
 
     try:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -3196,11 +3534,17 @@ def main_cards(torch, cards: int) -> int:
         t = time.perf_counter()
         numbers = phase_cards(torch, burnin, mfu, validate, cards)
         log(f"phase cards: {time.perf_counter() - t:.3f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        serving = phase_cards_serving(torch, burnin, paged, quant, serve, weights, validate, pa,
+                                      fa, cards)
+        log(f"phase cards serving: {time.perf_counter() - t:.3f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    print(json.dumps({"sharded_cards": numbers}))
+    print(json.dumps({"sharded_cards": numbers, "sharded_serving_cards": serving}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3268,12 +3612,12 @@ def main() -> int:
         phase_flash_grads(torch, flash, ring)
         log(f"phase flash kernel: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        paged_row["launches"], greedy_line, greedy_done = phase_engine(
+        paged_row["launches"], greedy_line, greedy_done, gather_tokens = phase_engine(
             torch, burnin, serve, weights, quant, pa, paged)
         log(f"phase engine: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        int8_row["launches"], int8_sampled = phase_engine_int8(torch, burnin, serve, weights,
-                                                               quant, pa, paged)
+        int8_row["launches"], int8_sampled, int8_gather_tokens = phase_engine_int8(
+            torch, burnin, serve, weights, quant, pa, paged)
         int8_row["launches_by_path"] = {"int8 engine": int8_row["launches"],
                                         "int8 sampled": int8_sampled}
         log(f"phase int8 engine: {time.perf_counter() - t:.3f} s")
@@ -3305,6 +3649,15 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        mesh_serving = phase_sharded_serving(torch, validate, gather_tokens, int8_gather_tokens)
+        del gather_tokens, int8_gather_tokens
+        log(f"phase sharded serving: {time.perf_counter() - t:.3f} s; K1 and K2 launches "
+            f"{mesh_serving}")
+        paged_row["launches_by_path"].update(mesh_serving)
+        int8_row["launches_by_path"].update(mesh_serving)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
         flash_row["launches"], train_p50, train_losses, train_peak = phase_train(
             torch, burnin, mfu, fa, flash)
         log(f"phase train: {time.perf_counter() - t:.3f} s")
@@ -3328,6 +3681,7 @@ def main() -> int:
             "train": flash_row["launches"],
             "sharded train": sharded_launches,
             "ulysses train": ulysses_launches,
+            **mesh_serving,
             **phase_burnin(torch, burnin, mfu, fa, data, ckpt, prng, validate, train_p50),
         }
         log(f"phase burn-in: {time.perf_counter() - t:.3f} s; flash launches "

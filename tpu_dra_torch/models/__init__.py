@@ -12,14 +12,15 @@ Counterpart of `tpu_dra.models` for the families the port runs:
 - ``flash``            — the same LM with attention through the flash kernel;
 - ``rope``             — rotary position embeddings + the flash kernel.
 
-`train_family` runs a family's training step on one device or sharded
-over `family_mesh` of a set of ranks, and `serve_family` its serving
-acceptance (a health-checked KV-cache generation, bf16 or the full int8
-stack) on one device.  The pipelined family is named here as in the
-reference, but the port does not run it; the context-parallel families
-do not serve (decode has one query position, as the reference says).
-Both entry points report a refusal (``ok=False`` with its reason),
-honoring the reference's "reports, never raises" contract.
+`train_family` runs a family's training step, and `serve_family` its
+serving acceptance (a health-checked KV-cache generation, bf16 or the
+full int8 stack), on one device or sharded over `family_mesh` of a set
+of ranks (dense, flash, rope and moe serve there; moe on `moe_mesh`
+where the count divides by 4).  The pipelined family is named here as
+in the reference, but the port does not run it; the context-parallel
+families do not serve (decode has one query position, as the reference
+says).  Both entry points report a refusal (``ok=False`` with its
+reason), honoring the reference's "reports, never raises" contract.
 """
 
 from __future__ import annotations
@@ -39,11 +40,12 @@ from tpu_dra_torch.parallel.burnin import (
     init_params,
     train,
 )
-from tpu_dra_torch.parallel.decode import make_generate
+from tpu_dra_torch.parallel import spmd
+from tpu_dra_torch.parallel.decode import PIPELINE_REFUSAL, make_generate
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.moe import moe_mesh
 from tpu_dra_torch.parallel.quant import quantize_params
-from tpu_dra_torch.parallel.weights import cast_matrices
+from tpu_dra_torch.parallel.weights import cast_matrices, shard_params
 
 __all__ = [
     "FAMILIES", "ServeReport", "family_config", "family_mesh", "serve_family", "train_family",
@@ -140,27 +142,44 @@ class ServeReport:
     error: str = ""
 
 
-def serve_family(name: str, *, steps: int = 12, prompt_len: int = 8, int8: bool = False,
-                 device: "str | torch.device" = "cuda", **overrides) -> ServeReport:
-    """Run the named family's serving acceptance on one device: a
-    health-checked generation (`decode.make_generate`) of ``steps``
-    tokens after a ``prompt_len``-token prompt for the config's batch,
-    from `init_params`' seeded weights, timed after one warm-up call.
+def serve_family(name: str, mesh=None, *, steps: int = 12, prompt_len: int = 8,
+                 int8: bool = False, device: "str | torch.device" = "cuda",
+                 **overrides) -> ServeReport:
+    """Run the named family's serving acceptance: a health-checked
+    generation (`decode.make_generate`) of ``steps`` tokens after a
+    ``prompt_len``-token prompt for the config's batch, from
+    `init_params`' seeded weights, timed after one warm-up call.
     ``int8=True`` serves the full int8 stack (`quant.quantize_params`
-    weights, an int8 KV cache).
+    weights, an int8 KV cache).  On one ``device`` when ``mesh`` is
+    None, else sharded over ``mesh`` — a `DeviceMesh`, or the ranks to
+    build `family_mesh` over; every rank of it calls this — at the
+    config scaled to it (`BurninConfig.scaled_to`): each rank draws the
+    whole tree from the same seed on its device, quantizes it when
+    ``int8``, and serves its shards (`weights.shard_params`).
 
     Reports, never raises, for a known family: a config the port rejects
     (context-parallel, pipelined) and a failed or unhealthy generation
-    come back as ``ServeReport(ok=False, error=...)``."""
+    come back as ``ServeReport(ok=False, error=...)``; on a mesh the
+    pipelined family reports the reference's decode refusal."""
     if name not in FAMILIES:
         family_config(name)  # raises: an unknown name is the caller's error
     try:
+        if mesh is not None and name == "pipelined":
+            raise ValueError(PIPELINE_REFUSAL)
         c = family_config(name, **overrides)
-        dev = resolve_device(device)
-        gen = make_generate(c, prompt_len=prompt_len, steps=steps, with_health=True,
+        if mesh is None:
+            dev = resolve_device(device)
+        else:
+            if not isinstance(mesh, DeviceMesh):
+                mesh = family_mesh(name, mesh)
+            c = c.scaled_to(mesh)
+            dev = spmd.Place(mesh).device
+        gen = make_generate(c, mesh, prompt_len=prompt_len, steps=steps, with_health=True,
                             kv_int8=int8)
         params = init_params(c, device=dev)
         params = quantize_params(params) if int8 else cast_matrices(params)
+        if mesh is not None:
+            params = shard_params(params, c, mesh, device=dev)
         prompt = torch.ones((c.batch, prompt_len), dtype=torch.int32, device=dev)
         gen(params, prompt)  # warm-up: the allocator, cuBLAS handles
         if dev.type == "cuda":

@@ -144,7 +144,8 @@ def moe_mlp(layer, h, config, capacity: "int | None" = None):
     return out, aux
 
 
-def moe_mlp_sharded(layer, h, config, place: "spmd.Place", specs):
+def moe_mlp_sharded(layer, h, config, place: "spmd.Place", specs,
+                    capacity: "int | None" = None, serve: bool = False):
     """`moe_mlp` on a rank's shards.  ``h`` (B_local, S, d) bf16 is whole
     over the sequence and over the axes the experts ride, so the routing
     (f32, as `moe_mlp`'s, capacity per batch row from the cumsum over the
@@ -160,9 +161,15 @@ def moe_mlp_sharded(layer, h, config, place: "spmd.Place", specs):
     partial sums all-reduced over ``model``, the combine's over
     ``expert``, then the rank's block); ``aux`` the load-balance term of
     global means: ``frac`` and ``meanp`` are averaged over the batch axes
-    before their product."""
+    before their product.
+
+    ``serve``: the decode step's form, where the stream is not sharded
+    over the sequence: ``capacity`` long queues (`moe_mlp`'s override),
+    the output whole over ``model`` (the combine's partial sums
+    all-reduced there, or over ``expert``), and no load-balance term
+    (``aux`` None)."""
     E = config.moe_experts
-    C = expert_capacity(config)
+    C = expert_capacity(config) if capacity is None else capacity
     bf16 = torch.bfloat16
     ep = "expert" if "expert" in place.sizes else "model"
     n_local = E // place.size(ep)
@@ -172,12 +179,14 @@ def moe_mlp_sharded(layer, h, config, place: "spmd.Place", specs):
     probs = route({"router": router}, h)
     onehot, dispatch, combine = _dispatch(probs, C, dim=1)
 
-    batch_ranks = place.size("data") * place.size("fsdp")
-    frac = spmd.psum(onehot.mean(dim=(0, 1)), place, ("data", "fsdp"))
-    meanp = spmd.psum(probs.mean(dim=(0, 1)), place, ("data", "fsdp"))
-    if batch_ranks > 1:
-        frac, meanp = frac / batch_ranks, meanp / batch_ranks
-    aux = E * torch.sum(frac * meanp)
+    aux = None
+    if not serve:
+        batch_ranks = place.size("data") * place.size("fsdp")
+        frac = spmd.psum(onehot.mean(dim=(0, 1)), place, ("data", "fsdp"))
+        meanp = spmd.psum(probs.mean(dim=(0, 1)), place, ("data", "fsdp"))
+        if batch_ranks > 1:
+            frac, meanp = frac / batch_ranks, meanp / batch_ranks
+        aux = E * torch.sum(frac * meanp)
 
     dispatch = dispatch[:, :, e0:e0 + n_local]
     combine = combine[:, :, e0:e0 + n_local]
@@ -191,8 +200,12 @@ def moe_mlp_sharded(layer, h, config, place: "spmd.Place", specs):
         out_e = spmd.psum(out_e, place, "model")  # each expert's FFN partial sums
     out = torch.einsum("bsec,ebcd->bsd", combine.to(bf16), out_e)
     if ep == "model":
+        if serve:
+            return spmd.psum(out, place, "model"), aux
         return spmd.scatter(out, place, "model", 1), aux
     out = spmd.psum(out, place, "expert")
+    if serve:
+        return out, aux
     n = out.shape[1] // place.size("model")
     lo = place.index("model") * n
     return out[:, lo:lo + n], aux

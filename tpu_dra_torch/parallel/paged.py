@@ -1,6 +1,7 @@
 """Paged KV pool: block-granular KV with per-request block tables.
 
-Counterpart of `tpu_dra.parallel.paged` on one device.  One allocation
+Counterpart of `tpu_dra.parallel.paged`, on one device or on a mesh of
+ranks (below).  One allocation
 of ``num_blocks`` fixed-size blocks (``{"k","v"}`` of ``(L, NB, W, H,
 d_head)`` bf16, or int8 ``{"q","s"}`` pairs with one f32 scale per token
 and head) is addressed through ``(B, NW)`` int32 block tables, so a
@@ -21,6 +22,18 @@ reference's are single-block ``dynamic_slice`` updates, not kernels):
 handoff payload), `write_block` (its inverse) and `copy_block` (the COW
 privatization).  The rule they serve: a block with more than one owner
 is never written.
+
+On a mesh (``mesh=`` on `init_block_pool`, `paged_decode_step_rows` and
+`make_paged_prefill`; `block_pool_spec`) a rank holds its heads of every
+block: the pool is shared storage addressed by the tables, so it is
+whole over ``data`` x ``fsdp``.  A step's rows are computed where
+`decode` puts them (over data x fsdp when the batch divides it), so
+before the scatter the new K and V of every rank's rows are all-gathered
+over data x fsdp and every rank writes all of them: the pool's replicas
+stay equal.  Reads gather the rank's own rows' reach.  The three block
+primitives move the rank's heads of a block.  The CUDA kernel serves one
+device only, as the reference's Pallas kernel does; a mesh reads KV by
+the gather.
 """
 
 from __future__ import annotations
@@ -29,12 +42,19 @@ import time
 
 import torch
 
+from tpu_dra_torch.parallel import spmd
 from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
     _check_prefix_window,
     _embed_lookup,
+    _embed_mesh,
     _kv_writes,
+    _local_heads,
+    _place,
+    _rows,
+    _Rows,
     _run_blocks,
+    _run_blocks_mesh,
     _values,
     _zeros_kv,
 )
@@ -43,6 +63,7 @@ from tpu_dra_torch.parallel.quant import dequantize_bf16, is_quantized_leaf
 
 __all__ = [
     "BlockAllocator",
+    "block_pool_spec",
     "copy_block",
     "init_block_pool",
     "make_paged_prefill",
@@ -52,13 +73,23 @@ __all__ = [
 ]
 
 
+def block_pool_spec(config: BurninConfig, kv_int8: bool = False):
+    """The pool's layout on a mesh (the port's spec: an entry a dim):
+    heads over ``model``, everything else whole (blocks are shared
+    storage; the batch lives in the tables, not in the pool); with
+    ``kv_int8`` the ``{"q","s"}`` pair of it."""
+    spec = (None, None, None, "model", None)
+    return {"q": spec, "s": spec} if kv_int8 else spec
+
+
 def init_block_pool(config: BurninConfig, num_blocks: int, block_size: int,
-                    kv_int8: bool = False, device: "str | torch.device" = "cuda"):
+                    kv_int8: bool = False, device: "str | torch.device" = "cuda", mesh=None):
     """Zeroed block pool: ``{"k","v"}`` of ``(L, NB, W, H, d_head)`` bf16,
     or with ``kv_int8`` the pair ``{"q": int8 (L, NB, W, H, d_head), "s":
     f32 (L, NB, W, H, 1)}`` each (`decode.init_cache`'s storage).  Zeros,
     not uninitialized memory: scratch block 0 is read (masked) by frozen
-    rows, and masked garbage must still be finite."""
+    rows, and masked garbage must still be finite.  On a ``mesh`` the
+    rank's heads (H / model) on the rank's device (``device`` not read)."""
     c = config
     if num_blocks < 2:
         raise ValueError(
@@ -66,8 +97,12 @@ def init_block_pool(config: BurninConfig, num_blocks: int, block_size: int,
         )
     if block_size < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
-    dev = resolve_device(device)
-    shape = (c.n_layers, num_blocks, block_size, c.n_heads, c.d_head)
+    if mesh is None:
+        dev, heads = resolve_device(device), c.n_heads
+    else:
+        place = spmd.Place(mesh)
+        dev, heads = place.device, _local_heads(c, place)
+    shape = (c.n_layers, num_blocks, block_size, heads, c.d_head)
     return {name: _zeros_kv(shape, kv_int8, dev) for name in ("k", "v")}
 
 
@@ -146,8 +181,34 @@ class _PagedKernelKV(_PagedKV):
         return out[:, None]
 
 
+class _MeshPagedKV(_PagedKV):
+    """`_PagedKV` on a mesh: reads gather the reach of the rank's own
+    rows' table rows; a write gathers the new K/V of every rank's rows
+    (over ``fsdp``, then ``data``) and scatters all of them through the
+    whole ``table`` (at the global ``pos`` of a decode step), so every
+    replica of the pool over data x fsdp takes the same writes."""
+
+    def __init__(self, table, block_size: int, rows: _Rows, pos=None):
+        super().__init__(rows.own(table), block_size)
+        self.all = _PagedKV(table, block_size)
+        self.rows, self.pos = rows, pos
+
+    def write(self, cbuf, new, p0):
+        per_row = torch.is_tensor(p0) and p0.dim() >= 1
+        new = self.rows.to_global(self.rows.to_group(new))
+        return self.all.write(cbuf, new, self.pos if per_row else p0)
+
+
+# The reference engine's refusal of its kernel on a mesh (serve.py:534-540).
+MESH_KERNEL_REFUSAL = (
+    "attn_backend='cuda' serves single-device engines only for now: the "
+    "sharded engine stays on the gather path until a sharded kernel lands "
+    "(pass attn_backend='gather' or 'auto')"
+)
+
+
 def paged_decode_step_rows(params, tok, pool, table, pos, config: BurninConfig,
-                           backend: str = "gather"):
+                           backend: str = "gather", mesh=None):
     """One decode step with PER-ROW positions through block tables: row
     ``b``'s token lands in block ``table[b, pos[b] // W]`` at offset
     ``pos[b] % W`` (in place) and attends ``j <= pos[b]``.  Returns
@@ -163,14 +224,40 @@ def paged_decode_step_rows(params, tok, pool, table, pos, config: BurninConfig,
     makes: its request has finished and its output is dropped.  It runs
     at the reach's last position over a table row of scratch, so every
     gather and the kernel's walk stay in range and its writes land in
-    scratch block 0 alone."""
+    scratch block 0 alone.
+
+    On a ``mesh``: ``tok``, ``table`` and ``pos`` are the global rows,
+    ``pool`` the rank's heads, the logits the rank's rows; the backend is
+    the gather."""
     if backend not in ("gather", "cuda"):
         raise ValueError(f"backend must be 'gather' or 'cuda', got {backend!r}")
+    if mesh is None:
+        return _paged_step(params, tok, pool, table, pos, config, backend)
+    if backend == "cuda":
+        raise ValueError(MESH_KERNEL_REFUSAL)
+    rows = _Rows(spmd.Place(mesh), tok.shape[0])
+    logits, pool = _paged_step(params, tok, pool, table, pos, config, backend, rows)
+    return rows.own_of_group(logits), pool
+
+
+def _paged_step(params, tok, pool, table, pos, config: BurninConfig, backend: str,
+                rows: "_Rows | None" = None):
+    """`paged_decode_step_rows`' body; on a mesh (``rows``) the logits of
+    the rank's fsdp group's rows."""
     W = _pool_block_size(pool)
     reach = min(table.shape[1] * W, config.seq)
     over = pos >= reach
     pos = pos.clamp(max=reach - 1)
     table = torch.where(over[:, None], 0, table)
+    if rows is not None:
+        own = rows.own(pos)
+        pos_emb = None if config.rope else params["pos"][own][:, None, :]
+        x = _embed_mesh(params, tok[:, None], pos_emb, rows)
+        slots = torch.arange(table.shape[1] * W, device=tok.device)[None, :]
+        mask = (slots <= own[:, None])[:, None, None, :]
+        kv_io = _MeshPagedKV(table, W, rows, pos)
+        logits, pool = _run_blocks_mesh(params, x, pool, own, mask, config, rows, kv_io=kv_io)
+        return logits[:, 0], pool
     x = _embed_lookup(params["embed"], tok)[:, None, :]
     if not config.rope:
         x = x + params["pos"][pos][:, None, :]
@@ -186,7 +273,7 @@ def _pool_block_size(pool) -> int:
     return _values(pool["k"]).shape[2]
 
 
-def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int):
+def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int, mesh=None):
     """Block-table prefill: returns ``prefill(params, prompt, lens_c,
     pool, table, first_window=0) -> (last, pool)``, which runs the padded
     prompt's W-token windows ``[first_window, prompt_slots/W)`` in order,
@@ -195,35 +282,50 @@ def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int):
     each row's logits at its own last real position ``lens_c[b] - 1``.
     Windows of trailing pads write garbage into the row's own decode
     blocks (overwritten by decode before the mask reaches them) or into
-    scratch."""
+    scratch.  On a ``mesh`` the prompt, lengths and table are global, the
+    pool the rank's heads, ``last`` the rank's rows (a B=1 admission is
+    replicated over data x fsdp: every rank prefills it)."""
     c = config
     _check_prefix_window(c, prompt_slots, window)
     W = window
     nwin = prompt_slots // W
+    place = _place(mesh)
 
     def prefill(params, prompt, lens_c, pool, table, first_window=0):
         if not 0 <= first_window < nwin:
             raise ValueError(f"first_window must be in [0, {nwin}), got {first_window}")
         dev = prompt.device
         t_eff = table.shape[1] * W
-        kv = _PagedKV(table, W)
+        rows = _rows(place, prompt.shape[0])
+        if rows is None:
+            kv = _PagedKV(table, W)
+        else:
+            kv = _MeshPagedKV(table, W, rows)
+            lens_c = rows.group(lens_c)
         lens_c = lens_c.long()
-        last = torch.zeros((prompt.shape[0], c.vocab), device=dev)
+        n = lens_c.shape[0]
+        last = torch.zeros((n, c.vocab), device=dev)
         for i in range(first_window, nwin):
             p0 = i * W
-            x = _embed_lookup(params["embed"], prompt[:, p0:p0 + W])
-            if not c.rope:
-                x = x + params["pos"][None, p0:p0 + W, :]
             valid = (
                 torch.arange(t_eff, device=dev)[None, :]
                 <= p0 + torch.arange(W, device=dev)[:, None]
             )  # (W, NW*W)
-            logits, pool = _run_blocks(params, x, pool, p0, valid[None, None], c, kv_io=kv)
+            if rows is not None:
+                pos_emb = None if c.rope else params["pos"][None, p0:p0 + W, :]
+                x = _embed_mesh(params, prompt[:, p0:p0 + W], pos_emb, rows)
+                logits, pool = _run_blocks_mesh(params, x, pool, p0, valid[None, None], c,
+                                                rows, kv_io=kv)
+            else:
+                x = _embed_lookup(params["embed"], prompt[:, p0:p0 + W])
+                if not c.rope:
+                    x = x + params["pos"][None, p0:p0 + W, :]
+                logits, pool = _run_blocks(params, x, pool, p0, valid[None, None], c, kv_io=kv)
             off = lens_c - 1 - p0  # last real position, window-relative
-            cand = logits[torch.arange(prompt.shape[0], device=dev), off.clamp(0, W - 1)]
+            cand = logits[torch.arange(n, device=dev), off.clamp(0, W - 1)]
             hit = (off >= 0) & (off < W)
             last = torch.where(hit[:, None], cand, last)
-        return last, pool
+        return (last if rows is None else rows.own_of_group(last)), pool
 
     return prefill
 
@@ -280,14 +382,18 @@ class BlockAllocator:
     device-step counter), and origin (``computed``, ``cow``, ``swapin``,
     ``handoff``).  The block-granular LRU
     (`prefixcache.PagedPrefixCache.evict_one`) and the swap victim policy
-    (`swap.AgeHeatPolicy`) rank coldness by them."""
+    (`swap.AgeHeatPolicy`) rank coldness by them.  ``clock`` gives the
+    birth times and ages (default ``time.monotonic``, seconds; a mesh
+    engine's ranks each run this allocator, and pass a clock they all
+    read alike, so that their victim picks agree)."""
 
-    def __init__(self, num_blocks: int):
+    def __init__(self, num_blocks: int, clock=None):
         if num_blocks < 2:
             raise ValueError(
                 f"allocator needs >= 2 blocks (block 0 is scratch), got {num_blocks}"
             )
         self.num_blocks = num_blocks
+        self._clock = clock
         self._ref = [0] * num_blocks
         self._ref[0] = 1  # scratch: immortal, never in the free list
         self._free = list(range(num_blocks - 1, 0, -1))
@@ -330,7 +436,7 @@ class BlockAllocator:
         if n > len(self._free):
             return None
         out = [self._free.pop() for _ in range(n)]
-        now = time.monotonic()
+        now = self._now()
         for b in out:
             self._birth_mono[b] = now
             self._birth_step[b] = step
@@ -359,6 +465,9 @@ class BlockAllocator:
                 self._free.append(b)
                 self._origin[b] = ""
 
+    def _now(self) -> float:
+        return time.monotonic() if self._clock is None else self._clock()
+
     def free_runs(self) -> "list[int]":
         """Lengths of the contiguous free-block runs, in block-id order
         (scratch excluded)."""
@@ -377,8 +486,8 @@ class BlockAllocator:
     def block_records(self, current_step: int = 0) -> "list[dict]":
         """One record per ALLOCATED block (scratch and free excluded):
         refcount, origin, birth/last-touch step, idle steps at
-        ``current_step``, and age on the monotonic clock."""
-        now = time.monotonic()
+        ``current_step``, and age on the allocator's clock."""
+        now = self._now()
         return [
             {
                 "block": b,

@@ -18,7 +18,11 @@ the least recently used goes first.  Two storage forms share the index:
 - `PrefixCache` (the rows layout): a device pool of ``pool_slots`` cache
   rows (one `decode.init_cache`), each holding one entry's positions; a
   hit is a device copy of the prefix into the admitted row
-  (`decode.copy_prefix_into_row`), parking a prompt a copy back.
+  (`decode.copy_prefix_into_row`), parking a prompt a copy back.  On a
+  mesh the pool holds the rank's heads of every row (the admission
+  prefill it copies from is replicated over data x fsdp); the paged
+  cache needs nothing more than the pool's layout
+  (`paged.block_pool_spec`).
 
 The hit/miss/eviction counts are instance fields (``stats()``); the
 reference's process-wide Prometheus counters are not ported.
@@ -28,7 +32,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from tpu_dra_torch.parallel.decode import init_cache
+from tpu_dra_torch.parallel import spmd
+from tpu_dra_torch.parallel.decode import _kv_cache, _local_heads, init_cache
 
 __all__ = ["PagedPrefixCache", "PrefixCache", "PrefixEntry"]
 
@@ -321,13 +326,19 @@ class PrefixCache(_RadixIndex):
     (`acquire`/`release`)."""
 
     def __init__(self, config, pool_slots: int, *, kv_int8: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if pool_slots < 1:
             raise ValueError(f"prefix pool needs at least one slot, got {pool_slots}")
         super().__init__()
         self.config = config
         self.pool_slots = pool_slots
-        self.pool = init_cache(config, pool_slots, kv_int8, device=device)
+        if mesh is None:
+            self.pool = init_cache(config, pool_slots, kv_int8, device=device)
+        else:
+            # Every row, the rank's heads, on the rank's device.
+            place = spmd.Place(mesh)
+            self.pool = _kv_cache(config, pool_slots, _local_heads(config, place), kv_int8,
+                                  place.device)
         self._free: "list[int]" = list(range(pool_slots))
 
     def _evict_lru(self) -> "int | None":

@@ -31,6 +31,7 @@ __all__ = [
     "dequantize_bf16",
     "is_quantized",
     "is_quantized_leaf",
+    "quant_param_specs",
     "quantize_params",
     "quantize_tensor",
     "tree_bytes",
@@ -101,6 +102,28 @@ def quantize_params(params: dict) -> dict:
         "embed": quantize_tensor(params["embed"], _CONTRACT_AXES["embed"]),
         "layers": layers,
     }
+
+
+def quant_param_specs(config, mesh=None):
+    """`burnin.param_specs` laid onto `quantize_params`' tree: ``q``
+    takes its leaf's spec; ``s`` the same with the contraction dims of
+    `_CONTRACT_AXES` nulled (they are size 1 in the keepdims scale, and a
+    size-1 dim carries no mesh axis)."""
+    from tpu_dra_torch.parallel.burnin import param_specs  # burnin imports this module
+
+    specs = param_specs(config, mesh)
+
+    def pair(spec, contract_axes):
+        entries = list(spec) + [None] * (max(contract_axes) + 1 - len(spec))
+        for ax in contract_axes:
+            entries[ax] = None
+        return {"q": spec, "s": tuple(entries)}
+
+    layers = dict(specs["layers"])
+    for name, axes in _CONTRACT_AXES.items():
+        if name != "embed" and name in layers:
+            layers[name] = pair(layers[name], axes)
+    return {**specs, "embed": pair(specs["embed"], _CONTRACT_AXES["embed"]), "layers": layers}
 
 
 def tree_bytes(tree) -> int:

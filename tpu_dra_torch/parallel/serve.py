@@ -1,8 +1,8 @@
 """Continuous-batching serving engine.
 
-Counterpart of `tpu_dra.parallel.serve.ServeEngine` on one device: two
-KV layouts, greedy or sampled decoding with per-token logprobs,
-continuous scheduling or fused ticks.
+Counterpart of `tpu_dra.parallel.serve.ServeEngine`, on one device or on
+a mesh of ranks: two KV layouts, greedy or sampled decoding with
+per-token logprobs, continuous scheduling or fused ticks.
 
 - ``kv_layout="paged"`` (the default for dense models): a pool of KV
   blocks addressed through per-request block tables, with the memory
@@ -91,8 +91,26 @@ and ``tier``, `validate_request` returning the budget and the stop
 sequences, seeds, stop sequences, SLO verdicts and `slo_counts`, and warm
 restart (`export_prefix_index`, `warm_start`, `prefix_digest`).
 
+On a mesh (``mesh=``, a `DeviceMesh`; one process a rank, each running
+its own engine on its shards of the params, `weights.shard_params`)
+every rank runs the same host scheduler on the same submissions.  The
+decode step's rows lie as `decode` lays a batch out (over data x fsdp
+where ``slots`` divides their product, else replicated), heads over
+``model``; tokens and positions come back global on every rank (one
+all-gather over ``data`` a step, with the logprobs).  An admission's
+B=1 prefill is replicated over data x fsdp: every rank runs it (its
+collectives are symmetric) and its first token is the same everywhere;
+on rows only the row's owner inserts it; on paged every rank writes
+its heads of the blocks, and a decode step's new K/V are all-gathered
+before the scatter, so the pool's replicas stay equal.  KV is read by
+the gather (the CUDA kernel serves one device, as the reference's).  A
+host decision that read a wall clock would split the ranks and hang a
+collective: the allocator's block ages, which the swap victim policy
+ranks by, are counted in device steps on a mesh.  The host-sync
+contract is unchanged.
+
 Not ported yet: telemetry (spans, metrics, the step flight recorder, the
-obs registrations), the engine's ``prefill_chunk`` and serving on a mesh.
+obs registrations).
 """
 
 from __future__ import annotations
@@ -105,15 +123,18 @@ import numpy as np
 import torch
 
 from tpu_dra_torch.fleet.digest import ReplicaDigest, build_digest, empty_digest
-from tpu_dra_torch.parallel import prng
+from tpu_dra_torch.parallel import prng, spmd
 from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
     _build_prefill_padded,
     _build_prefill_suffix,
+    _check_chunk,
     _check_prefix_window,
     _check_window,
     _chosen_logprob,
     _make_pick,
+    _Rows,
+    _step_rows,
     _validate_filters,
     copy_prefix_into_row,
     decode_step_rows,
@@ -121,7 +142,9 @@ from tpu_dra_torch.parallel.decode import (
 )
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.paged import (
+    MESH_KERNEL_REFUSAL,
     BlockAllocator,
+    _paged_step,
     _tree_map,
     copy_block,
     init_block_pool,
@@ -245,12 +268,17 @@ class ServeEngine:
     paged-attention CUDA kernel, ``"gather"`` gathers the table's reach
     for the dense attention (on rows: the dense attention over the
     rows), ``"auto"`` (default) picks ``"cuda"`` on a paged CUDA engine
-    and ``"gather"`` otherwise.  ``"cuda"`` on a CPU engine or on rows
-    raises.  ``prefix_window``: the block size W, and the prefix cache's
-    window on rows; it must divide ``prompt_slots`` (default: the
-    largest divisor of ``prompt_slots`` up to a quarter of it).  ``kv_int8``: the pool
-    stores int8 values with one f32 scale per token and head (each
-    written row quantized once, at insert).
+    of one device and ``"gather"`` otherwise.  ``"cuda"`` on a CPU
+    engine, on rows or on a mesh raises.  ``prefill_chunk``: the rows
+    layout's admission prefill runs in windows of that many tokens (it
+    must divide ``prompt_slots``; refused with experts, as
+    `decode.make_generate`'s); on paged the prefill runs on the block
+    grid, so it must equal the block size.  ``prefix_window``: the block
+    size W, and the prefix cache's window on rows; it must divide
+    ``prompt_slots`` (default: ``prefill_chunk`` when given, else the
+    largest divisor of ``prompt_slots`` up to a quarter of it).
+    ``kv_int8``: the pool stores int8 values with one f32 scale per
+    token and head (each written row quantized once, at insert).
 
     ``prefix_cache_slots``: resident entries of the shared-prefix cache
     (0, the default, turns it off; on rows, the rows of its pool; MoE
@@ -278,7 +306,13 @@ class ServeEngine:
     ``"cuda"``; raises when CUDA is absent).  ``params`` must be on it,
     plain or int8 (`quant.quantize_params`); the engine serves from a
     copy whose plain layer matrices are bf16, int8 pairs as they are
-    (bf16 matrices are shared with ``params``, not copied)."""
+    (bf16 matrices are shared with ``params``, not copied).
+
+    ``mesh``: serve on a `DeviceMesh` of ranks (module docstring): every
+    rank builds its engine with its shards of the params
+    (`weights.shard_params` of the whole tree, quantized first for int8)
+    and drives it with the same calls; the engine lives on the rank's
+    device (``device`` is not read)."""
 
     def __init__(
         self,
@@ -296,6 +330,7 @@ class ServeEngine:
         top_k: "int | None" = None,
         top_p: "float | None" = None,
         with_logprobs: bool = False,
+        prefill_chunk: "int | None" = None,
         kv_layout: "str | None" = None,
         kv_blocks: "int | None" = None,
         host_kv_blocks: "int | None" = None,
@@ -307,12 +342,14 @@ class ServeEngine:
         tpot_slo_s: "float | None" = None,
         name: "str | None" = None,
         tier: str = "mono",
+        mesh=None,
         device: "str | torch.device" = "cuda",
     ):
         c = config
         if tier not in ("mono", "prefill", "decode"):
             raise ValueError(f"tier must be 'mono', 'prefill', or 'decode', got {tier!r}")
-        dev = resolve_device(device)
+        place = None if mesh is None else spmd.Place(mesh)
+        dev = resolve_device(device) if place is None else place.device
         # Every row must fit prompt + its budget in the context.
         _check_window(c, prompt_slots, max_new_cap, "prompt_slots")
         if slots < 1:
@@ -324,6 +361,7 @@ class ServeEngine:
                 f"scheduling must be 'continuous' or 'tick', got {scheduling!r}"
             )
         _validate_filters(c.vocab, temperature > 0, top_k, top_p)
+        _check_chunk(c, prompt_slots, prefill_chunk, "prompt_slots")
         if prefix_cache_slots < 0:
             raise ValueError(f"prefix_cache_slots must be >= 0, got {prefix_cache_slots}")
         for knob, value in (("ttft_slo_s", ttft_slo_s), ("tpot_slo_s", tpot_slo_s)):
@@ -371,8 +409,11 @@ class ServeEngine:
                 "requires kv_layout='paged' (the rows layout has no block "
                 "tables to stream)"
             )
+        if attn_backend == "cuda" and mesh is not None:
+            raise ValueError(MESH_KERNEL_REFUSAL)
         if attn_backend == "auto":
-            attn_backend = "cuda" if kv_layout == "paged" and dev.type == "cuda" else "gather"
+            attn_backend = ("cuda" if kv_layout == "paged" and mesh is None and dev.type == "cuda"
+                            else "gather")
         if attn_backend == "cuda" and dev.type != "cuda":
             raise ValueError(
                 "attn_backend='cuda' runs the CUDA kernel: it needs a CUDA "
@@ -385,14 +426,25 @@ class ServeEngine:
         if kv_layout == "paged" or prefix_cache_slots > 0:
             if prefix_window is not None:
                 w = prefix_window
+            elif prefill_chunk is not None:
+                w = prefill_chunk
             else:
                 # ~ a quarter prompt, rounded down to a divisor: the
                 # reference's default block size.
                 cap = max(1, prompt_slots // 4)
                 w = max(d for d in range(1, cap + 1) if prompt_slots % d == 0)
             _check_prefix_window(c, prompt_slots, w)
+        if kv_layout == "paged" and prefill_chunk is not None and prefill_chunk != w:
+            raise ValueError(
+                f"paged prefill runs on the block grid: prefill_chunk ({prefill_chunk}) must "
+                f"equal the block size ({w}) or be left unset"
+            )
 
         self.config = c
+        self.mesh = mesh
+        # Where the decode step's rows lie on the mesh (None: one device).
+        self._rows = None if place is None else _Rows(place, slots)
+        self.prefill_chunk = prefill_chunk
         self.device = dev
         self.params = cast_matrices(params)
         self.slots = slots
@@ -433,12 +485,13 @@ class ServeEngine:
             # One full-context row a slot; the B=1 admission prefill is
             # one pass over the padded prompt.
             self._table_cols = 0
-            self._cache = init_cache(c, slots, kv_int8, device=dev)
-            self._prefill1 = _build_prefill_padded(c, prompt_slots, None)
+            self._cache = init_cache(c, slots, kv_int8, device=dev, mesh=mesh)
+            self._prefill1 = _build_prefill_padded(c, prompt_slots, prefill_chunk, mesh)
             self._prefix = None
             if prefix_cache_slots:
-                self._prefix = PrefixCache(c, prefix_cache_slots, kv_int8=kv_int8, device=dev)
-                self._suffix = _build_prefill_suffix(c, prompt_slots, w)
+                self._prefix = PrefixCache(c, prefix_cache_slots, kv_int8=kv_int8, device=dev,
+                                           mesh=mesh)
+                self._suffix = _build_prefill_suffix(c, prompt_slots, w, mesh)
         # Host row state: the request, its position (== valid tokens in
         # the row), the token it feeds next, and the prefix entries it
         # pins (the one it read, the one it wrote); on paged, its block
@@ -491,9 +544,12 @@ class ServeEngine:
             raise ValueError(
                 f"kv_blocks must be >= {floor} (one worst-case request + scratch), got {nb}"
             )
-        self._balloc = BlockAllocator(nb)
-        self._pool = init_block_pool(c, nb, w, self.kv_int8, device=self.device)
-        self._prefill = make_paged_prefill(c, self.prompt_slots, w)
+        # On a mesh the blocks' ages are counted in device steps, which
+        # every rank counts alike (wall clocks differ between ranks).
+        self._balloc = (BlockAllocator(nb) if self.mesh is None else
+                        BlockAllocator(nb, clock=lambda: float(self._device_steps)))
+        self._pool = init_block_pool(c, nb, w, self.kv_int8, device=self.device, mesh=self.mesh)
+        self._prefill = make_paged_prefill(c, self.prompt_slots, w, mesh=self.mesh)
         self._prefix = (
             PagedPrefixCache(prefix_cache_slots, self._balloc, block_size=w)
             if prefix_cache_slots else None
@@ -982,7 +1038,7 @@ class ServeEngine:
         Returns ``(cache1, last)``, ``last`` the logits at the prompt's
         last position, on the device."""
         tokens, lens, _ = self._upload(stage, prompt)
-        cache1 = init_cache(self.config, 1, self.kv_int8, device=self.device)
+        cache1 = init_cache(self.config, 1, self.kv_int8, device=self.device, mesh=self.mesh)
         last, cache1 = self._prefill1(self.params, tokens, lens, cache1)
         return cache1, last
 
@@ -1010,7 +1066,7 @@ class ServeEngine:
             # on the grid, so reused == positions whose compute was skipped.
             fw = m // w
             tokens, lens, _ = self._upload(stage, req.prompt)
-            cache1 = init_cache(self.config, 1, self.kv_int8, device=self.device)
+            cache1 = init_cache(self.config, 1, self.kv_int8, device=self.device, mesh=self.mesh)
             copy_prefix_into_row(cache1, 0, self._prefix.pool, entry.slot, fw * w)
             last, cache1 = self._suffix(self.params, tokens, lens, cache1, first_window=fw)
             req.prefix_reused = fw * w
@@ -1023,8 +1079,18 @@ class ServeEngine:
             if new_entry is not None:
                 copy_prefix_into_row(self._prefix.pool, new_entry.slot, cache1, 0, length)
                 pins.append(new_entry)
-        copy_prefix_into_row(self._cache, row, cache1, 0, self.config.seq)
+        local = self._own_row(row)
+        if local is not None:  # on a mesh, only the row's owner holds it
+            copy_prefix_into_row(self._cache, local, cache1, 0, self.config.seq)
         return last, pins
+
+    def _own_row(self, row: int) -> "int | None":
+        """Engine row ``row``'s index in this rank's rows cache, or None
+        when another rank holds it."""
+        rows = self._rows
+        if rows is None:
+            return row
+        return row - rows.lo if rows.lo <= row < rows.hi else None
 
     def _head_index(self) -> int:
         """The admission head's queue index: highest priority first,
@@ -1096,6 +1162,19 @@ class ServeEngine:
         if not self._sampled:
             return self._pick(logits)
         return self._pick(logits, prng.fold_in(prng.key(seeds), positions))
+
+    def _global_picks(self, toks, lps):
+        """A mesh step's picks (and logprobs) of the rank's group's rows
+        made every row's, in one all-gather over ``data``: a token id (at
+        most the vocabulary, far below 2**24) is exact in f32 beside its
+        logprob.  The identity on one device or a replicated batch."""
+        rows = self._rows
+        if rows is None or not rows.split:
+            return toks, lps
+        if lps is None:
+            return rows.to_global(toks), None
+        both = rows.to_global(torch.stack([toks.to(torch.float32), lps], dim=1))
+        return both[:, 0].to(torch.int32), both[:, 1]
 
     def _fetch(self, ints, floats):
         """ONE blocking device-to-host copy of the int tensors ``ints``
@@ -1187,22 +1266,36 @@ class ServeEngine:
         live = state[2 * B:3 * B].bool()
         seeds = state[3 * B:4 * B]
         table = state[4 * B:].view(B, self._table_cols)
+        rows = self._rows
         toks, lps = [], []
         for _ in range(n):
-            if paged:
+            if paged and rows is None:
                 logits, self._pool = paged_decode_step_rows(
                     self.params, tok, self._pool, table, pos, self.config,
                     backend=self.attn_backend,
                 )
-            else:
+            elif paged:
+                logits, self._pool = _paged_step(self.params, tok, self._pool, table, pos,
+                                                 self.config, "gather", rows)
+            elif rows is None:
                 # A row that walks past the context in a fused call
                 # writes its own last slot (`decode_step_rows` clamps).
                 logits, self._cache = decode_step_rows(self.params, tok, self._cache, pos,
                                                        self.config)
-            # The token fed at position pos lands in pos + 1.
-            nxt = self._sample(logits, seeds, pos + 1)
+            else:
+                logits, self._cache = _step_rows(self.params, tok, self._cache, pos,
+                                                 self.config, rows)
+            # The token fed at position pos lands in pos + 1.  On a mesh
+            # the logits are the rank's group's rows.
+            ahead = pos + 1
+            if rows is not None:
+                nxt = self._sample(logits, rows.group(seeds), rows.group(ahead))
+            else:
+                nxt = self._sample(logits, seeds, ahead)
+            lp = _chosen_logprob(logits, nxt) if self.with_logprobs else None
+            nxt, lp = self._global_picks(nxt, lp)
             if self.with_logprobs:
-                lps.append(_chosen_logprob(logits, nxt))
+                lps.append(lp)
             # Frozen rows keep their token and position, so their harmless
             # writes stay on one stale slot of scratch block 0.
             tok = torch.where(live, nxt, tok)

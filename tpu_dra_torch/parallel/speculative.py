@@ -1,6 +1,7 @@
 """Speculative decoding: layer-skip self-draft, exact greedy acceptance.
 
-Counterpart of `tpu_dra.parallel.speculative` on one device.  A cheap
+Counterpart of `tpu_dra.parallel.speculative`, on one device or on a
+mesh of ranks.  A cheap
 DRAFT (the model's own first ``draft_layers`` blocks, the final norm and
 the tied logits head: no second set of weights) proposes ``draft_len``
 tokens autoregressively; the full model scores all of them in ONE
@@ -28,6 +29,14 @@ consensus (the least accepted prefix over the rows).  The reference's
 ``lax.while_loop`` is a host loop here: its condition, the frontier,
 is read once a round, which makes ONE host sync a round.  The cache is
 contiguous (`decode.init_cache`): no paged-attention kernel runs here.
+
+On a mesh (``mesh=``) every rank runs the rounds on its shards, the
+draft sharded as the target is (its leading layers): picks, draws and
+the acceptance test run on the rows of the rank's fsdp group (`decode`'s
+layout), each draw under one key taking its rows of the global
+``(B, ...)`` draw; every pick is made global by one all-gather over
+``data``, and the batch consensus is taken over the global rows, so
+every rank commits alike and returns the global tokens.
 """
 
 from __future__ import annotations
@@ -40,8 +49,13 @@ from tpu_dra_torch.parallel import prng
 from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
     _build_prefill,
+    _categorical,
     _check_window,
+    _forward,
     _key_or_raise,
+    _place,
+    _rows,
+    _to_global,
     _validate,
     decode_forward,
     init_cache,
@@ -70,17 +84,18 @@ def acceptance_flags(u, target_logits, draft_logits, draft_tok, temperature: flo
     return u < p_x / q_x.clamp(min=1e-20)
 
 
-def residual_sample(key, target_logits, draft_logits, temperature: float = 1.0):
+def residual_sample(key, target_logits, draft_logits, temperature: float = 1.0, rows=None):
     """The rejection branch: a draw from ``normalize(max(p - q, 0))``
     under ``key``; a residual of zero mass (``p == q``, where acceptance
     is certain) falls back to ``p``.  Logits (..., V) -> tokens (...,)
-    int32."""
+    int32.  ``rows``: the logits are a mesh rank's group's rows of the
+    global batch (`decode._categorical`)."""
     p = _probs(target_logits, temperature)
     q = _probs(draft_logits, temperature)
     resid = (p - q).clamp(min=0.0)
     mass = resid.sum(-1, keepdim=True)
     resid = torch.where(mass > 0, resid / mass.clamp(min=1e-20), p)
-    return prng.categorical(key, torch.log(resid + 1e-20)).to(torch.int32)
+    return _categorical(key, torch.log(resid + 1e-20), rows).to(torch.int32)
 
 
 def accept_or_resample(key, target_logits, draft_logits, draft_tok, temperature: float = 1.0):
@@ -109,13 +124,17 @@ def draft_params(params: dict, draft_layers: int) -> dict:
     return {**params, "layers": _leading(params["layers"], draft_layers)}
 
 
-def make_generate_speculative(config: BurninConfig, *, prompt_len: int, steps: int,
-                              draft_layers: int, draft_len: int, temperature: float = 0.0,
-                              with_stats: bool = False, kv_int8: bool = False):
+def make_generate_speculative(config: BurninConfig, mesh=None, *, prompt_len: int,
+                              steps: int, draft_layers: int, draft_len: int,
+                              temperature: float = 0.0, with_stats: bool = False,
+                              kv_int8: bool = False):
     """Build ``fn(params, prompt (B, prompt_len)[, key]) -> (B,
-    prompt_len + steps)`` on one device (the reference's ``mesh`` and
-    ``quantized`` arguments are not ported).  ``temperature == 0`` is
-    greedy and equals `decode.make_generate`'s output; above 0 it samples
+    prompt_len + steps)`` on one device, or on a ``mesh`` as
+    `decode.make_generate` is (every rank its shards of ``params``, the
+    global prompt in, the global tokens out; the reference's
+    ``quantized`` names shardings the tree itself tells here).
+    ``temperature == 0`` is greedy and equals `decode.make_generate`'s
+    output (on a mesh, up to the sharded logits' near-ties); above 0 it samples
     under ``key`` (a ``(2,)`` `prng` key).  ``draft_layers``: the draft's
     depth (1..n_layers); ``draft_len``: tokens proposed a round (the
     context needs ``prompt_len + steps + draft_len`` slots: a last round
@@ -140,12 +159,10 @@ def make_generate_speculative(config: BurninConfig, *, prompt_len: int, steps: i
     # the final committed position before truncation.
     _check_window(c, prompt_len, steps + draft_len, "prompt_len")
     dc = dataclasses.replace(c, n_layers=draft_layers)
-    prefill_full = _build_prefill(c, prompt_len, None)
+    prefill_full = _build_prefill(c, prompt_len, None, mesh)
     sampled = temperature > 0.0
     k = draft_len
-
-    def categorical(key, logits):
-        return prng.categorical(key, logits / temperature).to(torch.int32)
+    place = _place(mesh)
 
     def argmax(logits):
         return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -155,8 +172,29 @@ def make_generate_speculative(config: BurninConfig, *, prompt_len: int, steps: i
         _key_or_raise(sampled, key, "fn(params, prompt, key)")
         B = prompt.shape[0]
         dev = prompt.device
+        # On a mesh the logits and every per-row decision below are the
+        # rows of the rank's fsdp group; tok, drafted, fed and outbuf
+        # are global.
+        rows = _rows(place, B)
+
+        def categorical(key, logits):
+            return _categorical(key, logits / temperature, rows).to(torch.int32)
+
+        def group(x):
+            return x if rows is None else rows.group(x)
+
+        def forward(params, tokens, cache, p0, cfg):
+            if rows is None:
+                return decode_forward(params, tokens, cache, p0, cfg)
+            return _forward(params, tokens, cache, p0, cfg, rows)
+
+        def residual(key, target_logits, draft_logits):
+            if rows is None:
+                return residual_sample(key, target_logits, draft_logits, temperature)
+            return residual_sample(key, target_logits, draft_logits, temperature, rows)
+
         dparams = draft_params(params, draft_layers)
-        cache = init_cache(c, B, kv_int8, device=dev)
+        cache = init_cache(c, B, kv_int8, device=dev, mesh=mesh)
         last, cache = prefill_full(params, prompt, cache)
         # The draft's prefill state is free: its blocks are the full
         # model's first layers on the same inputs, so its cache is a copy
@@ -164,9 +202,9 @@ def make_generate_speculative(config: BurninConfig, *, prompt_len: int, steps: i
         dcache = _leading(cache, draft_layers, copy=True)
         if sampled:
             key, k0 = prng.split(torch.as_tensor(key, dtype=torch.int64, device=dev))
-            tok = categorical(k0, last)
+            tok = _to_global(categorical(k0, last), rows)
         else:
-            tok = argmax(last)
+            tok = _to_global(argmax(last), rows)
         fin = torch.isfinite(last).all()
         outbuf = torch.zeros((B, steps + k), dtype=torch.int32, device=dev)
         count = rounds = 0
@@ -181,30 +219,31 @@ def make_generate_speculative(config: BurninConfig, *, prompt_len: int, steps: i
             # full-acceptance round commits.
             t, drafted, dlogits = tok, [], []
             for j in range(k + 1):
-                lg, dcache = decode_forward(dparams, t[:, None], dcache, f + j, dc)
+                lg, dcache = forward(dparams, t[:, None], dcache, f + j, dc)
                 row = lg[:, -1]
-                t = categorical(dkeys[j], row) if sampled else argmax(row)
+                t = _to_global(categorical(dkeys[j], row) if sampled else argmax(row), rows)
                 drafted.append(t)
                 dlogits.append(row)
             drafted = torch.stack(drafted[:k], dim=1)  # (B, k): d1..dk
             fed = torch.cat([tok[:, None], drafted], dim=1)  # (B, k + 1)
             # One full-model pass scores every fed token: logits[:, j] is
             # the target after fed[:, j]; full agreement commits k + 1.
-            logits, cache = decode_forward(params, fed, cache, f, c)
+            logits, cache = forward(params, fed, cache, f, c)
             fin = fin & torch.isfinite(logits).all()
             if sampled:
                 dlog = torch.stack(dlogits[:k], dim=1)  # (B, k, V)
-                u = prng.uniform(ka, (B, k))
-                a = acceptance_flags(u, logits[:, :k], dlog, drafted, temperature)
+                u = group(prng.uniform(ka, (B, k)))
+                a = acceptance_flags(u, logits[:, :k], dlog, group(drafted), temperature)
                 fin = fin & torch.isfinite(dlog).all()
             else:
                 g = argmax(logits)
-                a = fed[:, 1:] == g[:, :-1]  # (B, k)
+                a = group(fed)[:, 1:] == g[:, :-1]  # (B, k)
             # Write all k + 1 fed tokens at the frontier; the unaccepted
             # tail is overwritten by the next round.
             outbuf[:, count:count + k + 1] = fed
-            # The batch consensus: the round's one host sync.
-            n_acc = int(torch.cumprod(a.to(torch.int32), dim=-1).sum(-1).min())
+            # The batch consensus over every row: the round's one host sync.
+            accepted = _to_global(torch.cumprod(a.to(torch.int32), dim=-1).sum(-1), rows)
+            n_acc = int(accepted.min())
             if sampled:
                 # Full acceptance: the bonus draw from the target after
                 # d_k.  Rejection at the cut: the residual draw.  A row
@@ -214,12 +253,15 @@ def make_generate_speculative(config: BurninConfig, *, prompt_len: int, steps: i
                 if n_acc == k:
                     tok = categorical(kb, logits[:, k])
                 else:
-                    resid = residual_sample(kr, logits[:, jstar], dlog[:, jstar], temperature)
-                    tok = torch.where(a[:, jstar], drafted[:, jstar], resid)
+                    resid = residual(kr, logits[:, jstar], dlog[:, jstar])
+                    tok = torch.where(a[:, jstar], group(drafted)[:, jstar], resid)
             else:
                 tok = g[:, n_acc]  # the target's pick after the last commit
+            tok = _to_global(tok, rows)
             count += 1 + n_acc
             rounds += 1
+        if rows is not None:
+            fin = rows.all_true(fin)
         tokens = torch.cat([prompt.to(torch.int32), outbuf[:, :steps]], dim=1)
         return (tokens, rounds, fin) if with_stats else tokens
 

@@ -27,7 +27,9 @@ as the reference's stage does, sharded over `burnin.burnin_mesh` of the
 host's ranks, then with ring attention and with experts when the mesh's
 ``model`` axis is larger than 1.  ``--family NAME --train N`` on more
 than one local device trains in such workers too, over
-`models.family_mesh` of every rank.
+`models.family_mesh` of every rank, and ``--family NAME --serve
+[--int8]`` serves there (`models.serve_family` over the family's mesh;
+the context-parallel and pipelined families report their refusal).
 
     python -m tpu_dra_torch.parallel.validate [topology] [--train N]
                                               [--family NAME [--serve [--int8]]]
@@ -298,7 +300,7 @@ def _run_workers(plan: dict, timeout_s: float):
             # A rank whose training failed may leave the others waiting in
             # a collective of the step.
             failed_train = any(res.get(key) is not None and not res[key]["ok"]
-                               for key, _ in _TRAIN_STAGES)
+                               for key in [k for k, _ in _TRAIN_STAGES] + ["serve"])
             if res["error"] or failed_train:
                 deadline = min(deadline, time.monotonic() + _GRACE_S)
     finally:
@@ -325,7 +327,8 @@ def _worker(local_rank: int, plan: dict, out) -> None:
     """One rank: bind the device, join the group (and say so on ``out``),
     run the checks and the training stage, or a family's training, and
     put its result on ``out``."""
-    result = {"checks": [], "train": None, "train_ring": None, "train_moe": None, "error": ""}
+    result = {"checks": [], "train": None, "train_ring": None, "train_moe": None, "serve": None,
+              "error": ""}
     try:
         _run_rank(local_rank, plan, result, lambda: out.put((local_rank, "joined", None)))
     except Exception as e:  # reported to the launcher, which reports it
@@ -368,13 +371,17 @@ def _run_rank(local_rank: int, plan: dict, result: dict, on_joined) -> None:
                    timeout_s=plan["timeout_s"])
     on_joined()
     if plan.get("family"):
-        from tpu_dra_torch.models import train_family
+        from tpu_dra_torch.models import serve_family, train_family
 
-        # Over every rank of the group, as the reference trains a family
-        # over every device it sees.
-        ranks = range(dist.get_world_size()) if dist.is_initialized() else [0]
-        result["train"] = asdict(train_family(plan["family"], list(ranks),
-                                              steps=plan["train_steps"], device=dev))
+        # Over every rank of the group, as the reference trains (and
+        # serves) a family over every device it sees.
+        ranks = list(range(dist.get_world_size()) if dist.is_initialized() else [0])
+        if plan.get("serve"):
+            result["serve"] = asdict(serve_family(plan["family"], ranks, int8=plan["int8"],
+                                                  device=dev))
+        else:
+            result["train"] = asdict(train_family(plan["family"], ranks,
+                                                  steps=plan["train_steps"], device=dev))
         return
     checks = result["checks"]
     host = gang.rank if gang is not None else 0
@@ -430,26 +437,34 @@ def _train_on_mesh(steps: int, result: dict, mesh, ranks) -> None:
             burnin.train(burnin.BurninConfig(moe_experts=4), bmesh, steps))
 
 
-def _train_family_on_workers(family: str, steps: int, device, n_local: int):
-    """``--family NAME --train N`` on ``n_local`` local devices: one worker
-    a device (in the gang's group, when there is one), the family trained
-    over `models.family_mesh` of every rank.  Returns ``(rank 0's
-    TrainReport, the GangEnv or None)``; a worker that fails or outstays
-    the time is a failed report."""
+def _family_on_workers(family: str, steps: int, device, n_local: int,
+                       serve: bool = False, int8: bool = False):
+    """``--family NAME --train N`` (or ``--serve [--int8]``) on ``n_local``
+    local devices: one worker a device (in the gang's group, when there
+    is one), the family trained (or served) over `models.family_mesh` of
+    every rank.  Returns ``(rank 0's TrainReport or ServeReport, the
+    GangEnv or None)``; a worker that fails or outstays the time is a
+    failed report."""
+    from tpu_dra_torch.models import ServeReport
+
     gang = GangEnv.from_env(os.environ)
     if gang is not None and gang.size <= 1:
         gang = None
     plan = {
         "device": resolve_device(device).type, "n_local": n_local, "topology": (n_local, 1, 1),
         "axes": [], "mbytes": 0, "train_steps": steps, "family": family,
+        "serve": serve, "int8": int8,
         "gang": asdict(gang) if gang is not None else None,
         "init_method": f"tcp://127.0.0.1:{_free_port()}", "timeout_s": GROUP_TIMEOUT_S,
     }
     results, failures, _ = _run_workers(plan, GROUP_TIMEOUT_S)
-    if 0 in results and results[0]["train"] is not None:
-        return TrainReport(**results[0]["train"]), gang
+    key = "serve" if serve else "train"
+    if 0 in results and results[0][key] is not None:
+        return (ServeReport if serve else TrainReport)(**results[0][key]), gang
     errors = [f"worker {r}: {e}" for r, e in sorted(failures.items())]
     errors += [f"worker {r}: {res['error']}" for r, res in sorted(results.items()) if res["error"]]
+    if serve:
+        return ServeReport(ok=False, error="; ".join(errors)), gang
     return TrainReport(ok=False, steps=0, loss_first=0.0, loss_last=0.0, step_seconds_p50=0.0,
                        tokens_per_second=0.0, error="; ".join(errors)), gang
 
@@ -463,9 +478,10 @@ def main(argv: "list[str] | None" = None, *, device: "str | torch.device" = "cud
     ``--family`` runs one workload family (`tpu_dra_torch.models`)
     instead of the acceptance suite: on one device in this process, or
     on more in one worker a device, sharded over the family's mesh;
-    ``--serve`` probes its serving half on one device (``--int8``: the
-    full int8 stack).  ``device`` and ``local_devices`` are
-    `validate_slice`'s (the command line runs on the cards)."""
+    ``--serve`` probes its serving half instead of training it, the same
+    way (``--int8``: the full int8 stack).  ``device`` and
+    ``local_devices`` are `validate_slice`'s (the command line runs on
+    the cards)."""
     argv = sys.argv[1:] if argv is None else argv
     train_steps = 0
     train_given = False
@@ -532,14 +548,13 @@ def main(argv: "list[str] | None" = None, *, device: "str | torch.device" = "cud
             )
         steps = train_steps if train_given else 5
         n_local = 1
-        if not serve:
-            try:
-                n_local = _local_device_count(resolve_device(device), local_devices)
-            except RuntimeError:  # no card: the one-device probe reports it
-                pass
+        try:
+            n_local = _local_device_count(resolve_device(device), local_devices)
+        except RuntimeError:  # no card: the one-device probe reports it
+            pass
         if n_local > 1:
             try:
-                r, gang = _train_family_on_workers(family, steps, device, n_local)
+                r, gang = _family_on_workers(family, steps, device, n_local, serve, int8)
             except (ValueError, TypeError) as e:
                 return arg_error(f"malformed gang env: {e}")
         else:

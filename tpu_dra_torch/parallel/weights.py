@@ -7,7 +7,9 @@ reference's own tree as numpy arrays
 `params_from_numpy` (the serving form) or its training state to
 `state_from_numpy` — this module never sees JAX itself.  For the sharded
 step, `shard_state` cuts that state into one rank's shards and
-`gather_state` puts the ranks' shards back together.
+`gather_state` puts the ranks' shards back together; for serving on a
+mesh, `shard_params` cuts a serving tree (bf16 matrices, or int8
+``{"q","s"}`` pairs) into one rank's shards.
 """
 
 from __future__ import annotations
@@ -16,13 +18,14 @@ import numpy as np
 import torch
 
 from tpu_dra_torch.parallel import spmd
-from tpu_dra_torch.parallel.burnin import state_shardings
+from tpu_dra_torch.parallel.burnin import param_specs, state_shardings
+from tpu_dra_torch.parallel.collectives import rank_device
 from tpu_dra_torch.parallel.device import resolve_device
-from tpu_dra_torch.parallel.quant import is_quantized_leaf
+from tpu_dra_torch.parallel.quant import is_quantized, is_quantized_leaf, quant_param_specs
 
 __all__ = [
     "EXPERT_MATRICES", "MATRICES", "cast_matrices", "gather_state", "params_from_numpy",
-    "shard_state", "state_from_numpy",
+    "shard_params", "shard_state", "state_from_numpy",
 ]
 
 # The per-layer matrices every use casts to bf16, the dense MLP's and the
@@ -138,6 +141,35 @@ def shard_state(state, config, mesh, rank: int, device: "str | torch.device" = "
 
     specs = state_shardings(config, sizes)
     return tuple(_zip_map(cut, part, spec) for part, spec in zip(state, specs))
+
+
+def shard_params(params, config, mesh, rank: "int | None" = None,
+                 device: "str | torch.device | None" = None):
+    """One rank's shards of a serving tree: ``params`` as `cast_matrices`
+    or `quant.quantize_params` leave it (tensors, or numpy arrays), each
+    leaf cut by `burnin.param_specs` (a quantized tree by
+    `quant.quant_param_specs`) at the rank's place on ``mesh`` (a
+    `DeviceMesh`, ``rank`` default this process's rank; or ``{axis:
+    size}``, ``rank`` the row-major index), every leaf keeping its dtype.
+    ``device`` defaults to the rank's device on a `DeviceMesh`, else
+    ``"cuda"``.  A leaf the rank holds whole on its device comes back as
+    a view of it (no copy).  Quantize the whole tree, then cut it: a per-channel scale
+    taken over a shard of its contraction dim is not the whole tree's."""
+    sizes = spmd.mesh_sizes(mesh)
+    if rank is None:
+        rank = torch.distributed.get_rank()
+    coords = _coords(mesh, rank)
+    if device is None:
+        dev = rank_device(mesh) if hasattr(mesh, "mesh") else resolve_device("cuda")
+    else:
+        dev = resolve_device(device)
+    specs = (quant_param_specs if is_quantized(params) else param_specs)(config, sizes)
+
+    def cut(leaf, spec):
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
+        return t[spmd.local_slices(spec, t.shape, sizes, coords)].contiguous().to(dev)
+
+    return _zip_map(cut, params, specs)
 
 
 def gather_state(shards, config, mesh):
