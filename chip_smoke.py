@@ -154,11 +154,25 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    refused with exit 1; ``--family flash --train 2`` and ``--family dense
    --serve`` ok) and a one-rank NCCL group in a spawned worker running the
    collective checks;
-14. the kernels' JSON line (K1's rows also list each path's launches, K2's
+14. training on the mesh, completed, in a spawned one-rank NCCL worker:
+    the pipelined trainer (dense, the trainer's width, `pipeline_mesh([0],
+    stages=1)`, 4 microbatches, 6 steps; losses within ``PIPE_LOSS_RTOL``
+    of the one-device trainer's on the same weights and batch, step p50
+    and peak memory beside its, 0 K1 and 0 K2 launches) and the pipelined
+    family (2 experts, cut to 4 layers, 3 steps); `data.train_on_stream`
+    of the flash family on `burnin_mesh([0])` (the rank's prefetched
+    batches its slices of the host's, losses bitwise the one-device
+    stream-fed trainer's, 96 K2 launches); checkpoints at 2 layers on the
+    mesh (a bitwise round trip with save and restore GB/s, a run
+    interrupted on the mesh and resumed on one device and the reverse,
+    both bitwise the uninterrupted run's, the fall-back past a torn shard
+    beside a ``.tmp`` orphan); then ``validate --family pipelined --train
+    2`` (one card: the reference's `pipeline_mesh` refusal, exit 1);
+15. the kernels' JSON line (K1's rows also list each path's launches, K2's
     the trainer's, the sharded trainer's, the Ulysses trainer's, the
-    stream-fed and the checkpointed paths', and its times on the swapped
-    view; K2's sharded form a row of its own), the card's line, and the
-    result line.
+    stream-fed and the checkpointed paths', the pipelined and the mesh
+    payload's, and its times on the swapped view; K2's sharded form a row
+    of its own), the card's line, and the result line.
 
 ``python3 chip_smoke.py --cards N`` (N a multiple of 4, N cards) runs the
 flash and long_context_a2a families sharded over N ranks against one
@@ -167,7 +181,12 @@ card, the activation bound (`moe.routing_temp_comparison`, ``local * 1.4
 stream at full width over N ranks (bf16 and int8; every rank's tokens the
 same and one card's up to near-ties; each rank's numbers and bytes) and
 runs ``validate --family dense --serve`` and ``--family moe --serve
---int8`` over the N cards.
+--int8`` over the N cards; then the pipelined family (2 experts, 4
+layers) on (data 1, pipe 2, model 2) of 4 cards against one card with
+pipe 1 (losses within the cards' tolerance, each rank's step p50 and
+peak memory beside the GPipe bubble), and elastic resume: a checkpoint
+saved on `burnin_mesh` of 4 cards resumed on 2, the resumed losses within
+``ELASTIC_RTOL`` of the uninterrupted run's.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
 """
@@ -2321,9 +2340,10 @@ def phase_families(models):
 
 @contextlib.contextmanager
 def recorded_losses(burnin):
-    """Every loss the steps `burnin.make_train_step` builds return while
+    """Every loss the steps ``burnin.make_train_step`` builds return while
     the context is open, in a list (as tensors; `burnin.train` looks the
-    factory up at each call)."""
+    factory up at each call).  ``burnin`` may be any module that calls the
+    factory by that name (`data`, `ckpt`)."""
     real = burnin.make_train_step
     losses = []
 
@@ -3229,6 +3249,368 @@ def phase_cards_serving(torch, burnin, paged, quant, serve_mod, weights, validat
     return numbers
 
 
+# -- the pipeline, and the stream-fed trainer and checkpoints on the mesh ------
+
+PIPE_LOSS_RTOL = 1e-3  # pipelined (4 microbatches of 4 rows) against one device
+PIPE_STEPS = 6
+PIPE_MOE_LAYERS = 4  # the pipelined family (2 experts) cut to 4 layers on the cards
+ELASTIC_RTOL = 2e-3  # the reference's own bound (tests/test_ckpt.py)
+PIPE_REFUSAL = "ValueError: 1 devices not divisible into 2 stages x 1 model"
+
+
+def _train_run(torch, burnin, fa, pa, fn) -> dict:
+    """``fn()`` (a training run returning a `TrainReport`) with its losses
+    recorded, the card's peak allocation and K1's and K2's launches
+    counted from 0 just before."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(pa, fa)
+    with recorded_losses(burnin) as losses:
+        report = fn()
+    return {"report": dataclasses.asdict(report), "losses": [float(l) for l in losses],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **_launches(pa, fa)}
+
+
+def _pipe_one_card(torch, mods, plan) -> dict:
+    """The new paths on a one-rank NCCL group: (a) the pipelined trainer
+    (dense, `pipeline_mesh([0], stages=1)`, M = 4) against the one-device
+    trainer on the same seeded weights and batch, and the pipelined
+    family (2 experts) at 4 layers; (b) `data.train_on_stream` of the
+    flash family on `burnin_mesh([0])` against one device's, with the
+    rank's prefetched batches against the host's; (c) checkpoints at 2
+    layers: a round trip on the mesh with its rates, a run interrupted on
+    the mesh and resumed on one device and the reverse, the fall-back past
+    a torn shard beside a ``.tmp`` orphan."""
+    import shutil
+    import tempfile
+
+    models, burnin, ckpt, data = mods["models"], mods["burnin"], mods["ckpt"], mods["data"]
+    mfu, pipeline, spmd, fa, pa = mods["mfu"], mods["pipeline"], mods["spmd"], mods["fa"], mods["pa"]
+    out = {}
+    cfg = mfu.chip_sized_config(80)  # dense attention: the pipeline refuses flash
+    out["one device"] = _train_run(torch, burnin, fa, pa,
+                                   lambda: burnin.train(cfg, steps=PIPE_STEPS, device="cuda"))
+    pmesh = pipeline.pipeline_mesh([0], stages=1)
+    pcfg = dataclasses.replace(cfg, pipeline_stages=1, pipeline_microbatches=4)
+    out["pipelined"] = _train_run(torch, burnin, fa, pa,
+                                  lambda: burnin.train(pcfg, pmesh, steps=PIPE_STEPS))
+    width = dict(SERVE_WIDTH, n_layers=PIPE_MOE_LAYERS)
+    out["pipelined moe"] = _train_run(torch, burnin, fa, pa, lambda: models.train_family(
+        "pipelined", pmesh, steps=3, **width))
+
+    flash = dataclasses.replace(cfg, flash_attention=True)
+    bmesh = burnin.burnin_mesh([0])
+    place = spmd.Place(bmesh)
+    stream = data.synthetic_stream(flash, seed=3)
+    host = [next(stream) for _ in range(4)]
+    pf = data.prefetch_to_device(iter(host), size=2, mesh=bmesh, spec=burnin.token_spec(flash))
+    got = list(pf)
+    want = [h[spmd.local_slices(burnin.token_spec(flash), h.shape, place.sizes, place.coords)]
+            for h in host]
+    out["prefetch"] = {"equal": all(g.device.type == "cuda" and torch.equal(g.cpu(), w)
+                                    for g, w in zip(got, want)) and len(got) == len(host),
+                       "waits": pf.waits, "side stream": pf.stream is not None
+                       and pf.stream != torch.cuda.current_stream()}
+    del got, pf
+    for label, mesh in (("stream one device", None), ("stream mesh", bmesh)):
+        out[label] = _train_run(torch, data, fa, pa, lambda: data.train_on_stream(
+            flash, mesh, steps=PIPE_STEPS, seed=0, device="cuda"))
+
+    c2 = dataclasses.replace(flash, n_layers=2)
+    state_bytes = 2 * 4 * mfu.param_count(c2)  # f32 params and momentum
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    try:
+        out["free_gb"] = shutil.disk_usage(root).free / 1e9
+        if shutil.disk_usage(root).free < 3 * state_bytes:
+            raise AssertionError(f"{out['free_gb']} GB free, the phase keeps up to 3 states")
+        path = os.path.join(root, "round_trip")
+        _, state = burnin.make_train_step(c2, bmesh)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.save_state(path, state, step=1, mesh=bmesh, config=c2)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        restored = ckpt.restore_state(path, c2, bmesh, step=1)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        a = burnin._leaves(state[0]) + burnin._leaves(state[1])
+        b = burnin._leaves(restored[0]) + burnin._leaves(restored[1])
+        out["round trip"] = {
+            "bitwise": len(a) == len(b) and all(x.dtype == y.dtype and x.device == y.device
+                                                and torch.equal(x, y) for x, y in zip(a, b)),
+            "files": sorted(os.listdir(os.path.join(path, "1"))), "state_bytes": state_bytes,
+            "save_s": save_s, "restore_s": restore_s}
+        del state, restored, a, b
+        shutil.rmtree(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _zero_launches(pa, fa)
+        full_path = os.path.join(root, "full")
+        _, full = ckpt.train_with_resume(c2, full_path, steps=4, device="cuda")
+        shutil.rmtree(full_path)
+        m2d = os.path.join(root, "mesh_then_device")
+        _, first = ckpt.train_with_resume(c2, m2d, bmesh, steps=2)
+        _, second = ckpt.train_with_resume(c2, m2d, steps=2, device="cuda")
+        shutil.rmtree(m2d)
+        d2m = os.path.join(root, "device_then_mesh")
+        _, third = ckpt.train_with_resume(c2, d2m, steps=2, device="cuda")
+        _, fourth = ckpt.train_with_resume(c2, d2m, bmesh, steps=2)
+        out["resume"] = {"full": full, "mesh then device": first + second,
+                         "device then mesh": third + fourth, **_launches(pa, fa)}
+        # Step 4 (the mesh's shards) torn under its marker, a killed save
+        # beside it: the restore falls back to step 2 (one device's file).
+        os.remove(os.path.join(d2m, "4", ckpt.SHARD_FILE.format(0, 1)))
+        os.makedirs(os.path.join(d2m, ".tmp.9.deadbeef"))
+        fell = ckpt.restore_state(d2m, c2, bmesh)
+        step2 = ckpt.restore_state(d2m, c2, bmesh, step=2)
+        out["fall-back"] = (ckpt.latest_step(d2m) == 4 and all(
+            torch.equal(x, y) for x, y in zip(burnin._leaves(fell[0]), burnin._leaves(step2[0]))))
+        del fell, step2
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _pipe_cards(torch, mods, plan) -> dict:
+    """The pipelined family at full width cut to `PIPE_MOE_LAYERS` layers
+    over `models.family_mesh("pipelined")` of every rank with
+    ``plan["stages"]`` stages, for `PIPE_STEPS` steps."""
+    models, burnin, fa, pa = mods["models"], mods["burnin"], mods["fa"], mods["pa"]
+    world = plan["world"]
+    mesh = models.family_mesh("pipelined", range(world), stages=plan["stages"])
+    width = dict(SERVE_WIDTH, n_layers=PIPE_MOE_LAYERS)
+    run = _train_run(torch, burnin, fa, pa, lambda: models.train_family(
+        "pipelined", mesh, steps=PIPE_STEPS, **width))
+    run["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return run
+
+
+def _elastic_cards(torch, mods, plan) -> dict:
+    """`ckpt.train_with_resume` of the flash family at 2 layers over
+    `burnin.burnin_mesh` of every rank in ``plan["root"]``: with
+    ``plan["save"]``, 5 uninterrupted steps and 3 saved each step; else 2
+    steps resumed from those 3."""
+    burnin, ckpt, mfu = mods["burnin"], mods["ckpt"], mods["mfu"]
+    mesh = burnin.burnin_mesh(range(plan["world"]))
+    c2 = dataclasses.replace(mfu.chip_sized_config(80), flash_attention=True, n_layers=2)
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}
+    elastic = os.path.join(plan["root"], "elastic")
+    if plan["save"]:
+        full = os.path.join(plan["root"], "full")
+        _, out["full"] = ckpt.train_with_resume(c2, full, mesh, steps=5, save_every=100)
+        t = time.perf_counter()
+        _, out["first"] = ckpt.train_with_resume(c2, elastic, mesh, steps=3, save_every=1)
+        out["wall_s"] = time.perf_counter() - t
+    else:
+        t = time.perf_counter()
+        out["second"] = ckpt.train_with_resume(c2, elastic, mesh, steps=2, save_every=1)
+        out["wall_s"] = time.perf_counter() - t
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+PIPE_MODES = {"one card": _pipe_one_card, "cards": _pipe_cards, "elastic": _elastic_cards}
+
+
+def _pipeline_rank(rank: int, init_method: str, plan: dict, out) -> None:
+    """Rank ``rank`` of a NCCL group of ``plan["world"]`` (a card a rank)
+    running ``PIPE_MODES[plan["mode"]]``.  Puts ``(rank, result)`` on
+    ``out``.  Runs in a spawned process."""
+    try:
+        import torch
+
+        from tpu_dra_torch import models
+        from tpu_dra_torch.parallel import burnin, ckpt, data, gang, mfu, pipeline, spmd
+        from tpu_dra_torch.parallel.kernels import flash_attn as fa
+        from tpu_dra_torch.parallel.kernels import paged_attn as pa
+
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gang.join_group(init_method, world_size=plan["world"], rank=rank, device=f"cuda:{rank}",
+                        timeout_s=300)
+        mods = {"models": models, "burnin": burnin, "ckpt": ckpt, "data": data, "mfu": mfu,
+                "pipeline": pipeline, "spmd": spmd, "fa": fa, "pa": pa}
+        out.put((rank, PIPE_MODES[plan["mode"]](torch, mods, plan)))
+    except Exception:
+        out.put((rank, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def gap_to(losses, want) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+
+
+def phase_pipeline(torch, ckpt, validate) -> dict:
+    """Training on the mesh, completed, on one card: `_pipe_one_card` in a
+    spawned one-rank NCCL worker, each part held to its contract; then
+    ``python -m tpu_dra_torch.parallel.validate --family pipelined
+    --train 2`` as a subprocess (one card: the reference's
+    `pipeline_mesh` refusal, exit 1).  Returns K1's and K2's launches on
+    each new path."""
+    got = run_ranks(validate, _pipeline_rank, {"mode": "one card", "world": 1}, 1, 900,
+                    "pipeline")[0]
+    one, pp, moe = got["one device"], got["pipelined"], got["pipelined moe"]
+    for label, run, steps in (("one device", one, PIPE_STEPS), ("pipelined", pp, PIPE_STEPS),
+                              ("pipelined moe", moe, 3)):
+        rep = run["report"]
+        if rep["error"] or rep["steps"] != steps or not all(map(math.isfinite, run["losses"])):
+            raise AssertionError(f"{label}: {rep}")
+        if run["k1"] or run["k2"]:
+            raise AssertionError(f"{label}: K1 {run['k1']}, K2 {run['k2']} launches (want 0)")
+    if not (one["report"]["ok"] and pp["report"]["ok"]):
+        raise AssertionError(f"one device {one['report']}, pipelined {pp['report']}")
+    gap = gap_to(pp["losses"], one["losses"])
+    if gap > PIPE_LOSS_RTOL:
+        raise AssertionError(f"pipelined losses {pp['losses']} vs one device {one['losses']}: "
+                             f"rel gap {gap} > {PIPE_LOSS_RTOL}")
+    p50, p50_one = pp["report"]["step_seconds_p50"], one["report"]["step_seconds_p50"]
+    log(f"pipelined trainer (dense, full width, pipeline_mesh([0], stages=1), M 4, "
+        f"{PIPE_STEPS} steps): losses {pp['losses']} against the one-device trainer's "
+        f"{one['losses']}: max relative gap {gap:.3e} (tol {PIPE_LOSS_RTOL}); step p50 "
+        f"{p50 * 1e3:.3f} ms against {p50_one * 1e3:.3f} ms ({p50 / p50_one:.4f}x); peak "
+        f"memory allocated {pp['peak_gb']:.3f} GB against {one['peak_gb']:.3f} GB; K1 "
+        f"{pp['k1']}, K2 {pp['k2']} launches")
+    log(f"pipelined family ({PIPE_MOE_LAYERS} layers, 2 experts, full width) on the same mesh: "
+        f"3 steps, loss {moe['report']['loss_first']:.6f} -> {moe['report']['loss_last']:.6f}, "
+        f"step p50 {moe['report']['step_seconds_p50'] * 1e3:.3f} ms, peak memory allocated "
+        f"{moe['peak_gb']:.3f} GB, K1 {moe['k1']}, K2 {moe['k2']} launches")
+
+    pf = got["prefetch"]
+    if not (pf["equal"] and pf["side stream"] and pf["waits"] == 4):
+        raise AssertionError(f"prefetch on the mesh: {pf}")
+    s1, sm = got["stream one device"], got["stream mesh"]
+    flash_layers = 8
+    for label, run in (("one device", s1), ("mesh", sm)):
+        rep = run["report"]
+        if not rep["ok"] or rep["error"] or rep["steps"] != PIPE_STEPS:
+            raise AssertionError(f"train_on_stream {label}: {rep}")
+        if run["k2"] != PIPE_STEPS * 2 * flash_layers or run["k1"]:
+            raise AssertionError(f"train_on_stream {label}: K2 {run['k2']}, K1 {run['k1']}")
+    if sm["losses"] != s1["losses"]:
+        raise AssertionError(f"train_on_stream on burnin_mesh([0]) {sm['losses']} vs one device "
+                             f"{s1['losses']}: not bitwise")
+    log(f"train_on_stream (flash, full width) on burnin_mesh([0]): 4 prefetched batches equal "
+        f"to the rank's slices of the host batches (side stream, {pf['waits']} event waits); "
+        f"losses {sm['losses']} bitwise the one-device stream-fed trainer's; step p50 "
+        f"{sm['report']['step_seconds_p50'] * 1e3:.3f} ms against "
+        f"{s1['report']['step_seconds_p50'] * 1e3:.3f} ms; {sm['k2']} K2 launches, 0 K1")
+
+    rt, res = got["round trip"], got["resume"]
+    if not rt["bitwise"] or rt["files"] != [ckpt.COMPLETE_MARKER, ckpt.SHARD_FILE.format(0, 1)]:
+        raise AssertionError(f"mesh checkpoint round trip: {rt}")
+    if res["mesh then device"] != res["full"] or res["device then mesh"] != res["full"]:
+        raise AssertionError(f"resumes {res} not bitwise the uninterrupted run's")
+    if not got["fall-back"]:
+        raise AssertionError("the mesh restore did not fall back past the torn shard to step 2")
+    gbs = rt["state_bytes"] / 1e9
+    log(f"checkpoints on burnin_mesh([0]) (flash, 2 layers, {gbs:.3f} GB a state, "
+        f"{got['free_gb']:.3f} GB free): round trip bitwise, save {rt['save_s']:.3f} s "
+        f"({gbs / rt['save_s']:.3f} GB/s), restore {rt['restore_s']:.3f} s "
+        f"({gbs / rt['restore_s']:.3f} GB/s); uninterrupted {res['full']}, interrupted on the "
+        f"mesh and resumed on one device {res['mesh then device']}, and the reverse "
+        f"{res['device then mesh']}: bitwise; a torn shard beside a .tmp orphan fell back to "
+        f"step 2; {res['k2']} K2 launches")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPU_VISIBLE_DEVICES="0")
+    p = subprocess.run([sys.executable, "-m", "tpu_dra_torch.parallel.validate", "--family",
+                        "pipelined", "--train", "2"], cwd=root, env=env, capture_output=True,
+                       text=True, timeout=300)
+    lines = p.stdout.strip().splitlines()
+    rep = json.loads(lines[-1]) if lines else {}
+    if p.returncode != 1 or rep.get("ok") is not False or rep.get("error") != PIPE_REFUSAL:
+        raise AssertionError(f"validate --family pipelined --train 2: exit {p.returncode}\n"
+                             f"{p.stdout}\n{p.stderr[-3000:]}")
+    log(f"validate --family pipelined --train 2 on one card: exit {p.returncode}, {lines[-1]}")
+    return {"k1": {"pipelined train": pp["k1"], "pipelined moe train": moe["k1"],
+                   "mesh train_on_stream": sm["k1"]},
+            "k2": {"pipelined train": pp["k2"], "pipelined moe train": moe["k2"],
+                   "mesh train_on_stream": sm["k2"],
+                   "train_with_resume (one-rank mesh and one device)": res["k2"]}}
+
+
+def phase_cards_pipeline(torch, validate, cards: int) -> dict:
+    """``--cards N``, the pipeline and elastic resume: the pipelined family
+    (2 experts, full width cut to `PIPE_MOE_LAYERS` layers) on one card
+    with pipe 1, then over the first 4 cards on (data 1, pipe 2, model
+    2), the losses within ``CARDS_*_RTOL``, each rank's step p50 and peak
+    bytes beside the GPipe bubble (P-1)/(M+P-1); then
+    `ckpt.train_with_resume` saved on `burnin_mesh` of 4 cards (3 steps
+    of 5) and resumed on 2, the resumed losses within ``ELASTIC_RTOL`` of
+    the uninterrupted run's.  Returns the numbers for the JSON line."""
+    import shutil
+    import tempfile
+
+    one = run_ranks(validate, _pipeline_rank, {"mode": "cards", "world": 1, "stages": 1}, 1,
+                    900, "pipelined, one card")[0]
+    runs = run_ranks(validate, _pipeline_rank, {"mode": "cards", "world": 4, "stages": 2}, 4,
+                     900, "pipelined, 4 cards")
+    first = runs[0]
+    for rank, run in enumerate([one] + runs):
+        rep = run["report"]
+        if not rep["ok"] or rep["error"] or rep["steps"] != PIPE_STEPS or run["k1"] or run["k2"]:
+            raise AssertionError(f"pipelined run {rank}: {run}")
+        if rank and run["losses"] != first["losses"]:
+            raise AssertionError(f"pipelined 4 cards: rank {rank - 1}'s losses {run['losses']} "
+                                 f"vs rank 0's {first['losses']}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(first["losses"], one["losses"])]
+    if gaps[0] > CARDS_FIRST_LOSS_RTOL or max(gaps) > CARDS_LOSS_RTOL:
+        raise AssertionError(f"pipelined 4 cards {first['losses']} vs one card {one['losses']}: "
+                             f"gaps {gaps}")
+    M, P = 4, first["mesh"]["pipe"]
+    p50s = [r["report"]["step_seconds_p50"] for r in runs]
+    p50_one = one["report"]["step_seconds_p50"]
+    log(f"pipelined family ({PIPE_MOE_LAYERS} layers, 2 experts, full width) on mesh "
+        f"{first['mesh']} of 4 cards against one card (pipe 1): losses {first['losses']} vs "
+        f"{one['losses']} (relative gaps {gaps}); step p50 by rank "
+        f"{[f'{p * 1e3:.3f}' for p in p50s]} ms against one card's {p50_one * 1e3:.3f} ms "
+        f"({p50_one / max(p50s):.4f}x); GPipe bubble (P-1)/(M+P-1) = {(P - 1) / (M + P - 1)}; "
+        f"peak memory by rank {[round(r['peak_gb'], 3) for r in runs]} GB against one card's "
+        f"{one['peak_gb']:.3f} GB; 0 K1 and 0 K2 launches")
+    numbers = {"pipelined": {"mesh": first["mesh"], "losses": first["losses"],
+                             "one_card_losses": one["losses"], "step_p50_s": p50s,
+                             "one_card_step_p50_s": p50_one,
+                             "bubble": (P - 1) / (M + P - 1),
+                             "peak_gb": [r["peak_gb"] for r in runs],
+                             "one_card_peak_gb": one["peak_gb"]}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        saved = run_ranks(validate, _pipeline_rank,
+                          {"mode": "elastic", "world": 4, "save": True, "root": root}, 4, 900,
+                          "elastic save")
+        resumed = run_ranks(validate, _pipeline_rank,
+                            {"mode": "elastic", "world": 2, "save": False, "root": root}, 2, 900,
+                            "elastic resume")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    full, first3 = saved[0]["full"], saved[0]["first"]
+    final, second = resumed[0]["second"]
+    if any(r["full"] != full or r["first"] != first3 for r in saved) or any(
+            r["second"] != resumed[0]["second"] for r in resumed):
+        raise AssertionError(f"elastic: ranks disagree: {saved} {resumed}")
+    gap3 = gap_to(first3, full[:3])
+    gap2 = gap_to(second, full[3:])
+    if final != 5 or gap3 > 1e-5 or gap2 > ELASTIC_RTOL:
+        raise AssertionError(f"elastic: uninterrupted {full}, first {first3}, resumed "
+                             f"{second} (step {final})")
+    log(f"elastic resume (flash, 2 layers): uninterrupted {full} on {saved[0]['mesh']}; "
+        f"3 steps saved each step there {first3} (gap {gap3:.3e}), resumed on "
+        f"{resumed[0]['mesh']} of 2 cards {second} (relative gap {gap2:.3e}, tol {ELASTIC_RTOL}); "
+        f"wall of the 3 saved steps {saved[0]['wall_s']:.3f} s, of the 2 resumed (restore "
+        f"included) {resumed[0]['wall_s']:.3f} s")
+    numbers["elastic"] = {"full": full, "first": first3, "resumed": second,
+                          "save_mesh": saved[0]["mesh"], "resume_mesh": resumed[0]["mesh"]}
+    return numbers
+
+
 # The payload's runs: (arguments, TPU_VISIBLE_DEVICES, exit code wanted).
 PAYLOAD_RUNS = (
     (["--train", "2"], "0", 0),
@@ -3540,11 +3922,17 @@ def main_cards(torch, cards: int) -> int:
         serving = phase_cards_serving(torch, burnin, paged, quant, serve, weights, validate, pa,
                                       fa, cards)
         log(f"phase cards serving: {time.perf_counter() - t:.3f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        pipeline = phase_cards_pipeline(torch, validate, cards)
+        log(f"phase cards pipeline and elastic resume: {time.perf_counter() - t:.3f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    print(json.dumps({"sharded_cards": numbers, "sharded_serving_cards": serving}))
+    print(json.dumps({"sharded_cards": numbers, "sharded_serving_cards": serving,
+                      "pipeline_cards": pipeline}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3686,6 +4074,18 @@ def main() -> int:
         }
         log(f"phase burn-in: {time.perf_counter() - t:.3f} s; flash launches "
             f"{flash_row['launches_by_path']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        pipe = phase_pipeline(torch, ckpt, validate)
+        flash_row["launches_by_path"].update(pipe["k2"])
+        sharded_row["launches_by_path"] = {"sharded train": sharded_launches,
+                                           "mesh train_on_stream": pipe["k2"]["mesh train_on_stream"],
+                                           "pipelined train": pipe["k2"]["pipelined train"]}
+        paged_row["launches_by_path"].update(pipe["k1"])
+        int8_row["launches_by_path"].update(pipe["k1"])
+        log(f"phase pipeline and mesh payload: {time.perf_counter() - t:.3f} s; K1 launches "
+            f"{pipe['k1']}, K2 launches {pipe['k2']}")
         log(f"all phases: {time.perf_counter() - started:.3f} s")
     except Exception:
         traceback.print_exc()

@@ -86,6 +86,16 @@ class TestConfig:
             with pytest.raises(ValueError, match=f"not supported with {field}"):
                 td.make_generate(cfg, prompt_len=8, steps=2, prefill_chunk=4)
             return
+        if field == "pipeline_stages":
+            # Ported on a (data, pipe, model) mesh: the config takes it, and
+            # a forward on one device is refused with the reference's
+            # message (naming the port's pipeline_mesh).
+            cfg = tb.BurninConfig(**{**_SHAPE, field: value})
+            params = tb.init_params(cfg, device="cpu")
+            with pytest.raises(ValueError, match=r"pipeline_stages requires a \(data, pipe, "
+                               r"model\) mesh \(tpu_dra_torch\.parallel\.pipeline"):
+                tb.forward(params, torch.zeros((1, cfg.seq), dtype=torch.int32), cfg)
+            return
         if field in ("ring_attention", "ulysses_attention"):
             # Ported on a mesh: the config takes it, and a forward on one
             # device is refused with the reference's message.

@@ -4,7 +4,8 @@
 has the reference's verdict — the single-device families (dense, flash,
 rope, moe; moe and dense also on the full int8 stack) serve healthy
 generations of the expected shape, and the context-parallel and
-pipelined families come back refused with their reason, never raised."""
+pipelined families come back refused with their reason, never raised
+(the pipelined one on one device with the reference's words)."""
 
 import jax
 import pytest
@@ -30,6 +31,10 @@ def test_report_matches_reference(name, int8):
     else:
         assert got.error.startswith("ValueError: ") and want.error, (got, want)
         assert (got.batch, got.steps) == (0, 0)
+        if name == "pipelined":
+            # One device: the reference's pipeline_mesh refusal, word for word.
+            assert got.error == want.error == (
+                "ValueError: 1 devices not divisible into 2 stages x 1 model")
 
 
 def test_unknown_family_raises():

@@ -133,7 +133,7 @@ def _rank_gang(rank):
 
 # train_family over the 8 ranks: (family, what its report must show).
 FAMILY_RUNS = {"dense": "ok", "flash": "ok", "rope": "ok", "moe": "ok", "long_context": "ok",
-               "long_context_a2a": "ok", "long_context_moe": "ok", "pipelined": "pipeline_stages"}
+               "long_context_a2a": "ok", "long_context_moe": "ok", "pipelined": "ok"}
 
 
 def _rank_families(rank):
@@ -141,7 +141,7 @@ def _rank_families(rank):
     for name in FAMILY_RUNS:
         r = tmodels.train_family(name, list(range(WORLD)), steps=2, device="cpu")
         out[name] = (r.ok, r.steps, r.loss_first, r.loss_last, r.error)
-    for name in ("dense", "moe", "long_context_a2a", "long_context_moe"):
+    for name in ("dense", "moe", "long_context_a2a", "long_context_moe", "pipelined"):
         out[f"mesh {name}"] = tmesh.mesh_shape(tmodels.family_mesh(name))
     return out
 
@@ -355,9 +355,9 @@ VALIDATE_CASES = {
 class TestFamilies:
     @pytest.mark.parametrize("name", sorted(FAMILY_RUNS))
     def test_train_family_on_eight_ranks(self, ranks, name):
-        """Each family the port trains does so sharded over its mesh of the
-        8 ranks (one global loss, descending); the others report their
-        refusal by name."""
+        """Each family trains sharded over its mesh of the 8 ranks (one
+        global loss, descending), the pipelined one over (data 2, pipe 2,
+        model 2)."""
         reports = [res["families"][name] for res in ranks]
         assert all(rep == reports[0] for rep in reports)
         ok, steps, first, last, error = reports[0]
@@ -366,7 +366,8 @@ class TestFamilies:
         else:
             assert not ok and steps == 0 and FAMILY_RUNS[name] in error, reports[0]
 
-    @pytest.mark.parametrize("name", ["dense", "moe", "long_context_a2a", "long_context_moe"])
+    @pytest.mark.parametrize("name", ["dense", "moe", "long_context_a2a", "long_context_moe",
+                                      "pipelined"])
     def test_family_mesh_equals_the_references(self, ranks, devices, name):
         want = dict(jmodels.family_mesh(name, devices).shape)
         assert all(res["families"][f"mesh {name}"] == want for res in ranks)

@@ -6,6 +6,10 @@ measured 1.2e-7 relative); `categorical` equal in both counter layouts
 (one key over a whole batch, one key a row) except where the perturbed
 logits ``logits + g`` tie within that gumbel tolerance."""
 
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,6 +120,23 @@ class TestDraws:
     def test_gumbel_close(self, seed, shape):
         want = np.asarray(jax.random.gumbel(jkey(seed), shape))
         got = prng.gumbel(prng.key(seed), shape).numpy()
+        assert np.all(np.abs(got - want) <= GUMBEL_RTOL * np.maximum(1.0, np.abs(want)))
+
+    def test_gumbel_first_multithreaded_call_over_the_vocabulary(self, tmp_path):
+        """A (2, 32768) draw as a fresh process's first call with 8
+        threads: torch's CPU float32 ``log`` can return one thread's chunk
+        off on that call, so the CPU path takes its logs in float64.  The
+        fault is intermittent: this may pass without the float64 path."""
+        out = tmp_path / "g.npy"
+        code = ("import sys, numpy as np, torch; torch.set_num_threads(8); "
+                "from tpu_dra_torch.parallel import prng; "
+                "np.save(sys.argv[1], prng.gumbel(prng.key(7), (2, 32768)).numpy())")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        subprocess.run([sys.executable, "-c", code, str(out)], check=True, env=env, timeout=120)
+        got = np.load(out)
+        want = np.asarray(jax.random.gumbel(jkey(7), (2, 32768)))
         assert np.all(np.abs(got - want) <= GUMBEL_RTOL * np.maximum(1.0, np.abs(want)))
 
     def test_batched_keys_count_per_row(self):

@@ -404,10 +404,19 @@ class TestLayout:
         assert str(got.value) == str(want.value)
 
     def test_ulysses_and_pipeline_stay_refused_by_name(self):
-        """The pipeline is refused by name; Ulysses is ported, and its
-        config is accepted as the reference's is."""
-        with pytest.raises(ValueError, match="pipeline_stages not ported"):
-            tb.BurninConfig(pipeline_stages=2)
+        """Both are ported: each config is accepted as the reference's is,
+        and a pipeline without a (data, pipe, model) mesh is refused with
+        the reference's message (tests/test_torch_pipeline.py holds the
+        pipeline itself)."""
+        jcfg = jb.BurninConfig(pipeline_stages=2, **TINY)
+        with pytest.raises(ValueError) as want:
+            jb.forward(jb.init_params(jcfg), jnp.zeros((1, TINY["seq"]), jnp.int32), jcfg)
+        cfg = tb.BurninConfig(pipeline_stages=2, **TINY)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        with pytest.raises(ValueError) as got:
+            tb.forward(tb.init_params(cfg, device="cpu"),
+                       torch.zeros((1, TINY["seq"]), dtype=torch.int32), cfg)
+        assert str(got.value) == str(want.value).replace("tpu_dra.", "tpu_dra_torch.")
         cfg = tb.BurninConfig(ulysses_attention=True)
         assert cfg.context_parallel
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jb.BurninConfig(ulysses_attention=True))

@@ -232,6 +232,18 @@ class TestFamilies:
             assert report.error == "ValueError: context-parallel attention requires a device mesh"
             assert models.family_config(name).ring_attention
             return
+        if name == "pipelined":
+            # Ported on a mesh of ranks: one device is refused with the
+            # reference's words for one device (its pipeline_mesh error).
+            from tpu_dra import models as jmodels
+
+            report = models.train_family(name, steps=3, device="cpu")
+            want = jmodels.train_family(name, jax.devices()[:1], steps=3)
+            assert not report.ok and report.steps == 0 and not want.ok
+            assert report.error == want.error == (
+                "ValueError: 1 devices not divisible into 2 stages x 1 model")
+            assert models.family_config(name).pipeline_stages == 2
+            return
         report = models.train_family(name, steps=3, device="cpu")
         assert not report.ok and report.steps == 0
         assert report.error.startswith("ValueError") and reason in report.error

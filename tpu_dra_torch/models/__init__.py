@@ -10,17 +10,20 @@ Counterpart of `tpu_dra.models` for the families the port runs:
 - ``long_context_moe`` — ring attention with group-local expert routing
   (cp x ep; a mesh with an ``expert`` axis only);
 - ``flash``            — the same LM with attention through the flash kernel;
-- ``rope``             — rotary position embeddings + the flash kernel.
+- ``rope``             — rotary position embeddings + the flash kernel;
+- ``pipelined``        — the GPipe pipeline over a (data, pipe, model) mesh,
+  tp and experts inside each stage (a mesh of at least 2 ranks only).
 
 `train_family` runs a family's training step, and `serve_family` its
 serving acceptance (a health-checked KV-cache generation, bf16 or the
 full int8 stack), on one device or sharded over `family_mesh` of a set
 of ranks (dense, flash, rope and moe serve there; moe on `moe_mesh`
-where the count divides by 4).  The pipelined family is named here as
-in the reference, but the port does not run it; the context-parallel
-families do not serve (decode has one query position, as the reference
-says).  Both entry points report a refusal (``ok=False`` with its
-reason), honoring the reference's "reports, never raises" contract.
+where the count divides by 4).  The context-parallel and pipelined
+families do not serve (decode has one query position and no microbatch
+stream, as the reference says), and the pipelined family refuses one
+device with the reference's `pipeline_mesh` error.  Both entry points
+report a refusal (``ok=False`` with its reason), honoring the
+reference's "reports, never raises" contract.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from tpu_dra_torch.parallel import spmd
 from tpu_dra_torch.parallel.decode import PIPELINE_REFUSAL, make_generate
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.moe import moe_mesh
+from tpu_dra_torch.parallel.pipeline import pipeline_mesh, pipeline_sizes
 from tpu_dra_torch.parallel.quant import quantize_params
 from tpu_dra_torch.parallel.weights import cast_matrices, shard_params
 
@@ -73,8 +77,7 @@ FAMILIES: "dict[str, Callable[..., BurninConfig]]" = {
 
 def family_config(name: str, **overrides) -> BurninConfig:
     """The named family's canonical config (overrides applied on top).
-    An unknown name raises; a family whose fields the port does not run
-    yet raises the config's own ValueError."""
+    An unknown name raises."""
     try:
         factory = FAMILIES[name]
     except KeyError:
@@ -84,19 +87,32 @@ def family_config(name: str, **overrides) -> BurninConfig:
     return factory(**overrides)
 
 
-def family_mesh(name: str, ranks=None):
+def _pipeline_shape(n: int, stages: "int | None") -> "dict[str, int]":
+    """The pipelined family's (data, pipe, model) sizes over ``n`` ranks,
+    the reference's rule: ``stages`` (default 2) stages, ``model`` 2
+    where the count divides by twice the stages.  A count that does not
+    factor raises the reference's `pipeline_mesh` error."""
+    stages = stages or 2
+    model = 2 if n % (stages * 2) == 0 and n >= stages * 2 else 1
+    return pipeline_sizes(n, stages=stages, model=model)
+
+
+def family_mesh(name: str, ranks=None, *, stages: "int | None" = None):
     """The mesh the family shards over, on ``ranks`` (default: every rank
-    of the process group): (data, fsdp, model, expert) for moe when the
-    count divides by 4, and always for long_context_moe (`moe.moe_mesh`,
-    model 2 x expert 2: the ring owns the model axis, so the experts need
-    their own; a count that does not factor raises, as the reference's
-    does), else `burnin.burnin_mesh`.  The pipelined family's mesh is not
-    ported: asking for it raises, by name."""
-    if name == "pipelined":
-        raise ValueError(f"the {name} family's mesh is not ported to tpu_dra_torch yet")
+    of the process group): (data, pipe, model) for pipelined
+    (`pipeline.pipeline_mesh`, ``stages`` deep, default 2, ``model`` 2
+    where the count divides by twice the stages), (data, fsdp, model,
+    expert) for moe when the count divides by 4, and always for
+    long_context_moe (`moe.moe_mesh`, model 2 x expert 2: the ring owns
+    the model axis, so the experts need their own), else
+    `burnin.burnin_mesh`.  A count that does not factor raises, as the
+    reference's does."""
     if ranks is None:
         ranks = range(dist.get_world_size()) if dist.is_initialized() else [0]
     ranks = list(ranks)
+    if name == "pipelined":
+        shape = _pipeline_shape(len(ranks), stages)
+        return pipeline_mesh(ranks, stages=shape["pipe"], model=shape["model"])
     if name == "long_context_moe" or (name == "moe" and len(ranks) % 4 == 0):
         return moe_mesh(ranks, model=2, expert=2)
     return burnin_mesh(ranks)
@@ -112,13 +128,17 @@ def train_family(name: str, mesh=None, *, steps: int = 5,
     Reports, never raises, for a known family: a config or a mesh the
     port refuses comes back as ``TrainReport(ok=False, error=...)``
     carrying the reason (``long_context`` without a mesh: "requires a
-    device mesh", as the reference's forward says)."""
+    device mesh", as the reference's forward says; ``pipelined`` on one
+    device: the reference's `pipeline_mesh` error for one device)."""
     if name not in FAMILIES:
         family_config(name)  # raises: an unknown name is the caller's error
     try:
         config = family_config(name, **overrides)
+        stages = config.pipeline_stages or None
+        if mesh is None and name == "pipelined":
+            _pipeline_shape(1, stages)  # one device: the reference's mesh refusal
         if mesh is not None and not isinstance(mesh, DeviceMesh):
-            mesh = family_mesh(name, mesh)
+            mesh = family_mesh(name, mesh, stages=stages)
     except ValueError as e:  # the port refuses the family's fields or mesh
         return TrainReport(
             ok=False, steps=0, loss_first=0.0, loss_last=0.0,
@@ -159,14 +179,18 @@ def serve_family(name: str, mesh=None, *, steps: int = 12, prompt_len: int = 8,
 
     Reports, never raises, for a known family: a config the port rejects
     (context-parallel, pipelined) and a failed or unhealthy generation
-    come back as ``ServeReport(ok=False, error=...)``; on a mesh the
-    pipelined family reports the reference's decode refusal."""
+    come back as ``ServeReport(ok=False, error=...)``.  The pipelined
+    family reports the reference's refusals: its `pipeline_mesh` error
+    where the ranks (one device: one) do not factor, else decode's."""
     if name not in FAMILIES:
         family_config(name)  # raises: an unknown name is the caller's error
     try:
-        if mesh is not None and name == "pipelined":
-            raise ValueError(PIPELINE_REFUSAL)
         c = family_config(name, **overrides)
+        if name == "pipelined":
+            if not isinstance(mesh, DeviceMesh):
+                _pipeline_shape(1 if mesh is None else len(list(mesh)),
+                                c.pipeline_stages or None)
+            raise ValueError(PIPELINE_REFUSAL)
         if mesh is None:
             dev = resolve_device(device)
         else:

@@ -31,7 +31,11 @@ constraints make XLA insert are explicit (`spmd`):
 - ep (``moe_experts``): experts over ``expert`` (each expert's FFN over
   ``model``) or, without that axis, over ``model`` (`moe.moe_mlp_sharded`);
   under cp, on a mesh with an ``expert`` axis only, group-local routing,
-  one group a rank's sequence block (`moe.moe_mlp_local_sharded`).
+  one group a rank's sequence block (`moe.moe_mlp_local_sharded`);
+- pp (``pipeline_stages``, on a (data, pipe, model) mesh): every layer
+  leaf's stacked dim over ``pipe``, each stage's blocks the tp/sp/ep
+  blocks above, run by `pipeline`'s GPipe schedule; the embedding,
+  position table and final norm whole on every rank.
 
 Rounding follows the reference's source point for point, so that the
 parity tests can hold the two to bf16 ulps:
@@ -63,7 +67,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.utils.checkpoint import checkpoint
 
-from tpu_dra_torch.parallel import prng, spmd
+from tpu_dra_torch.parallel import pipeline, prng, spmd
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.mesh import logical_mesh
 from tpu_dra_torch.parallel.moe import (
@@ -104,9 +108,10 @@ _NEG_INF = -1e30
 class BurninConfig:
     """Model + data shape for the burn-in LM — the reference's fields and
     defaults.  ``ring_attention`` and ``ulysses_attention`` (context
-    parallelism over a mesh's ``model`` axis) run on a mesh only; the
-    pipeline fields are kept so that a config reads the same in both
-    packages, but the port does not run them: setting them raises."""
+    parallelism over a mesh's ``model`` axis) run on a mesh only, and
+    ``pipeline_stages`` on a (data, pipe, model) mesh only
+    (`pipeline.pipeline_mesh`), each refused elsewhere with the
+    reference's message."""
 
     vocab: int = 256
     d_model: int = 128
@@ -134,14 +139,6 @@ class BurninConfig:
     pipeline_stages: int = 0
     pipeline_microbatches: int = 4
 
-    def __post_init__(self):
-        if self.pipeline_stages > 0:
-            raise ValueError(
-                "pipeline_stages not ported to tpu_dra_torch yet: "
-                "it runs the model on one device or sharded over dp/fsdp/tp/sp, "
-                "ring and Ulysses attention and experts"
-            )
-
     @property
     def d_head(self) -> int:
         if self.d_model % self.n_heads:
@@ -157,23 +154,38 @@ class BurninConfig:
     def scaled_to(self, mesh) -> "BurninConfig":
         """The reference's sizes grown minimally so that every sharded dim
         divides its mesh axis (``mesh``: a `DeviceMesh` or ``{axis:
-        size}``; absent axes count as 1)."""
+        size}``; absent axes count as 1).  With ``pipeline_stages`` the
+        mesh must have a ``pipe`` axis: the batch splits into ``data`` x
+        microbatches, the layers into the stages, and ``pipeline_stages``
+        becomes the pipe size."""
         shape = mesh_sizes(mesh)
+        if self.pipeline_stages > 0 and "pipe" not in shape:
+            raise ValueError(
+                "pipeline_stages requires a (data, pipe, model) mesh "
+                "(tpu_dra_torch.parallel.pipeline.pipeline_mesh), got axes "
+                f"{tuple(shape)}"
+            )
         fsdp = shape.get("fsdp", 1)
         model = shape.get("model", 1)
+        pipe = shape.get("pipe", 1)
         data = shape.get("data", 1) * fsdp
         if self.context_parallel:
             # cp shards the batch over every non-model axis.
             data *= shape.get("expert", 1)
+        batch = _round_up(self.batch, data)
+        if self.pipeline_stages > 0:
+            batch = _round_up(batch, data * self.pipeline_microbatches)
         n_heads = _round_up(self.n_heads, model)
         experts = (
             _round_up(self.moe_experts, shape.get("expert", model)) if self.moe_experts else 0
         )
         return dataclasses.replace(
-            self, batch=_round_up(self.batch, data), n_heads=n_heads,
+            self, batch=batch, n_heads=n_heads,
             d_model=_round_up(self.d_model, n_heads * max(fsdp, 1)),
             d_ff=_round_up(self.d_ff, model * fsdp), seq=_round_up(self.seq, model),
             vocab=_round_up(self.vocab, fsdp * model), moe_experts=experts,
+            n_layers=_round_up(self.n_layers, pipe) if self.pipeline_stages else self.n_layers,
+            pipeline_stages=pipe if self.pipeline_stages else 0,
         )
 
 
@@ -212,7 +224,25 @@ def param_specs(config: BurninConfig, mesh=None):
     the heads, the MLP hidden dim and the embedding's d_model.  Experts
     ride the mesh's ``expert`` axis when it has one (ep x tp), else
     ``model``.  Under context parallelism the model axis carries the
-    sequence, so no weight is sharded over it and fsdp alone shards them."""
+    sequence, so no weight is sharded over it and fsdp alone shards them.
+    With pipeline stages every layer leaf's stacked dim rides ``pipe``
+    (a stage holds its own layers), the tp dims ``model`` as above, the
+    experts ``model``, and the embedding, position table and final norm
+    are whole."""
+    if config.pipeline_stages > 0:
+        if config.moe_experts > 0:
+            mlp = {"router": ("pipe", None, None), "w1e": ("pipe", "model", None, None),
+                   "w2e": ("pipe", "model", None, None)}
+        else:
+            mlp = {"w1": ("pipe", None, "model"), "w2": ("pipe", "model", None)}
+        return {
+            "embed": (None, None),
+            "pos": (None, None),
+            "layers": {"wqkv": ("pipe", None, None, "model", None),
+                       "wo": ("pipe", "model", None, None), **mlp,
+                       "ln1": ("pipe", None), "ln2": ("pipe", None)},
+            "ln_f": (None,),
+        }
     if config.context_parallel:
         matrices = {
             "wqkv": (None, "fsdp", None, None, None),
@@ -241,7 +271,10 @@ def param_specs(config: BurninConfig, mesh=None):
 
 
 def token_spec(config: BurninConfig):
-    """The token batch's spec: rows over ``("data", "fsdp")``."""
+    """The token batch's spec: rows over ``("data", "fsdp")``, or over
+    ``"data"`` when pipelined (the pipe mesh has no fsdp axis)."""
+    if config.pipeline_stages > 0:
+        return ("data", None)
     return (("data", "fsdp"), None)
 
 
@@ -416,7 +449,7 @@ def _logits(params, x):
 
 def _check_parallelism(c: BurninConfig, mesh) -> None:
     """The reference's refusals in ``forward`` (burnin.py:547-600), with
-    its messages."""
+    its messages (a module path naming the port's)."""
     if c.ring_attention and c.ulysses_attention:
         raise ValueError(
             "ring_attention and ulysses_attention are two flavors of the "
@@ -444,6 +477,20 @@ def _check_parallelism(c: BurninConfig, mesh) -> None:
             "shards the sequence over the model axis, so experts cannot "
             "ride it"
         )
+    if c.pipeline_stages > 0:
+        if c.context_parallel or c.flash_attention:
+            raise ValueError(
+                "pipeline_stages is not combined with ring/flash attention: "
+                "the ring rotates K/V over the model axis, which inside the "
+                "pipeline's partial-manual shard_map is an auto axis (no "
+                "ppermute), and the pallas flash kernel is not validated "
+                "under a shard_map body with auto axes"
+            )
+        if mesh is None or "pipe" not in mesh_sizes(mesh):
+            raise ValueError(
+                "pipeline_stages requires a (data, pipe, model) mesh "
+                "(tpu_dra_torch.parallel.pipeline.pipeline_mesh)"
+            )
     if mesh is None and c.context_parallel:
         # A silent dense fallback would report the long-context
         # configuration as trained without running the ring or the swaps.
@@ -463,11 +510,16 @@ def forward(params, tokens, config: BurninConfig, mesh=None, *, return_aux: bool
     params its shards (`param_specs`), ``tokens`` its batch rows
     (`prepare_tokens`), and the logits its block of the global ones,
     (B / (data x fsdp), S / model, vocab), the sequence block being the
-    rank's place on ``model``."""
+    rank's place on ``model``.  With ``pipeline_stages`` the blocks run
+    `pipeline.forward_pipelined`'s GPipe schedule (the batch over
+    ``data`` only)."""
     c = config
     if tokens.shape[1] != c.seq:
         raise ValueError(f"forward takes full sequences of {c.seq} tokens, got {tokens.shape[1]}")
     _check_parallelism(c, mesh)
+    if c.pipeline_stages > 0:
+        logits, aux = pipeline.forward_pipelined(params, tokens, c, mesh)
+        return (logits, aux) if return_aux else logits
     if mesh is not None:
         return _forward_sharded(params, tokens, c, spmd.Place(mesh), return_aux)
     x = params["embed"][tokens]
@@ -588,16 +640,19 @@ def _forward_sharded(params, tokens, c: BurninConfig, place: "spmd.Place", retur
         rope_tables(torch.arange(c.seq, device=tokens.device), c.d_head) if c.rope else None
     )
     layer_specs = {name: spec[1:] for name, spec in specs["layers"].items()}
-    remat = torch.is_grad_enabled()
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in _layers(params):
-        kw = dict(config=c, place=place, specs=layer_specs, rope_tab=rope_tab)
-        if remat:
-            x, aux_l = checkpoint(_block_sharded, layer, x, use_reentrant=False, **kw)
-        else:
-            x, aux_l = _block_sharded(layer, x, **kw)
-        if aux_l is not None:
-            aux = aux + aux_l
+    if c.pipeline_stages > 0:
+        x, aux = pipeline.pipelined_blocks(params["layers"], x, c, place, layer_specs, rope_tab)
+    else:
+        remat = torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for layer in _layers(params):
+            kw = dict(config=c, place=place, specs=layer_specs, rope_tab=rope_tab)
+            if remat:
+                x, aux_l = checkpoint(_block_sharded, layer, x, use_reentrant=False, **kw)
+            else:
+                x, aux_l = _block_sharded(layer, x, **kw)
+            if aux_l is not None:
+                aux = aux + aux_l
     x = _rms_norm(x, params["ln_f"]).to(torch.bfloat16)
     logits = (x @ embed.to(torch.bfloat16).T).float()
     return (logits, aux) if return_aux else logits
@@ -650,8 +705,15 @@ def _loss_sharded(params, tokens, config: BurninConfig, place: "spmd.Place"):
     mean is over the global B x (S - 1) targets.  On a mesh with an
     ``expert`` axis the token rows repeat over it, so each of those ranks
     counts 1/expert of its sum; the load-balance term is the same number
-    on every rank (global means), so each counts 1/world of it."""
+    on every rank (global means), so each counts 1/world of it.  Pipelined,
+    the rows repeat over ``pipe`` (each pipe rank counts 1/pipe) and are
+    scored in the order the schedule computes them
+    (`pipeline.microbatch_rows`)."""
     c = config
+    _check_parallelism(c, place.sizes)
+    if c.pipeline_stages > 0:
+        pipeline.check_config(c, place)
+        tokens = pipeline.microbatch_rows(tokens, c, place)
     logits, aux = _forward_sharded(params, tokens, c, place, True)
     lo, n = _seq_block(place, c.seq)
     n = min(n, c.seq - 1 - lo)

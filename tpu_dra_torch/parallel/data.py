@@ -1,6 +1,7 @@
 """Input pipeline: host-side batch streams with device prefetch.
 
-Counterpart of `tpu_dra.parallel.data` for one device:
+Counterpart of `tpu_dra.parallel.data`, on one device or on a rank of
+a `DeviceMesh`:
 
 - `synthetic_stream`   — an infinite, seeded iterator of fresh training
   batches, the reference's batches bit for bit (the port's Threefry,
@@ -8,12 +9,13 @@ Counterpart of `tpu_dra.parallel.data` for one device:
 - `prefetch_to_device` — wrap any batch iterator with a depth-``size``
   device prefetch: each batch is copied from pinned host memory on a
   side CUDA stream, and the consumer's stream waits on that copy's event
-  before the batch is used, so copies overlap the steps in flight;
+  before the batch is used, so copies overlap the steps in flight.  On a
+  mesh (the reference's ``sharding``) a rank copies only its block of
+  each batch (`spmd.local_slices` of a spec, `burnin.token_spec` for
+  training), the rest never leaving the host;
 - `train_on_stream`    — the stream-fed training loop: a fresh
-  prefetched batch a step, the same `TrainReport` as `burnin.train`.
-
-The reference's ``mesh`` argument (batches placed in the training
-layout) waits for the port's sharded training; these take ``device=``.
+  prefetched batch a step, the same `TrainReport` as `burnin.train`; on
+  a mesh, the config scaled to it and the sharded step.
 """
 
 from __future__ import annotations
@@ -23,13 +25,14 @@ import time
 
 import torch
 
-from tpu_dra_torch.parallel import prng
+from tpu_dra_torch.parallel import prng, spmd
 from tpu_dra_torch.parallel.burnin import (
     BurninConfig,
     TrainReport,
     assemble_train_report,
     make_train_step,
     sample_tokens,
+    token_spec,
 )
 from tpu_dra_torch.parallel.device import resolve_device
 
@@ -50,11 +53,13 @@ def synthetic_stream(config: BurninConfig, *, seed: int = 0):
 class _Prefetch:
     """The iterator `prefetch_to_device` returns.  ``stream`` is the side
     stream the copies run on (None on the CPU) and ``waits`` counts the
-    batches handed out after the consumer's stream waited on their copy."""
+    batches handed out after the consumer's stream waited on their copy.
+    ``block`` takes a host batch to the part of it this rank copies."""
 
-    def __init__(self, iterator, size: int, device: torch.device):
+    def __init__(self, iterator, size: int, device: torch.device, block=None):
         self._source = iter(iterator)
         self._device = device
+        self._block = block
         self._queue = collections.deque()
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         self.waits = 0
@@ -63,6 +68,8 @@ class _Prefetch:
 
     def _put(self, batch) -> None:
         batch = torch.as_tensor(batch)
+        if self._block is not None:
+            batch = self._block(batch)
         if self.stream is None:
             self._queue.append((batch.to(self._device), None, None))
             return
@@ -106,7 +113,8 @@ class _Prefetch:
         return on_device
 
 
-def prefetch_to_device(iterator, *, size: int = 2, device: "str | torch.device" = "cuda"):
+def prefetch_to_device(iterator, *, size: int = 2, device: "str | torch.device" = "cuda",
+                       mesh=None, spec=None):
     """Depth-``size`` device prefetch over any host batch iterator.
 
     On a card, ``size`` batches are kept in flight: each is pinned and
@@ -115,23 +123,48 @@ def prefetch_to_device(iterator, *, size: int = 2, device: "str | torch.device" 
     the batch is handed out, so the host never blocks on a copy and a
     step never reads a batch before its copy is done.  On the CPU it
     passes the batches through in order.  Contents and order are the
-    iterator's whatever ``size``."""
+    iterator's whatever ``size``.
+
+    On a `DeviceMesh` (the reference's ``sharding``) each batch is placed
+    in the layout ``spec`` gives it (`burnin.token_spec` for the training
+    batch; None: whole on every rank): the rank takes its block of the
+    host batch (`spmd.local_slices`) and copies only that, the same way,
+    to its own device (``device`` is then the rank's)."""
     if size < 1:
         raise ValueError(f"prefetch size must be >= 1, got {size}")
-    return _Prefetch(iterator, size, resolve_device(device))
+    if mesh is None:
+        return _Prefetch(iterator, size, resolve_device(device))
+    place = spmd.Place(mesh)
+
+    def block(batch):
+        if spec is None:
+            return batch
+        return batch[spmd.local_slices(spec, batch.shape, place.sizes, place.coords)].contiguous()
+
+    return _Prefetch(iterator, size, place.device, block)
 
 
-def train_on_stream(config: BurninConfig, *, steps: int = 5, seed: int = 0,
+def train_on_stream(config: BurninConfig, mesh=None, *, steps: int = 5, seed: int = 0,
                     prefetch: int = 2, device: "str | torch.device" = "cuda") -> TrainReport:
     """The stream-fed training loop: ``max(2, steps)`` steps, each on a
     fresh prefetched batch of `synthetic_stream`, from `init_params`'
-    seeded weights.  Same report contract as `burnin.train` (loss first
-    against last, over distinct batches); reports, never raises."""
+    seeded weights.  On a `DeviceMesh` (every rank of it calls this) the
+    config is scaled to the mesh first, as `burnin.train` scales it, each
+    rank copies its rows of every batch (`burnin.token_spec`) and the
+    step is the sharded one.  Same report contract as `burnin.train`
+    (loss first against last, over distinct batches); reports, never
+    raises."""
     try:
-        dev = resolve_device(device)
-        step_fn, state = make_train_step(config, dev)
-        stream = prefetch_to_device(synthetic_stream(config, seed=seed), size=prefetch,
-                                    device=dev)
+        if mesh is None:
+            dev = resolve_device(device)
+            step_fn, state = make_train_step(config, dev)
+            stream = prefetch_to_device(synthetic_stream(config, seed=seed), size=prefetch,
+                                        device=dev)
+        else:
+            config = config.scaled_to(mesh)
+            step_fn, state = make_train_step(config, mesh)
+            stream = prefetch_to_device(synthetic_stream(config, seed=seed), size=prefetch,
+                                        mesh=mesh, spec=token_spec(config))
         losses, times = [], []
         for _ in range(max(2, steps)):
             batch = next(stream)

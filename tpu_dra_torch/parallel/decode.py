@@ -114,16 +114,16 @@ __all__ = [
 def serving_config(config: BurninConfig) -> BurninConfig:
     """The serving view of a training config: the training-only
     parallelism (ring/Ulysses context parallelism, pipeline stages)
-    stripped, everything the params depend on untouched: ring- and
-    Ulysses-trained weights serve under the config this returns (the
-    port's config refuses the pipeline fields already)."""
+    stripped, everything the params depend on untouched: ring-,
+    Ulysses- and pipeline-trained weights serve under the config this
+    returns."""
     return dataclasses.replace(
         config, ring_attention=False, ulysses_attention=False, pipeline_stages=0,
     )
 
 
-# The reference's refusal of a pipelined config (`_validate`), which the
-# port's config cannot even hold: `models.serve_family` reports it.
+# The reference's refusal of a pipelined config (`_validate`), which
+# `models.serve_family` reports for the pipelined family on a mesh.
 PIPELINE_REFUSAL = (
     "decode does not run under pipeline parallelism: a one-token "
     "step has no microbatch stream to fill a GPipe schedule with "

@@ -182,9 +182,16 @@ def randint(k, shape, minval: int, maxval: int):
 
 def gumbel(k, shape, dtype=torch.float32):
     """``jax.random.gumbel`` in its default ``mode="low"``:
-    ``-log(-log(u))`` for ``u`` uniform in [tiny, 1)."""
+    ``-log(-log(u))`` for ``u`` uniform in [tiny, 1).  On the CPU the two
+    logs are taken in float64 and rounded once: torch's vectorized
+    float32 ``log`` there can return a thread's chunk of a draw above
+    32768 elements off on its first multithreaded call in a process.
+    On a card they are float32."""
     _check_f32(dtype)
-    return -torch.log(-torch.log(uniform(k, shape, dtype, minval=_F32_TINY, maxval=1.0)))
+    u = uniform(k, shape, dtype, minval=_F32_TINY, maxval=1.0)
+    if u.device.type == "cpu":
+        return (-torch.log(-torch.log(u.double()))).to(dtype)
+    return -torch.log(-torch.log(u))
 
 
 def categorical(k, logits):

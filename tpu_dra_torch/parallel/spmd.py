@@ -14,7 +14,8 @@ PyTorch runs one process a rank, so the port states both itself:
   the gradient, a reduce-scatter whose backward all-gathers it, an
   all-reduce whose backward all-reduces it; `all_to_all` swaps which dim
   is split over an axis (its backward is the inverse swap); `shift` is
-  one hop of a ring.
+  one hop of a ring, `line_hop` one hop along a line (the pipeline's
+  stage to stage move, driven by hand in both directions: no gradient).
 
 A step is differentiated as the sum of every rank's local loss: a rank
 adds only its share (work repeated on k ranks is counted 1/k on each),
@@ -42,8 +43,8 @@ from tpu_dra_torch.parallel.collectives import rank_device
 from tpu_dra_torch.parallel.mesh import mesh_shape
 
 __all__ = [
-    "Place", "all_to_all", "all_to_all_local", "gather", "gather_leaf", "local_slices",
-    "mesh_sizes", "psum", "reduce_grads", "scatter", "shift", "spec_axes",
+    "Place", "all_to_all", "all_to_all_local", "gather", "gather_leaf", "line_hop",
+    "local_slices", "mesh_sizes", "psum", "reduce_grads", "scatter", "shift", "spec_axes",
 ]
 
 
@@ -296,6 +297,31 @@ def shift(tensors, place: Place, axis: str):
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return outs
+
+
+def line_hop(x, place: Place, axis: str, *, reverse: bool = False):
+    """One hop along the line of ``axis`` (no ring: the ends do not join),
+    one `batch_isend_irecv` on contiguous buffers: ``x`` sent to the next
+    rank and the previous rank's tensor received, or with ``reverse`` to
+    the previous rank and from the next.  Returns the tensor received,
+    None on the rank that has no sender (the first, or the last with
+    ``reverse``) and when the axis has one rank.  No gradient: the
+    pipeline drives the reverse hops of its backward itself."""
+    n, i = place.size(axis), place.index(axis)
+    if n == 1:
+        return None
+    step = -1 if reverse else 1
+    group = place.group(axis)
+    dst, src = i + step, i - step
+    ops, out = [], None
+    if 0 <= dst < n:
+        ops.append(dist.P2POp(dist.isend, x.contiguous(), dist.get_global_rank(group, dst), group))
+    if 0 <= src < n:
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src), group))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
 
 
 def reduce_grads(grads, specs, place: Place) -> None:
