@@ -37,7 +37,17 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    layers, seq 1024; random weights from a seeded generator) through
    ``attn_backend="cuda"``: 16 requests through 8 slots, every kernel
    launch counted, then the same stream through the gather backend;
-   then the same stream served int8 (``quant.quantize_params`` weights,
+   then the engine's telemetry on the same stream through the kernel:
+   ``telemetry=False`` and ``telemetry=True`` alternately, twice each
+   (tokens bitwise the first run's, the kernel's launches and the host
+   syncs unchanged, the step p50 of each mode pooled), each telemetry
+   run's step records against the run (admissions, finishes, tokens;
+   the phases tiling at least 0.95 of every tick that did device work),
+   busy + idle equal to the summed step wall, each request's four spans
+   under one trace, ``kv_snapshot`` conserved after every tick, a
+   ``MetricsServer`` answering ``/metrics`` and the five debug routes,
+   and ``profile_steps(8)``, whose trace must hold 8 steps x 8 layers of
+   the kernel; then the same stream served int8 (``quant.quantize_params`` weights,
    ``kv_int8=True`` pool; three eager weight-dequantization routes checked
    bitwise and timed on one layer) through the int8 kernel, every launch counted,
    against the int8 gather engine, one int8 decode step's logits through
@@ -98,7 +108,11 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    (`burnin_mesh([0])`) serves the main stream at full width through
    ``ServeEngine(mesh=)`` on the paged layout, bf16 and int8 (weights cut
    by ``weights.shard_params``, ``kv_int8``), its tokens bitwise phase
-   5's gather engines'; the rows engine, ``make_generate_padded`` and
+   5's gather engines'; ``DisaggServer`` with both tiers on the mesh,
+   alias and dma, its tokens and both tiers' step records bitwise the
+   one-device gather ``DisaggServer``'s in the same worker (blocks
+   conserved every tick, host syncs as the contract gives them); the
+   rows engine, ``make_generate_padded`` and
    rope ``make_generate`` on the mesh bitwise their one-device runs;
    `serve_family` for dense, flash and moe over the mesh (long_context
    refused); K1 and K2 at 0 launches on every mesh path; tokens/s, TTFT,
@@ -178,8 +192,10 @@ Phases, each asserted; any failure exits non-zero and prints no result:
 flash and long_context_a2a families sharded over N ranks against one
 card, the activation bound (`moe.routing_temp_comparison`, ``local * 1.4
 < global``) and ``validate`` over the N cards; then serves the main
-stream at full width over N ranks (bf16 and int8; every rank's tokens the
-same and one card's up to near-ties; each rank's numbers and bytes) and
+stream at full width over N ranks (bf16 and int8, and through
+``DisaggServer`` with both tiers on the mesh, alias and dma; every rank's
+tokens and step records the same, and one card's tokens up to near-ties;
+each rank's numbers and bytes) and
 runs ``validate --family dense --serve`` and ``--family moe --serve
 --int8`` over the N cards; then the pipelined family (2 experts, 4
 layers) on (data 1, pipe 2, model 2) of 4 cards against one card with
@@ -625,9 +641,9 @@ def count_waves(engines):
     waves = [0]
     for eng in engines:
         def admit(_real=eng._admit):
-            n = _real()
-            waves[0] += n > 0
-            return n
+            admitted, hits = _real()
+            waves[0] += admitted > 0
+            return admitted, hits
 
         eng._admit = admit
     return waves
@@ -667,12 +683,13 @@ SAMPLED_RUNS = {
 
 
 def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=False,
-          before=None, **engine_kw):
+          before=None, after_tick=None, **engine_kw):
     """Drive the stream through one engine tick by tick, holding it to
     the host-sync contract unless it is a ``warm_up`` run (the first
     serving run of a process makes one more sync, inside torch's own
     first-use setup).  ``before(engine)`` runs ahead of the submissions
-    (a warm start).  Returns the engine, the finished requests by id, the
+    (a warm start), ``after_tick(engine)`` after every tick, outside the
+    tick's timing.  Returns the engine, the finished requests by id, the
     run's wall seconds, the wall times of ticks that admitted nothing
     (one decode step each) and the host-sync count as text."""
     import torch
@@ -693,6 +710,8 @@ def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=Fals
             done.update((r.id, r) for r in eng.tick())
             if eng.queue_depth == queued:
                 step_walls.append(time.perf_counter() - t)
+            if after_tick is not None:
+                after_tick(eng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if sorted(done) != sorted(ids):
@@ -977,7 +996,181 @@ def phase_engine(torch, cfg_mod, serve_mod, weights, quant, pa, paged):
     for leaf in pool.values():
         leaf.copy_(torch.randn(leaf.shape, generator=g, device="cuda") * 0.5)
     check_step_logits(torch, paged, params, cfg, pool, "bf16")
-    return launches, line, done, {rid: list(r.tokens) for rid, r in g_done.items()}
+    del pool
+    telemetry = phase_telemetry(torch, serve_mod, pa, params, cfg, stream, done, launches)
+    return launches, line, done, {rid: list(r.tokens) for rid, r in g_done.items()}, telemetry
+
+
+SPAN_NAMES = ["serve.admit", "serve.decode", "serve.queue", "serve.request"]
+PROFILE_STEPS = 8  # the device calls `profile_steps` captures
+PHASE_CLOSURE = 0.95  # the phases' least share of a tick that did device work
+
+
+def check_request_spans(trace, done, label: str) -> None:
+    """Each finished request's spans: the four names, one trace id, the
+    root a trace root and every other span's parent."""
+    for rid, r in done.items():
+        spans = trace.EXPORTER.spans(trace_id=r.trace_id)
+        names = sorted(sp["name"] for sp in spans)
+        root = [sp for sp in spans if sp["name"] == "serve.request"]
+        if (names != SPAN_NAMES or len(root) != 1 or root[0]["parent_id"]
+                or any(sp["trace_id"] != r.trace_id for sp in spans)
+                or any(sp["parent_id"] != root[0]["span_id"] for sp in spans
+                       if sp is not root[0])):
+            raise AssertionError(f"{label}, request {rid}: spans {names}, "
+                                 f"{[(sp['name'], sp['parent_id']) for sp in spans]}")
+
+
+def check_kv_snapshot(eng, label: str) -> None:
+    """The engine's ``/debug/kv`` snapshot against its block counts: one
+    record per allocated block, each block's refcount its owner tags."""
+    snap = eng.kv_snapshot()
+    stats = eng.kv_block_stats
+    blocks = snap["blocks"]
+    if (len(blocks) != stats["blocks_allocated"]
+            or any(b["refcount"] != len(b["owners"]) for b in blocks)
+            or sum(snap["free_runs"]) != stats["blocks_free"]):
+        raise AssertionError(f"{label}: kv_snapshot {snap} against {stats}")
+
+
+def check_step_records(records, stream, label: str) -> str:
+    """The run's `StepRecord`s against the run: every request admitted
+    and finished once, the stream's tokens, and the phases tiling at
+    least ``PHASE_CLOSURE`` of every tick that did device work.  Returns
+    the smallest closure as text."""
+    sums = {k: sum(getattr(r, k) for r in records) for k in ("admitted", "finished", "tokens")}
+    want = {"admitted": len(stream), "finished": len(stream),
+            "tokens": sum(b for _, b in stream)}
+    if sums != want:
+        raise AssertionError(f"{label}: step records sum to {sums}, the run to {want}")
+    closure = min(sum(r.phase_s.values()) / r.step_wall_s for r in records
+                  if r.occupancy or r.admitted)
+    if closure < PHASE_CLOSURE:
+        raise AssertionError(f"{label}: the phases tile {closure:.4f} of a tick")
+    return f"{closure:.4f}"
+
+
+def phase_telemetry(torch, serve_mod, pa, params, cfg, stream, kernel_done, kernel_launches):
+    """The engine's telemetry at phase 5's width, stream and slots, through
+    the kernel: the stream with ``telemetry=False`` and ``telemetry=True``,
+    alternately, twice each (tokens bitwise phase 5's, K1's launches phase
+    5's, host syncs as the contract gives them: the telemetry adds none;
+    the step p50 of the two modes' runs pooled); the
+    step records against the run (admissions, finishes, tokens; the
+    phases tiling at least ``PHASE_CLOSURE`` of every tick that did device
+    work); the capacity split (busy + idle == the summed step wall); each
+    request's four spans under one trace id; the ``/debug/kv`` snapshot's
+    blocks conserved after every tick; `profile_steps` over
+    ``PROFILE_STEPS`` device calls (its trace holding steps x layers K1
+    launches); a `MetricsServer` answering every route.  Returns the K1
+    launches by path."""
+    import urllib.request
+
+    from tpu_dra_torch.utils import metrics, servestats, trace
+
+    runs = {}
+    for on, name in ((False, "telemetry-off"), (True, "telemetry-on"),
+                     (False, "telemetry-off-2"), (True, "telemetry-on-2")):
+        pa.paged_attention.launches = 0
+        eng, done, wall, steps, synced = serve(
+            serve_mod.ServeEngine, params, cfg, stream, "cuda", telemetry=on, name=name,
+            after_tick=(lambda e: check_kv_snapshot(e, name)) if on else None)
+        launches = pa.paged_attention.launches
+        if launches != kernel_launches or launches != eng.device_steps * cfg.n_layers:
+            raise AssertionError(f"{name}: {launches} K1 launches, phase 5 made {kernel_launches}")
+        tokens = {rid: list(r.tokens) for rid, r in done.items()}
+        if tokens != {rid: list(r.tokens) for rid, r in kernel_done.items()}:
+            raise AssertionError(f"{name}: tokens differ from phase 5's")
+        runs[name] = dict(eng=eng, done=done, steps=steps, launches=launches, synced=synced,
+                          p50=statistics.median(steps), wall=wall, on=on)
+        if on:
+            records = servestats.RECORDER.query(engine=name)
+            closure = check_step_records(records, stream, name)
+            walls = sum(r.step_wall_s for r in records)
+            cap = eng.capacity_snapshot()
+            if (abs(cap["busy_s"] + cap["idle_s"] - walls) > 1e-9 * walls
+                    or cap["steps"] != len(records)):
+                raise AssertionError(f"{name}: capacity split {cap} against {len(records)} "
+                                     f"ticks, {walls} s")
+            check_request_spans(trace, done, name)
+            shares = {p: v["fraction"]
+                      for p, v in servestats.summarize(records)["phases"].items()}
+            log(f"{name}: {len(records)} step records summing to the run, the phases tiling at "
+                f"least {closure} of a tick, a tick's phase shares {shares}; busy "
+                f"{cap['busy_s']:.6f} s + idle {cap['idle_s']:.6f} s = the summed step wall "
+                f"{walls:.6f} s; each request's four spans under one trace; kv_snapshot "
+                f"conserved every tick")
+        elif servestats.RECORDER.query(engine=name):
+            raise AssertionError(f"{name}: step records were made")
+        tps = sum(len(r.tokens) for r in done.values()) / wall
+        log(f"{name}: tokens bitwise phase 5's, {launches} K1 launches; {synced}; step p50 "
+            f"{runs[name]['p50'] * 1e3:.3f} ms, {tps:.3f} tokens/s (host clocks)")
+    pooled = {on: statistics.median([w for r in runs.values() if r["on"] == on
+                                     for w in r["steps"]]) for on in (False, True)}
+    log(f"telemetry step p50, both runs of each mode pooled (ticks without admission, host "
+        f"clock): off {pooled[False] * 1e3:.3f} ms, on {pooled[True] * 1e3:.3f} ms, on/off "
+        f"{pooled[True] / pooled[False]:.4f}")
+    on = runs["telemetry-on"]
+    records = servestats.RECORDER.query(engine="telemetry-on")
+
+    # The six routes, while the telemetry-on engine is still registered.
+    srv = metrics.MetricsServer("127.0.0.1:0")
+    srv.start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        answered = {}
+        for route in ("/metrics", "/debug/engine?engine=telemetry-on", "/debug/kv",
+                      "/debug/requests?engine=telemetry-on", "/debug/capacity",
+                      f"/debug/traces?trace_id={on['done'][0].trace_id}"):
+            with urllib.request.urlopen(base + route, timeout=30) as resp:
+                body = resp.read().decode()
+                answered[route.split("?")[0]] = (resp.status, len(body))
+            if route.startswith("/debug/engine") and len(json.loads(body)["steps"]) != len(
+                    records):
+                raise AssertionError(f"{route}: {body[:300]}")
+            if route == "/debug/kv" and not any(e["engine"] == "telemetry-on"
+                                                for e in json.loads(body)["engines"]):
+                raise AssertionError(f"{route}: {body[:300]}")
+            if route == "/metrics" and 'tpu_dra_serve_tier_engines{engine="telemetry-on"' not in body:
+                raise AssertionError(f"{route}: no telemetry-on series")
+        with urllib.request.urlopen(base + "/debug/engine?engine=telemetry-on&format=text",
+                                    timeout=30) as resp:
+            text = resp.read().decode()
+    finally:
+        srv.stop()
+    if any(status != 200 for status, _ in answered.values()):
+        raise AssertionError(f"MetricsServer: {answered}")
+    log(f"MetricsServer on 127.0.0.1: (status, bytes) {answered}; /debug/engine as text: "
+        f"{text.splitlines()[0]} | {text.splitlines()[1]}")
+    for run in runs.values():
+        run["eng"].close()
+    del runs
+
+    # The deep profiler over the first PROFILE_STEPS decode calls.
+    root = os.path.dirname(os.path.abspath(__file__))
+    eng = serve_mod.ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
+                                attn_backend="cuda", name="telemetry-profile")
+    eng.profile_steps(PROFILE_STEPS, os.path.join(root, "chiprun_out", "telemetry_profile"))
+    pa.paged_attention.launches = 0
+    for p, b in stream:
+        eng.submit(p, b)
+    eng.run()
+    launches = pa.paged_attention.launches
+    if eng.profiling or eng.profile_error:
+        raise AssertionError(f"profile_steps: armed {eng.profiling}, error {eng.profile_error}")
+    with open(eng.profile_path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel" and "paged_attention_kernel" in e["name"]]
+    if len(k1) != PROFILE_STEPS * cfg.n_layers or launches != eng.device_steps * cfg.n_layers:
+        raise AssertionError(f"profile_steps: {len(k1)} K1 launches in the trace (want "
+                             f"{PROFILE_STEPS * cfg.n_layers}); {launches} in the run")
+    k1_us = statistics.median(e["dur"] for e in k1)
+    log(f"profile_steps({PROFILE_STEPS}): {len(k1)} K1 launches in "
+        f"{os.path.relpath(eng.profile_path, root)} (median {k1_us:.3f} us on the device), "
+        f"disarmed; the run's {launches} launches")
+    eng.close()
+    return {"engine telemetry off": kernel_launches, "engine telemetry on": kernel_launches,
+            "engine profile_steps": launches, "profile_steps trace": len(k1)}
 
 
 def dequant_routes(torch):
@@ -1383,7 +1576,7 @@ def serving_line(done, wall, step_walls) -> str:
             f"{statistics.median(step_walls) * 1e3:.3f} ms (host clocks)")
 
 
-def phase_disagg(torch, disagg_mod, serve_mod, pa, params, cfg, logits_at):
+def phase_disagg(torch, disagg_mod, serve_mod, pa, params, cfg, logits_at, tokens_out):
     """The main 16-request stream through `DisaggServer`: both tiers 8
     slots (prompt_slots 512, max_new_cap 64, block 128) through the
     kernel, the decode tier 41 blocks; first with alias handoff, then dma
@@ -1394,7 +1587,8 @@ def phase_disagg(torch, disagg_mod, serve_mod, pa, params, cfg, logits_at):
     conserved after every tick; host syncs as the contract gives them
     (one a prefill-tier wave, one a decode step, one a dma handoff, none
     an alias one); one weight storage for both tiers.  Returns the
-    launches of each mode."""
+    launches of each mode; puts each mode's tokens by request in
+    ``tokens_out``."""
     stream = make_stream(cfg.vocab)
     mono = serve_mod.ServeEngine(params, cfg, slots=8, prompt_slots=512, max_new_cap=64,
                                  attn_backend="cuda")
@@ -1483,6 +1677,7 @@ def phase_disagg(torch, disagg_mod, serve_mod, pa, params, cfg, logits_at):
             f"{prefill_launches[0]} kernel launches; decode tier {dec.device_steps} steps, {n} "
             f"kernel launches; {synced}; {serving_line(done, wall, dec_steps)}")
         check_near_ties(torch, done, mono_done, logits_at, f"disagg {mode} vs mono engine")
+        tokens_out[mode] = {i: list(r.tokens) for i, r in done.items()}
         srv.close()
     return launches
 
@@ -1943,10 +2138,11 @@ class _Gen:
 
 
 def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, disagg_mod, weights, quant, pa,
-                       paged):
+                       paged, disagg_tokens):
     """The KV hierarchy and the tiers at the serving width: prefix cache,
     swap tier, handoff, the disaggregated server, warm restart, each
-    timed.  Returns the kernel's launches on their paths."""
+    timed.  Returns the kernel's launches on their paths; puts the
+    disaggregated server's tokens in ``disagg_tokens``."""
     cfg = cfg_mod.BurninConfig(**SERVE_WIDTH)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = weights.cast_matrices(cfg_mod.init_params(cfg, gen, device="cuda"))
@@ -1957,7 +2153,7 @@ def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, disagg_mod, weights,
         ("swap", lambda: phase_swap(torch, serve_mod, pa, paged, quant, params, cfg, logits_at)),
         ("handoff", lambda: phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at)),
         ("disagg", lambda: phase_disagg(torch, disagg_mod, serve_mod, pa, params, cfg,
-                                        logits_at)),
+                                        logits_at, disagg_tokens)),
         ("warm restart", lambda: phase_warm_restart(torch, serve_mod, pa, params, cfg,
                                                     logits_at)),
     ):
@@ -2789,7 +2985,7 @@ def _serve_rank(rank: int, init_method: str, plan: dict, out) -> None:
         import torch
 
         from tpu_dra_torch import models
-        from tpu_dra_torch.parallel import burnin, decode, gang, quant, weights
+        from tpu_dra_torch.parallel import burnin, decode, disagg, gang, quant, weights
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
         from tpu_dra_torch.parallel.kernels import paged_attn as pa
         from tpu_dra_torch.parallel.serve import ServeEngine
@@ -2801,8 +2997,8 @@ def _serve_rank(rank: int, init_method: str, plan: dict, out) -> None:
         gang.join_group(init_method, world_size=world, rank=rank, device=f"cuda:{rank}",
                         timeout_s=300)
         mesh = burnin.burnin_mesh(range(world))
-        out.put((rank, _mesh_serving(torch, models, burnin, decode, quant, weights, ServeEngine,
-                                     fa, pa, mesh, plan["one_card"])))
+        out.put((rank, _mesh_serving(torch, models, burnin, decode, disagg, quant, weights,
+                                     ServeEngine, fa, pa, mesh, plan["one_card"])))
     except Exception:
         out.put((rank, traceback.format_exc()))
     finally:
@@ -2812,14 +3008,68 @@ def _serve_rank(rank: int, init_method: str, plan: dict, out) -> None:
             dist.destroy_process_group()
 
 
-def _mesh_serving(torch, models, burnin, decode, quant, weights, ServeEngine, fa, pa, mesh,
-                  one_card: bool) -> dict:
+DISAGG_INT_FIELDS = ("occupancy", "slots", "queue_depth", "admitted", "prefix_hits", "finished",
+                     "tokens", "preempted", "swapped_in", "slo_met", "slo_missed")
+
+
+def _mesh_disagg(torch, disagg, pa, fa, params, cfg, stream, mesh) -> dict:
+    """The main stream through `DisaggServer` with both tiers on ``mesh``
+    (None: one device), phase 8's tier shapes through the gather (the
+    kernel serves one device only), alias then dma: blocks conserved
+    after every tick, host syncs as the contract gives them, K1's and
+    K2's launches counted from 0 just before and read just after.
+    Returns each mode's tokens, both tiers' step records (their integer
+    fields), launches and numbers."""
+    from tpu_dra_torch.utils import servestats
+
+    where = "one device" if mesh is None else "mesh"
+    spec = dict(slots=8, prompt_slots=512, max_new_cap=64, attn_backend="gather", mesh=mesh)
+    out = {}
+    for mode in ("alias", "dma"):
+        name = f"disagg-{mode}-{where.replace(' ', '-')}"
+        srv = disagg.DisaggServer(params, cfg, prefill=dict(spec),
+                                  decode=dict(spec, kv_blocks=41), handoff=mode, name=name)
+        pre, dec = srv.tiers["prefill"], srv.tiers["decode"]
+        dec_steps = timed_steps(dec)
+        waves = count_waves([pre, dec])
+        dids = [srv.submit(p, b) for p, b in stream]
+        _zero_launches(pa, fa)
+        t = time.perf_counter()
+        with host_syncs(torch) as syncs:
+            while srv.pending:
+                srv.tick()
+                if mode == "alias":
+                    check_blocks_conserved([pre, dec], f"{where} disagg alias")
+                else:
+                    check_blocks_conserved([pre], f"{where} disagg dma, prefill")
+                    check_blocks_conserved([dec], f"{where} disagg dma, decode")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        handed = srv.disagg_stats()["prefill"]["handoff_out_requests"]
+        synced = check_host_syncs(syncs, waves[0], [pre, dec], f"{where} disagg {mode}",
+                                  dma=handed if mode == "dma" else 0)
+        done = {i: srv.result(d) for i, d in enumerate(dids)}
+        out[mode] = {
+            "tokens": {i: list(r.tokens) for i, r in done.items()},
+            "records": {tier: [{f: getattr(r, f) for f in DISAGG_INT_FIELDS}
+                               for r in servestats.RECORDER.query(engine=f"{name}-{tier}")]
+                        for tier in ("prefill", "decode")},
+            "numbers": serving_numbers(done, wall, dec_steps), "synced": synced,
+            "handed": handed, "steps": dec.device_steps, **_launches(pa, fa)}
+        srv.close()
+    return out
+
+
+def _mesh_serving(torch, models, burnin, decode, disagg, quant, weights, ServeEngine, fa, pa,
+                  mesh, one_card: bool) -> dict:
     """A rank's sharded serving at full width: the phase-5 weights (the
     same seed on every rank), cut into the rank's shards
     (`weights.shard_params`, int8 quantized whole first), the main stream
-    through the paged engine on ``mesh`` in bf16 and int8 (``kv_int8``).
-    With ``one_card`` (a one-rank mesh) also the one-device gather engine
-    in the same process, the rows engine on the mesh and on one device,
+    through the paged engine on ``mesh`` in bf16 and int8 (``kv_int8``),
+    and through `DisaggServer` with both tiers on ``mesh`` (bf16, alias
+    and dma, `_mesh_disagg`).  With ``one_card`` (a one-rank mesh) also
+    the one-device gather engine and the one-device `DisaggServer` in the
+    same process, the rows engine on the mesh and on one device,
     `make_generate_padded` and rope `make_generate` on the mesh and on
     one device, and `serve_family` for dense, flash and moe over the mesh
     (long_context refused).  Every path's K1 and K2 launches are counted
@@ -2849,8 +3099,11 @@ def _mesh_serving(torch, models, burnin, decode, quant, weights, ServeEngine, fa
             form=f"mesh {'x'.join(map(str, res['mesh'].values()))} {form}",
             report=torch.distributed.get_rank() == 0,
             mesh=mesh)
+    res["disagg"] = _mesh_disagg(torch, disagg, pa, fa, shards["bf16"], cfg, stream, mesh)
     if not one_card:
         return res
+    res["one-device disagg"] = _mesh_disagg(torch, disagg, pa, fa, wholes["bf16"], cfg, stream,
+                                            None)
     res["one-device paged bf16"] = _mesh_engine_run(ServeEngine, quant, pa, fa, wholes["bf16"],
                                                     cfg, stream, None, "bf16")
     for label, m, p in (("rows", mesh, shards["bf16"]), ("one-device rows", None,
@@ -2911,11 +3164,39 @@ def check_mesh_run(run, label: str, want_tokens=None) -> str:
             f"0 K1, 0 K2 launches; {run['synced']}")
 
 
-def phase_sharded_serving(torch, validate, gather_tokens, int8_gather_tokens) -> dict:
+def check_mesh_disagg(got, want, label: str) -> str:
+    """`_mesh_disagg` runs on the mesh (``got``) against ``want`` (the
+    one-device runs, or rank 0's): tokens bitwise, both tiers' step
+    records' integer fields tick for tick, K1 and K2 never launched.
+    Returns the lines of both modes."""
+    lines = []
+    for mode, run in got.items():
+        if run["k1"] or run["k2"]:
+            raise AssertionError(f"{label} {mode}: {run['k1']} K1, {run['k2']} K2 launches")
+        if run["tokens"] != want[mode]["tokens"]:
+            diff = [i for i in run["tokens"] if run["tokens"][i] != want[mode]["tokens"][i]]
+            raise AssertionError(f"{label} {mode}: tokens of requests {diff} differ")
+        if run["records"] != want[mode]["records"] or not run["records"]["decode"]:
+            raise AssertionError(f"{label} {mode}: step records differ")
+        n = run["numbers"]
+        lines.append(f"{mode}: {run['handed']} handoffs, decode tier {run['steps']} steps, "
+                     f"{len(run['records']['prefill'])} + {len(run['records']['decode'])} step "
+                     f"records equal; {n['tokens_per_s']:.3f} tokens/s, TTFT p50 "
+                     f"{n['ttft_p50_s'] * 1e3:.3f} ms, decode step p50 "
+                     f"{n['step_p50_s'] * 1e3:.3f} ms; 0 K1, 0 K2; {run['synced']}")
+    return "; ".join(lines)
+
+
+def phase_sharded_serving(torch, validate, gather_tokens, int8_gather_tokens,
+                          disagg_tokens) -> dict:
     """Sharded serving on one card: a spawned worker on a one-rank NCCL
     mesh (`burnin.burnin_mesh([0])`) at full width (`_mesh_serving`):
     the paged engine on the mesh bitwise phase 5's gather engines (bf16
-    and int8), the rows engine, `make_generate_padded` and rope
+    and int8), `DisaggServer` with both tiers on the mesh (alias and dma)
+    bitwise the one-device gather `DisaggServer` in the same worker, its
+    step records tick for tick too (phase 8's server reads KV through the
+    kernel, whose tokens may leave the gather's at exact ties: how many
+    are equal is logged), the rows engine, `make_generate_padded` and rope
     `make_generate` on the mesh bitwise their one-device runs, the
     serve_family probes over the mesh, K1 and K2 at 0 launches on every
     path.  Returns the mesh paths' launches by path."""
@@ -2928,6 +3209,16 @@ def phase_sharded_serving(torch, validate, gather_tokens, int8_gather_tokens) ->
         line = check_mesh_run(got[f"paged {form}"], f"mesh paged {form}", want)
         log(f"mesh {mesh} paged engine {form}, tokens bitwise phase 5's {form} gather engine's: "
             f"{line}")
+    line = check_mesh_disagg(got["disagg"], got["one-device disagg"], f"mesh {mesh} disagg")
+    log("one-device gather DisaggServer (the worker): " + "; ".join(
+        f"{mode}: {n['tokens_per_s']:.3f} tokens/s, TTFT p50 {n['ttft_p50_s'] * 1e3:.3f} ms, "
+        f"decode step p50 {n['step_p50_s'] * 1e3:.3f} ms"
+        for mode, n in ((m, r["numbers"]) for m, r in got["one-device disagg"].items())))
+    same = {mode: sum(got["disagg"][mode]["tokens"][i] == toks for i, toks in want.items())
+            for mode, want in disagg_tokens.items()}
+    log(f"mesh {mesh} DisaggServer, both tiers on the mesh, tokens and step records bitwise "
+        f"the one-device gather DisaggServer's: {line}; requests equal to phase 8's kernel "
+        f"DisaggServer's {same} of {len(next(iter(disagg_tokens.values())))}")
     line = check_mesh_run(got["rows"], "mesh rows", got["one-device rows"]["tokens"])
     log(f"mesh {mesh} rows engine bf16, tokens bitwise the one-device rows engine's: {line}; "
         f"one-device rows: {check_mesh_run(got['one-device rows'], 'one-device rows')}")
@@ -2948,9 +3239,9 @@ def phase_sharded_serving(torch, validate, gather_tokens, int8_gather_tokens) ->
     log("serve_family over the mesh: " + "; ".join(
         f"{n} " + (f"ok, {r['tokens_per_second']} tokens/s" if r["ok"] else "refused")
         for n, r in fams["reports"].items()) + "; 0 K1, 0 K2 launches")
-    return {"mesh paged bf16": 0, "mesh paged int8": 0, "mesh rows": 0,
-            "mesh make_generate_padded": 0, "mesh rope make_generate": 0,
-            "mesh serve_family": 0}
+    return {"mesh paged bf16": 0, "mesh paged int8": 0, "mesh disagg alias": 0,
+            "mesh disagg dma": 0, "mesh rows": 0, "mesh make_generate_padded": 0,
+            "mesh rope make_generate": 0, "mesh serve_family": 0}
 
 
 # The Ulysses axis sizes at which K2 runs on each rank's head-swapped view.
@@ -3230,6 +3521,18 @@ def phase_cards_serving(torch, burnin, paged, quant, serve_mod, weights, validat
         check_near_ties(torch, got, want, logits_at[form], f"{cards} cards {form} vs one card")
         numbers[form] = [{**res[label]["numbers"], "weight_bytes": res[label]["weight_bytes"],
                           "pool_bytes": res[label]["pool_bytes"]} for res in results]
+    for rank, res in enumerate(results):
+        line = check_mesh_disagg(res["disagg"], results[0]["disagg"],
+                                 f"{cards} cards disagg, rank {rank}")
+        log(f"{cards} cards, mesh {results[0]['mesh']}, DisaggServer (both tiers on the mesh), "
+            f"rank {rank}, tokens and step records rank 0's: {line}")
+    for mode, run in results[0]["disagg"].items():
+        got = {rid: _Gen(toks, prompts[rid]) for rid, toks in run["tokens"].items()}
+        want = {rid: _Gen(toks, prompts[rid]) for rid, toks in one["bf16"]["tokens"].items()}
+        check_near_ties(torch, got, want, logits_at["bf16"],
+                        f"{cards} cards disagg {mode} vs one card")
+    numbers["disagg"] = {mode: [res["disagg"][mode]["numbers"] for res in results]
+                         for mode in results[0]["disagg"]}
     log(f"sharded serving workers' wall {time.perf_counter() - t:.3f} s")
     del params, logits_at
     gc.collect()
@@ -4000,7 +4303,7 @@ def main() -> int:
         phase_flash_grads(torch, flash, ring)
         log(f"phase flash kernel: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
-        paged_row["launches"], greedy_line, greedy_done, gather_tokens = phase_engine(
+        paged_row["launches"], greedy_line, greedy_done, gather_tokens, telemetry = phase_engine(
             torch, burnin, serve, weights, quant, pa, paged)
         log(f"phase engine: {time.perf_counter() - t:.3f} s")
         t = time.perf_counter()
@@ -4016,10 +4319,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        disagg_tokens = {}
         hierarchy = phase_kv_hierarchy(torch, burnin, serve, swap, disagg, weights, quant, pa,
-                                       paged)
+                                       paged, disagg_tokens)
         log(f"phase KV hierarchy: {time.perf_counter() - t:.3f} s; kernel launches {hierarchy}")
-        paged_row["launches_by_path"] = {"engine": paged_row["launches"], **sampled, **hierarchy}
+        paged_row["launches_by_path"] = {"engine": paged_row["launches"], **telemetry, **sampled,
+                                         **hierarchy}
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
@@ -4037,8 +4342,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        mesh_serving = phase_sharded_serving(torch, validate, gather_tokens, int8_gather_tokens)
-        del gather_tokens, int8_gather_tokens
+        mesh_serving = phase_sharded_serving(torch, validate, gather_tokens, int8_gather_tokens,
+                                             disagg_tokens)
+        del gather_tokens, int8_gather_tokens, disagg_tokens
         log(f"phase sharded serving: {time.perf_counter() - t:.3f} s; K1 and K2 launches "
             f"{mesh_serving}")
         paged_row["launches_by_path"].update(mesh_serving)

@@ -31,6 +31,7 @@ from tpu_dra.parallel.serve import ServeEngine as JaxEngine
 from tpu_dra_torch.parallel import burnin as tb
 from tpu_dra_torch.parallel.serve import ServeEngine
 from tpu_dra_torch.parallel.weights import params_from_numpy
+from tpu_dra_torch.utils import trace as ttrace
 
 torch.set_num_threads(2)
 
@@ -48,7 +49,21 @@ def _spec(kw):
 
 
 def port_engine(name, **kw):
-    return ServeEngine(TPARAMS, TCFG, name=name, device="cpu", **_spec(kw))
+    """A port engine behind the reference's router.  The router mints the
+    reference's trace contexts and the engine takes only the port's
+    (`submit` checks the type, as the reference's does), so the route's
+    context is handed down as the port's, same ids."""
+    eng = ServeEngine(TPARAMS, TCFG, name=name, device="cpu", **_spec(kw))
+    submit = eng.submit
+
+    def routed(*args, trace_parent=None, **kwargs):
+        if trace_parent is not None:
+            trace_parent = ttrace.TraceContext(trace_parent.trace_id, trace_parent.span_id,
+                                               trace_parent.flags)
+        return submit(*args, trace_parent=trace_parent, **kwargs)
+
+    eng.submit = routed
+    return eng
 
 
 def ref_engine(name, **kw):

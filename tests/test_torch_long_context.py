@@ -66,6 +66,20 @@ from tpu_dra_torch.parallel.mesh import logical_mesh as tlogical
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Hold this process's torch work to one thread while the module's
+    tests run.  The cap above is set at import, and a run of the whole
+    suite imports every test module before the first test: the last
+    module to set a count (2) wins, so the single-device steps ran on two
+    threads there and on one alone (ROADMAP Queue 3, PR 14)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 WORLD = 8
 # The reference's Ulysses test mesh and inputs (tests/test_ulysses.py).
 ULY_MESH = dict(data=2, fsdp=1, model=4)
@@ -226,6 +240,13 @@ def ranks(train_inputs, attn_inputs, a2a_input):
                    ("train", _rank_train, cases), ("bound", _rank_bound, None)])
     yield r
     r.stop()
+
+
+def test_the_module_runs_on_one_torch_thread():
+    """The port's work in this process (the single-device steps the
+    training cases hold the ranks to) runs on the one thread the module
+    caps torch at, whichever test modules were imported after it."""
+    assert torch.get_num_threads() == 1
 
 
 class TestAllToAll:

@@ -27,17 +27,36 @@ A long-prompt burst then prefills outside the engine that decodes for
 everyone else.  When the decode tier is saturated (its queue at
 ``decode_queue_cap``, or the staging pool full) handoffs defer, prefill
 rows stay occupied, admission waves stall and the server's backlog grows
-(``disagg_stats()["backlog"]``).  The reference's queue-depth gauge and
-its trace spans are not ported.
+(``disagg_stats()["backlog"]``, the ``tpu_dra_disagg_prefill_queue_depth``
+gauge).
+
+A handed-off request stays one trace: the ``fleet.route`` root (minted
+at `submit`, emitted at the prefill placement), ``serve.queue`` and
+``serve.admit`` on the prefill tier, ``prefill.run``, ``handoff.alias``
+or ``handoff.dma``, then ``serve.decode`` and ``serve.request`` on the
+decode tier.
+
+Tiers on a mesh (``mesh=`` in both specs: every rank builds its own
+server over its shards of the params and drives it with the same calls)
+must share one mesh.  Under alias both tiers of a rank share one pool
+dict (the rank's heads of every block) and one allocator; under dma
+every rank stages its own heads of each block through its own
+`HostBlockPool`.  The host scheduling is the same on every rank, so are
+the handoffs; no collective is added.
 """
 
 from __future__ import annotations
 
 import itertools
 import time
+import weakref
+
+import torch
 
 from tpu_dra_torch.parallel.serve import ServeEngine
 from tpu_dra_torch.parallel.swap import HostBlockPool
+from tpu_dra_torch.utils import trace
+from tpu_dra_torch.utils.metrics import DISAGG_PREFILL_QUEUE_DEPTH
 
 __all__ = ["DisaggServer", "HANDOFF_MODES"]
 
@@ -46,8 +65,16 @@ _SERVER_IDS = itertools.count()
 HANDOFF_MODES = ("alias", "dma")
 
 # Engine knobs the server owns: tier identity, engine names, the paged
-# layout the handoff needs, and the reference's telemetry switch.
+# layout the handoff needs, and the telemetry switch.
 _RESERVED_SPEC_KEYS = ("tier", "name", "kv_layout", "telemetry")
+
+
+def _same_mesh(a, b) -> bool:
+    """Whether two tier specs' meshes (None: one device) are one mesh:
+    the same ranks in the same layout under the same axis names."""
+    if a is None or b is None:
+        return a is b
+    return a is b or (a.mesh_dim_names == b.mesh_dim_names and torch.equal(a.mesh, b.mesh))
 
 
 class _Pending:
@@ -57,11 +84,11 @@ class _Pending:
 
     __slots__ = (
         "did", "prompt", "max_new", "seed", "stop_sequences",
-        "use_prefix_cache", "priority", "enqueued_at", "windows",
+        "use_prefix_cache", "priority", "enqueued_at", "trace_ctx", "windows",
     )
 
     def __init__(self, did, prompt, max_new, seed, stop_sequences,
-                 use_prefix_cache, priority, enqueued_at, windows):
+                 use_prefix_cache, priority, enqueued_at, trace_ctx, windows):
         self.did = did
         self.prompt = prompt
         self.max_new = max_new
@@ -70,6 +97,7 @@ class _Pending:
         self.use_prefix_cache = use_prefix_cache
         self.priority = priority
         self.enqueued_at = enqueued_at
+        self.trace_ctx = trace_ctx
         self.windows = windows
 
 
@@ -78,8 +106,8 @@ class DisaggServer:
 
     ``prefill`` / ``decode``: ServeEngine keyword arguments for each tier
     (``slots``, ``kv_blocks``, ``attn_backend``, SLO targets, ``device``
-    ...); the server sets ``tier`` and ``name`` itself, so those keys (and
-    the reference's ``kv_layout`` and ``telemetry``) are rejected.  Both
+    ...); the server sets ``tier``, ``name``, the paged layout and
+    ``telemetry`` itself, so those keys are rejected.  Both
     tiers serve one model (``params``, ``config``: one weight tree, whose
     bf16 matrices both engines share), one block size
     (``prefix_window``) and one pool format (``kv_int8``): the handoff
@@ -96,7 +124,13 @@ class DisaggServer:
     windows (block-grid columns), not requests: one long prompt spends
     what many short ones would share (default: two worst-case prompts).
     ``decode_queue_cap``: handoffs defer while the decode engine holds
-    this many waiters (default: its ``slots``)."""
+    this many waiters (default: its ``slots``).  ``telemetry``: both
+    tiers' (`serve.ServeEngine`) and the server's ``fleet.route`` spans.
+
+    ``mesh`` in a spec puts that tier on a mesh of ranks (module
+    docstring): both specs must name the same mesh (a handoff moves a
+    rank's heads of each block, which only the same mesh lays out
+    alike), else the server is refused."""
 
     def __init__(
         self,
@@ -109,6 +143,7 @@ class DisaggServer:
         staging_blocks: "int | None" = None,
         prefill_wave: "int | None" = None,
         decode_queue_cap: "int | None" = None,
+        telemetry: bool = True,
         name: "str | None" = None,
     ):
         if handoff not in HANDOFF_MODES:
@@ -131,11 +166,18 @@ class DisaggServer:
                 "staging_blocks only applies to handoff='dma' (the alias handoff moves "
                 "references, nothing is staged)"
             )
+        if not _same_mesh(prefill.get("mesh"), decode.get("mesh")):
+            raise ValueError(
+                "the tiers must run on one mesh (both specs' mesh the same ranks, layout and "
+                "axis names, or neither set): a handoff moves each rank's heads of a block, "
+                "which only the same mesh lays out alike"
+            )
         self.name = name or f"disagg-{next(_SERVER_IDS)}"
         self.handoff = handoff
-        self._prefill = ServeEngine(params, config, tier="prefill",
+        self.telemetry = telemetry
+        self._prefill = ServeEngine(params, config, tier="prefill", telemetry=telemetry,
                                     name=f"{self.name}-prefill", **prefill)
-        self._decode = ServeEngine(params, config, tier="decode",
+        self._decode = ServeEngine(params, config, tier="decode", telemetry=telemetry,
                                    name=f"{self.name}-decode", **decode)
         if self._prefill.block_size != self._decode.block_size:
             raise ValueError(
@@ -200,6 +242,15 @@ class DisaggServer:
         self._done: "list" = []
         self._deferred_handoffs = 0
         self._closed = False
+        # Everything waiting for prefill-tier capacity: the backlog and
+        # the prefill engine's queue (the series retires with the server).
+        ref = weakref.ref(self)
+
+        def backlog():
+            srv = ref()
+            return None if srv is None else len(srv._backlog) + len(srv._prefill._queue)
+
+        DISAGG_PREFILL_QUEUE_DEPTH.set_function(backlog, server=self.name)
 
     # -- tier access -------------------------------------------------------
     @property
@@ -244,7 +295,8 @@ class DisaggServer:
         self._backlog.append(_Pending(
             did=did, prompt=list(prompt), max_new=budget, seed=seed, stop_sequences=stops,
             use_prefix_cache=bool(use_prefix_cache), priority=priority,
-            enqueued_at=time.perf_counter(), windows=-(-len(prompt) // self._w),
+            enqueued_at=time.perf_counter(), trace_ctx=trace.TraceContext.new(),
+            windows=-(-len(prompt) // self._w),
         ))
         return did
 
@@ -269,10 +321,19 @@ class DisaggServer:
             rid = self._prefill.submit(
                 item.prompt, item.max_new, item.seed, item.stop_sequences,
                 use_prefix_cache=item.use_prefix_cache, enqueued_at=item.enqueued_at,
-                priority=item.priority,
+                priority=item.priority, trace_parent=item.trace_ctx,
             )
             self._by_did[item.did] = self._prefill.request(rid)
             placed.add(item.did)
+            if self.telemetry:
+                # The request's trace root: arrival to the prefill placement.
+                trace.emit_span(
+                    "fleet.route", context=item.trace_ctx,
+                    start_unix_s=trace.unix_of(item.enqueued_at),
+                    duration_s=time.perf_counter() - item.enqueued_at, fleet=self.name,
+                    request=item.did, replica=self._prefill.name, reason="prefill",
+                    tier="prefill", queue_depth=len(self._backlog),
+                )
         if placed:
             self._backlog = [p for p in self._backlog if p.did not in placed]
         return len(placed)
@@ -373,9 +434,11 @@ class DisaggServer:
         return stats
 
     def close(self) -> None:
-        """Close both tier engines; later `submit` and `tick` raise.
-        Idempotent; finished requests stay readable."""
+        """Retire the backlog gauge and close both tier engines; later
+        `submit` and `tick` raise.  Idempotent; finished requests stay
+        readable."""
         self._closed = True
+        DISAGG_PREFILL_QUEUE_DEPTH.remove_function(server=self.name)
         self._prefill.close()
         self._decode.close()
 

@@ -60,6 +60,7 @@ from tpu_dra_torch.parallel.decode import (
 )
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.quant import dequantize_bf16, is_quantized_leaf
+from tpu_dra_torch.utils.metrics import SERVE_KV_BLOCK_AGE_SECONDS
 
 __all__ = [
     "BlockAllocator",
@@ -367,7 +368,7 @@ def copy_block(pool, dst: int, src: int):
 
 class BlockAllocator:
     """Host-side free list + per-block refcounts over a block pool (the
-    reference's allocator without its block-age metric).
+    reference's allocator).
 
     Block 0 is the SCRATCH block: never handed out, permanently
     referenced.  ``alloc`` hands out blocks at refcount 1 (the caller's
@@ -385,20 +386,30 @@ class BlockAllocator:
     (`swap.AgeHeatPolicy`) rank coldness by them.  ``clock`` gives the
     birth times and ages (default ``time.monotonic``, seconds; a mesh
     engine's ranks each run this allocator, and pass a clock they all
-    read alike, so that their victim picks agree)."""
+    read alike, so that their victim picks agree).  Freeing a block
+    observes its residency on the monotonic clock into
+    ``tpu_dra_serve_kv_block_age_seconds{engine=name}``; that series only
+    records, it decides nothing, so a mesh engine's ages stay counted in
+    device steps for every decision."""
 
-    def __init__(self, num_blocks: int, clock=None):
+    def __init__(self, num_blocks: int, clock=None, name: str = ""):
         if num_blocks < 2:
             raise ValueError(
                 f"allocator needs >= 2 blocks (block 0 is scratch), got {num_blocks}"
             )
         self.num_blocks = num_blocks
         self._clock = clock
+        # The owning engine's name: the label of the block-age series
+        # (the engine assigns it once it knows its own).
+        self.name = name
         self._ref = [0] * num_blocks
         self._ref[0] = 1  # scratch: immortal, never in the free list
         self._free = list(range(num_blocks - 1, 0, -1))
         # Per-block records (row 0 unused), parallel lists written in place.
         self._birth_mono = [0.0] * num_blocks
+        # The monotonic birth times the block-age series reads: the same
+        # list when the clock is the monotonic one.
+        self._birth_wall = self._birth_mono if clock is None else [0.0] * num_blocks
         self._birth_step = [0] * num_blocks
         self._touch_step = [0] * num_blocks
         self._origin = [""] * num_blocks
@@ -437,8 +448,10 @@ class BlockAllocator:
             return None
         out = [self._free.pop() for _ in range(n)]
         now = self._now()
+        wall = now if self._clock is None else time.monotonic()
         for b in out:
             self._birth_mono[b] = now
+            self._birth_wall[b] = wall
             self._birth_step[b] = step
             self._touch_step[b] = step
             self._origin[b] = origin
@@ -455,6 +468,7 @@ class BlockAllocator:
                 self._touch_step[b] = step
 
     def unref(self, blocks, *, step: "int | None" = None) -> None:
+        now = None
         for b in blocks:
             if b == 0 or self._ref[b] <= 0:
                 raise RuntimeError(f"unref of unowned block {b} (scratch or free)")
@@ -463,6 +477,9 @@ class BlockAllocator:
                 self._touch_step[b] = step
             if self._ref[b] == 0:
                 self._free.append(b)
+                if now is None:
+                    now = time.monotonic()
+                SERVE_KV_BLOCK_AGE_SECONDS.observe(now - self._birth_wall[b], engine=self.name)
                 self._origin[b] = ""
 
     def _now(self) -> float:
@@ -483,11 +500,14 @@ class BlockAllocator:
             runs.append(run)
         return runs
 
-    def block_records(self, current_step: int = 0) -> "list[dict]":
+    def block_records(self, owners: "dict[int, list[str]] | None" = None,
+                      current_step: int = 0) -> "list[dict]":
         """One record per ALLOCATED block (scratch and free excluded):
         refcount, origin, birth/last-touch step, idle steps at
-        ``current_step``, and age on the allocator's clock."""
+        ``current_step``, age on the allocator's clock, and the owner tags
+        the caller resolved for it (``owners``: block -> tags)."""
         now = self._now()
+        owners = owners or {}
         return [
             {
                 "block": b,
@@ -497,6 +517,7 @@ class BlockAllocator:
                 "last_touch_step": self._touch_step[b],
                 "idle_steps": max(0, current_step - self._touch_step[b]),
                 "age_s": round(max(0.0, now - self._birth_mono[b]), 6),
+                "owners": list(owners.get(b, ())),
             }
             for b in range(1, self.num_blocks)
             if self._ref[b] > 0

@@ -24,8 +24,9 @@ the least recently used goes first.  Two storage forms share the index:
   cache needs nothing more than the pool's layout
   (`paged.block_pool_spec`).
 
-The hit/miss/eviction counts are instance fields (``stats()``); the
-reference's process-wide Prometheus counters are not ported.
+The hit/miss/eviction counts are instance fields (``stats()``) and move
+the process's ``tpu_dra_serve_prefix_{hits,misses,evictions}_total``
+counters at the reference's sites.
 """
 
 from __future__ import annotations
@@ -34,6 +35,11 @@ from dataclasses import dataclass, field
 
 from tpu_dra_torch.parallel import spmd
 from tpu_dra_torch.parallel.decode import _kv_cache, _local_heads, init_cache
+from tpu_dra_torch.utils.metrics import (
+    SERVE_PREFIX_EVICTIONS,
+    SERVE_PREFIX_HITS,
+    SERVE_PREFIX_MISSES,
+)
 
 __all__ = ["PagedPrefixCache", "PrefixCache", "PrefixEntry"]
 
@@ -159,9 +165,11 @@ class _RadixIndex:
                 use = min(use, entry.length)
         if entry is None or use < max(1, min_use):
             self.misses += 1
+            SERVE_PREFIX_MISSES.inc()
             return None, 0, matched
         self.hits += 1
         entry.hits += 1
+        SERVE_PREFIX_HITS.inc()
         # A hit is a use: refresh recency so the LRU victim is the entry
         # no lookup has touched longest, not merely the oldest insert.
         self._tick += 1
@@ -350,6 +358,7 @@ class PrefixCache(_RadixIndex):
         self._detach(victim)
         self.evictions += 1
         self.epoch += 1
+        SERVE_PREFIX_EVICTIONS.inc()
         return victim.slot
 
     def insert(self, tokens: "list[int]") -> "PrefixEntry | None":
@@ -442,6 +451,7 @@ class PagedPrefixCache(_RadixIndex):
         self._alloc.unref(blocks)
         self.evictions += 1
         self.epoch += 1
+        SERVE_PREFIX_EVICTIONS.inc()
         return True
 
     def _trim_victim(self) -> "PrefixEntry | None":
@@ -489,6 +499,7 @@ class PagedPrefixCache(_RadixIndex):
             self._detach(victim)
             self.evictions += 1
             self.epoch += 1
+            SERVE_PREFIX_EVICTIONS.inc()
         return True
 
     def insert(self, tokens: "list[int]",

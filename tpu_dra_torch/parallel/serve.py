@@ -109,20 +109,40 @@ collective: the allocator's block ages, which the swap victim policy
 ranks by, are counted in device steps on a mesh.  The host-sync
 contract is unchanged.
 
-Not ported yet: telemetry (spans, metrics, the step flight recorder, the
-obs registrations).
+Telemetry, the reference's whole surface over the port's own registries
+(`tpu_dra_torch.utils.metrics`, `trace`, `servestats` and
+`tpu_dra_torch.obs`): every request carries one trace id whose spans
+(``serve.queue`` / ``serve.admit`` / ``serve.decode`` under a
+``serve.request`` root; ``serve.swapout`` / ``serve.swapin``,
+``prefill.run`` and ``handoff.<mode>`` where they happen) land in the
+process's span ring; every ``tick()`` appends a `servestats.StepRecord`
+whose phases (admit, dispatch, fetch, host) are stamped with
+``perf_counter`` around work the tick does anyway (the dispatch ends
+where the call's one blocking fetch starts: no sync is added); the
+counters and histograms move where the reference's do; scrape-time
+gauges and the ``/debug/kv``, ``/debug/requests`` and
+``/debug/capacity`` providers hold the engine by weak reference and
+``close()`` retires them.  ``telemetry=False`` drops the spans, the step
+records and the per-token observations, as the reference's does;
+`profile_steps` captures the next device calls under `torch.profiler`.
+On a mesh every rank records its own.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from tpu_dra_torch.fleet.digest import ReplicaDigest, build_digest, empty_digest
+from tpu_dra_torch.obs import capacity as obscap
+from tpu_dra_torch.obs import kv as obskv
+from tpu_dra_torch.obs import requests as obsreq
 from tpu_dra_torch.parallel import prng, spmd
 from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
@@ -157,11 +177,59 @@ from tpu_dra_torch.parallel.prefixcache import PagedPrefixCache, PrefixCache
 from tpu_dra_torch.parallel.quant import is_quantized
 from tpu_dra_torch.parallel.swap import AgeHeatPolicy, HostBlockPool
 from tpu_dra_torch.parallel.weights import cast_matrices
+from tpu_dra_torch.utils import servestats, trace
+from tpu_dra_torch.utils.metrics import (
+    DISAGG_HANDOFF_BLOCKS,
+    DISAGG_HANDOFFS,
+    SERVE_BATCH_OCCUPANCY,
+    SERVE_KV_ALIAS,
+    SERVE_KV_BLOCKS,
+    SERVE_KV_COW,
+    SERVE_KV_FREE_RUN_BLOCKS,
+    SERVE_KV_SWAPS,
+    SERVE_PREFILL_TOKENS,
+    SERVE_QUEUE_DEPTH,
+    SERVE_QUEUE_WAIT_SECONDS,
+    SERVE_SLO_TOTAL,
+    SERVE_STEP_PHASE_SECONDS,
+    SERVE_TIER_ENGINES,
+    SERVE_TPOT_SECONDS,
+    SERVE_TTFT_SECONDS,
+    SERVE_WASTED_STEPS,
+)
 
 __all__ = ["Request", "ServeEngine"]
 
 # Default engine names.
 _ENGINE_IDS = itertools.count()
+
+# perf_counter stamps onto the wall clock, for span records.
+_unix_of = trace.unix_of
+
+# The paged engine's block-state gauge series.
+_KV_STATES = ("free", "allocated", "aliased", "host")
+
+
+def _weak_sampler(ref: "weakref.ref", fn):
+    """A scrape-time gauge callback holding the engine by weak reference:
+    None (the engine was collected) retires the series."""
+
+    def sample():
+        eng = ref()
+        return None if eng is None else fn(eng)
+
+    return sample
+
+
+def _weak_provider(ref: "weakref.ref", method: str):
+    """An obs provider holding the engine by weak reference: the named
+    snapshot method's document, or None once the engine was collected."""
+
+    def provide():
+        eng = ref()
+        return None if eng is None else getattr(eng, method)()
+
+    return provide
 
 
 @dataclass
@@ -230,9 +298,12 @@ class Request:
     # {"ttft" | "tpot" | "request": "met" | "missed"}; "request" is met
     # when every evaluated target was (the goodput bit).
     slo: "dict[str, str]" = field(default_factory=dict)
-    # The submitting tier's trace context, stored as given (the port
-    # emits no spans).
-    trace_parent: "object | None" = field(default=None, repr=False)
+    # Trace identity: every span of the request carries trace_id.  A
+    # request submitted with a parent context (a router's span) joins
+    # that trace, and its serve.request span parents under it.
+    trace_id: str = ""
+    trace_ctx: "trace.TraceContext | None" = field(default=None, repr=False)
+    trace_parent: "trace.TraceContext | None" = field(default=None, repr=False)
     _last_token_at: float = field(default=0.0, repr=False)
     _swapped_at: float = field(default=0.0, repr=False)
     _handoff_at: float = field(default=0.0, repr=False)
@@ -294,9 +365,16 @@ class ServeEngine:
     `swap.AgeHeatPolicy`).
 
     ``ttft_slo_s`` / ``tpot_slo_s``: optional latency targets; every
-    finished request gets met/missed verdicts (``Request.slo``) and the
-    request verdict adds to `slo_counts`.  ``name``: the engine's
-    identity as a fleet replica (default ``engine-<n>``).  ``tier``:
+    finished request gets met/missed verdicts (``Request.slo``, the
+    ``tpu_dra_serve_slo_total{slo,verdict}`` counters) and the request
+    verdict adds to `slo_counts`.  ``telemetry`` (default on): the
+    request spans, the step flight recorder and the per-token TPOT
+    observations; off, the engine serves bare (the per-request summary
+    metrics, the SLO counters and the capacity split stay on, as the
+    reference's).  ``name``: the engine's identity as a fleet replica and
+    the label of its gauge series, flight-recorder rows and obs providers
+    (default ``engine-<n>``; two live engines must not share one).
+    ``tier``:
     ``"mono"`` (default), or one tier of a `disagg.DisaggServer`: a
     ``"prefill"`` engine admits, prefills and fetches first tokens but
     runs no decode step (its rows wait, frozen, for `handoff_out`); a
@@ -340,6 +418,7 @@ class ServeEngine:
         kv_int8: bool = False,
         ttft_slo_s: "float | None" = None,
         tpot_slo_s: "float | None" = None,
+        telemetry: bool = True,
         name: "str | None" = None,
         tier: str = "mono",
         mesh=None,
@@ -469,10 +548,28 @@ class ServeEngine:
         self.kv_int8 = kv_int8
         self.tier = tier
         self.name = name or f"engine-{next(_ENGINE_IDS)}"
+        self.telemetry = telemetry
         self.ttft_slo_s = ttft_slo_s
         self.tpot_slo_s = tpot_slo_s
         self._slo_met = 0
         self._slo_missed = 0
+        self._tokens_emitted = 0
+        # The tick's phase accumulator: one dict zeroed by `tick`, which
+        # `_admit` and `_step_once` add perf_counter spans to.
+        self._phase_acc = dict.fromkeys(servestats.PHASES, 0.0)
+        # `profile_steps`: device calls left to capture, the running
+        # profiler, where its trace goes, its last failure.
+        self._profile_left = 0
+        self._profiler = None
+        self._profile_dir = ""
+        self._profile_error = ""
+        self._kv_frag_ticks = 0  # the free-run observation's sampling count
+        # The capacity split: occupancy-weighted busy and idle seconds,
+        # whose sum is the ticks' summed wall time.
+        self._cap_busy_s = 0.0
+        self._cap_idle_s = 0.0
+        self._cap_steps = 0
+        self._cap_last_step_mono: "float | None" = None
         self._sampled = temperature > 0
         self._pick = _make_pick(self._sampled, temperature, top_k, top_p)
         self._prefill_tokens = {"computed": 0, "reused": 0}
@@ -521,6 +618,32 @@ class ServeEngine:
         self._next_id = 0
         self._closed = False
         self._device_steps = 0
+        self._register_telemetry()
+
+    def _register_telemetry(self) -> None:
+        """The engine's scrape-time gauges and its obs providers, each
+        holding it by weak reference (a collected engine's series and
+        providers retire themselves; `close` retires them at once)."""
+        ref = weakref.ref(self)
+        name = self.name
+        if self._kv_layout == "paged":
+            self._balloc.name = name
+            obskv.register(name, _weak_provider(ref, "kv_snapshot"))
+        obsreq.register(name, _weak_provider(ref, "request_class_stats"))
+        obscap.register(name, _weak_provider(ref, "capacity_snapshot"))
+        SERVE_QUEUE_DEPTH.set_function(_weak_sampler(ref, lambda e: len(e._queue)), engine=name)
+        SERVE_BATCH_OCCUPANCY.set_function(
+            _weak_sampler(ref, lambda e: sum(r is not None for r in e._row_req)), engine=name)
+        SERVE_TIER_ENGINES.set_function(_weak_sampler(ref, lambda e: 1), engine=name,
+                                        tier=self.tier)
+        if self._kv_layout == "paged":
+            for state, sample in zip(_KV_STATES, (
+                lambda e: e._balloc.free_count,
+                lambda e: e._balloc.allocated_count,
+                lambda e: e._balloc.aliased_count,
+                lambda e: e._host_pool.used_count,
+            )):
+                SERVE_KV_BLOCKS.set_function(_weak_sampler(ref, sample), engine=name, state=state)
 
     def _init_paged(self, prefix_cache_slots: int, kv_blocks: "int | None",
                     host_kv_blocks: "int | None", swap_policy) -> None:
@@ -560,7 +683,8 @@ class ServeEngine:
         # and the pending next token.
         self._host_pool = HostBlockPool(2 * (nb - 1) if host_kv_blocks is None else host_kv_blocks)
         self._swap_policy = swap_policy or AgeHeatPolicy()
-        self._swap_counts = {"out_blocks": 0, "in_blocks": 0, "preemptions": 0}
+        self._swap_counts = {"out_blocks": 0, "in_blocks": 0, "preemptions": 0,
+                             "in_requests": 0}
         # Handed-in requests parked until their restoring admission live
         # in _handoff_state: req.id -> mode, blocks or staging slots,
         # frozen pos/tok.
@@ -575,7 +699,7 @@ class ServeEngine:
                seed: "int | None" = None,
                stop_sequences: "list[list[int]] | None" = None, *,
                use_prefix_cache: bool = True, enqueued_at: "float | None" = None,
-               priority: int = 0, trace_parent: "object | None" = None) -> int:
+               priority: int = 0, trace_parent: "trace.TraceContext | None" = None) -> int:
         """Queue a request; returns its id.  Admission happens on `tick`.
         ``seed``: the request's sampling key (default: its id; greedy
         output does not depend on it).  ``stop_sequences``: token runs
@@ -585,18 +709,25 @@ class ServeEngine:
         ``enqueued_at`` backdates the timeline's enqueue point (a
         ``perf_counter`` stamp, only ever moved earlier).  ``priority``:
         the admission head is the highest-priority waiting request.
-        ``trace_parent``: the submitting tier's trace context, stored on
-        the request as given.  A bad request raises here, never
-        mid-tick."""
+        ``trace_parent``: the submitting tier's span context (a
+        `trace.TraceContext`): the request's spans join that trace instead
+        of opening one.  A bad request raises here, never mid-tick."""
         self._check_open()
         budget, stops = self.validate_request(prompt, max_new, seed, stop_sequences, priority)
+        if trace_parent is not None and not isinstance(trace_parent, trace.TraceContext):
+            raise ValueError(
+                "trace_parent must be a utils.trace.TraceContext, got "
+                f"{type(trace_parent).__name__}"
+            )
         now = time.perf_counter()
         t0 = now if enqueued_at is None else min(float(enqueued_at), now)
+        ctx = trace_parent.child() if trace_parent is not None else trace.TraceContext.new()
         req = Request(
             id=self._next_id, prompt=list(prompt), max_new=budget,
             seed=self._next_id if seed is None else seed, priority=priority,
             stop_sequences=stops, use_prefix_cache=bool(use_prefix_cache),
-            submitted_at=t0, enqueued_at=t0, replica=self.name, trace_parent=trace_parent,
+            submitted_at=t0, enqueued_at=t0, replica=self.name,
+            trace_id=ctx.trace_id, trace_ctx=ctx, trace_parent=trace_parent,
         )
         self._next_id += 1
         self._queue.append(req)
@@ -790,6 +921,14 @@ class ServeEngine:
         self._queue.append(req)
         self._swap_counts["out_blocks"] += len(blocks)
         self._swap_counts["preemptions"] += 1
+        SERVE_KV_SWAPS.inc(len(blocks), engine=self.name, direction="out")
+        if self.telemetry:
+            trace.emit_span(
+                "serve.swapout", parent=req.trace_ctx, start_unix_s=_unix_of(now),
+                duration_s=time.perf_counter() - now, request=req.id, blocks=len(blocks),
+                preempted_by=by.id,
+                reason=f"preempted by request {by.id} (priority {by.priority} > {req.priority})",
+            )
 
     def _swap_in(self, req: Request, row: int) -> None:
         """Restore a swapped-out request into free row ``row``: fresh
@@ -816,6 +955,14 @@ class ServeEngine:
         # arrival gap starts here.
         req._last_token_at = restored
         self._swap_counts["in_blocks"] += len(own)
+        self._swap_counts["in_requests"] += 1
+        SERVE_KV_SWAPS.inc(len(own), engine=self.name, direction="in")
+        if self.telemetry:
+            trace.emit_span(
+                "serve.swapin", parent=req.trace_ctx, start_unix_s=_unix_of(req._swapped_at),
+                duration_s=restored - req._swapped_at, request=req.id, row=row,
+                blocks=len(own), parked_s=round(restored - req._swapped_at, 6),
+            )
 
     def _set_row(self, row: int, req: Request, cols: "list[int]", pos: int, tok: int) -> None:
         """Seat a restored request in ``row``: its table, its frozen
@@ -876,6 +1023,13 @@ class ServeEngine:
         req._handoff_at = now
         self._handoff_counts["out_requests"] += 1
         self._handoff_counts["out_blocks"] += len(blocks)
+        if self.telemetry:
+            # The prefill tier's span: admission to the row's departure.
+            trace.emit_span(
+                "prefill.run", parent=req.trace_ctx, start_unix_s=_unix_of(req.admitted_at),
+                duration_s=now - req.admitted_at, request=req.id, blocks=len(blocks),
+                mode=mode, prompt_len=len(req.prompt),
+            )
         return payload
 
     def handoff_in(self, payload: dict) -> int:
@@ -905,6 +1059,7 @@ class ServeEngine:
             "blocks": payload.get("blocks", []),
             "slots": payload.get("slots", []),
             "staging": payload.get("staging"),
+            "source": payload["source"],
             "pos": payload["pos"],
             "tok": payload["tok"],
         }
@@ -921,6 +1076,7 @@ class ServeEngine:
         if mode == "alias":
             cols = list(state["blocks"])
             self._kv_counts["alias_blocks"] += len(cols)
+            SERVE_KV_ALIAS.inc(len(cols), engine=self.name)
         else:
             cols = self._balloc.alloc(len(state["slots"]), step=self._device_steps,
                                       origin="handoff")
@@ -939,6 +1095,14 @@ class ServeEngine:
         self._handoff_counts[mode] += 1
         self._handoff_counts["in_requests"] += 1
         self._handoff_counts["in_blocks"] += len(cols)
+        DISAGG_HANDOFFS.inc(engine=self.name, mode=mode)
+        DISAGG_HANDOFF_BLOCKS.inc(len(cols), engine=self.name, mode=mode)
+        if self.telemetry:
+            trace.emit_span(
+                f"handoff.{mode}", parent=req.trace_ctx, start_unix_s=_unix_of(req._handoff_at),
+                duration_s=restored - req._handoff_at, request=req.id, row=row,
+                blocks=len(cols), source=state["source"], target=self.name,
+            )
 
     # -- the engine loop -------------------------------------------------
     def _admit_paged(self, req: Request, row: int):
@@ -967,7 +1131,10 @@ class ServeEngine:
             cols = list(entry.blocks[:fw])
             self._balloc.ref(cols, step=self._device_steps)
             self._kv_counts["alias_blocks"] += fw
+            SERVE_KV_ALIAS.inc(fw, engine=self.name)
             req.prefix_reused = fw * w
+            SERVE_PREFILL_TOKENS.inc(fw * w, kind="reused")
+        SERVE_PREFILL_TOKENS.inc(length - fw * w, kind="computed")
         self._prefill_tokens["reused"] += fw * w
         self._prefill_tokens["computed"] += length - fw * w
         own = self._balloc.alloc(total_cols - fw, step=self._device_steps)
@@ -1004,6 +1171,7 @@ class ServeEngine:
                     self._balloc.unref([cols[lb]], step=self._device_steps)
                     self._table[row, lb] = nb[0]
                     self._kv_counts["cow_blocks"] += 1
+                    SERVE_KV_COW.inc(engine=self.name)
         req.kv_blocks = total_cols
         return last, pins
 
@@ -1070,8 +1238,10 @@ class ServeEngine:
             copy_prefix_into_row(cache1, 0, self._prefix.pool, entry.slot, fw * w)
             last, cache1 = self._suffix(self.params, tokens, lens, cache1, first_window=fw)
             req.prefix_reused = fw * w
+            SERVE_PREFILL_TOKENS.inc(fw * w, kind="reused")
         else:
             cache1, last = self._prefill_row(stage, req.prompt)
+        SERVE_PREFILL_TOKENS.inc(length - req.prefix_reused, kind="computed")
         self._prefill_tokens["reused"] += req.prefix_reused
         self._prefill_tokens["computed"] += length - req.prefix_reused
         if cacheable and m_raw < length and length >= w:
@@ -1103,13 +1273,16 @@ class ServeEngine:
                 best = i
         return best
 
-    def _admit(self) -> int:
+    def _admit(self) -> "tuple[int, int]":
         """Fill free rows from the queue, head first, while the head's
-        block demand clears `_ensure_admittable`; returns how many
-        requests were admitted.  A swapped-out or handed-in head is
-        restored instead and joins no wave (its next token is frozen on
-        the host).  The wave's first tokens come back in ONE fetch."""
-        wave: "list[tuple[int, torch.Tensor]]" = []
+        block demand clears `_ensure_admittable`; returns ``(admitted,
+        prefix_hits)`` for the tick's step record.  A swapped-out or
+        handed-in head is restored instead and joins no wave (its next
+        token is frozen on the host).  The wave's first tokens come back
+        in ONE fetch.  The whole call is the tick's admit phase."""
+        t_phase = time.perf_counter()
+        wave: "list[tuple[int, torch.Tensor, float]]" = []
+        hits = 0
         while self._queue and any(r is None for r in self._row_req):
             head = self._head_index()
             if not self._ensure_admittable(self._queue[head]):
@@ -1124,8 +1297,15 @@ class ServeEngine:
             if req.id in self._handoff_state:
                 self._handoff_restore(req, row)
                 continue
-            req.admitted_at = time.perf_counter()
-            req.queue_wait_s = req.admitted_at - req.enqueued_at
+            t_admit = time.perf_counter()
+            req.admitted_at = t_admit
+            req.queue_wait_s = t_admit - req.enqueued_at
+            SERVE_QUEUE_WAIT_SECONDS.observe(req.queue_wait_s)
+            if self.telemetry:
+                trace.emit_span(
+                    "serve.queue", parent=req.trace_ctx, start_unix_s=_unix_of(req.enqueued_at),
+                    duration_s=req.queue_wait_s, request=req.id, queue_depth=len(self._queue),
+                )
             if self._kv_layout == "paged":
                 last, pins = self._admit_paged(req, row)
             else:
@@ -1133,10 +1313,11 @@ class ServeEngine:
             self._row_req[row] = req
             self._pos[row] = len(req.prompt)
             self._row_pins[row] = pins
-            wave.append((row, last[0]))
+            wave.append((row, last[0], t_admit))
+            hits += req.prefix_reused > 0
         if wave:
-            rows = [row for row, _ in wave]
-            logits = torch.stack([last for _, last in wave])
+            rows = [row for row, _, _ in wave]
+            logits = torch.stack([last for _, last, _ in wave])
             seeds = positions = None
             if self._sampled:
                 # A request's first token lands in position len(prompt).
@@ -1151,10 +1332,20 @@ class ServeEngine:
             fetched = self._fetch(
                 [toks], [_chosen_logprob(logits, toks)] if self.with_logprobs else []
             )
-            for i, row in enumerate(rows):
+            for i, (row, _, t_admit) in enumerate(wave):
+                req = self._row_req[row]
                 self._tok[row] = fetched[0][0][i]
                 self._note_token(row, fetched[0][0][i], fetched[1][0][i])
-        return len(wave)
+                if self.telemetry:
+                    trace.emit_span(
+                        "serve.admit", parent=req.trace_ctx, start_unix_s=_unix_of(t_admit),
+                        duration_s=time.perf_counter() - t_admit, request=req.id, row=row,
+                        prompt_len=len(req.prompt), prefix_hit=req.prefix_reused > 0,
+                        prefix_reused=req.prefix_reused,
+                        suffix_len=len(req.prompt) - req.prefix_reused,
+                    )
+        self._phase_acc["admit"] += time.perf_counter() - t_phase
+        return len(wave), hits
 
     def _sample(self, logits, seeds, positions):
         """The next token of every row of ``logits`` (B, vocab): greedy,
@@ -1196,11 +1387,18 @@ class ServeEngine:
         if len(req.tokens) == 1:
             req.first_token_at = now
             req.ttft_s = now - req.submitted_at
+            SERVE_TTFT_SECONDS.observe(req.ttft_s)
             if self.ttft_slo_s is not None:
-                req.slo["ttft"] = "met" if req.ttft_s <= self.ttft_slo_s else "missed"
+                verdict = "met" if req.ttft_s <= self.ttft_slo_s else "missed"
+                req.slo["ttft"] = verdict
+                SERVE_SLO_TOTAL.inc(slo="ttft", verdict=verdict)
         else:
-            req.token_deltas.append(now - req._last_token_at)
+            delta = now - req._last_token_at
+            req.token_deltas.append(delta)
+            if self.telemetry:
+                SERVE_TPOT_SECONDS.observe(delta)
         req._last_token_at = now
+        self._tokens_emitted += 1
         if self.with_logprobs:
             req.logprobs.append(logprob)
         if self.eos_token is not None and token == self.eos_token:
@@ -1213,8 +1411,9 @@ class ServeEngine:
             self._finish(row, req, now)
 
     def _finish(self, row: int, req: Request, now: float) -> None:
-        """Close out a finished request: its TPOT and SLO verdicts, then
-        its row: on paged, drop the table's block references and point the
+        """Close out a finished request: its TPOT and SLO verdicts, the
+        serve.decode and serve.request spans, its waterfall record
+        (`obs.requests.observe_finished`), then its row: on paged, drop the table's block references and point the
         row at scratch, so its frozen writes can never reach a block a
         later admission reallocates (blocks a resident entry holds stay
         allocated); release its pins.  A rows slot is left as it is: the
@@ -1223,16 +1422,39 @@ class ServeEngine:
         if req.token_deltas:
             req.tpot_s = sum(req.token_deltas) / len(req.token_deltas)
             if self.tpot_slo_s is not None:
-                req.slo["tpot"] = "met" if req.tpot_s <= self.tpot_slo_s else "missed"
+                verdict = "met" if req.tpot_s <= self.tpot_slo_s else "missed"
+                req.slo["tpot"] = verdict
+                SERVE_SLO_TOTAL.inc(slo="tpot", verdict=verdict)
         if self.ttft_slo_s is not None or self.tpot_slo_s is not None:
             # Every evaluated target met (a one-token request under a
             # tpot-only target has none evaluated, and counts as met).
             verdict = "missed" if "missed" in req.slo.values() else "met"
             req.slo["request"] = verdict
+            SERVE_SLO_TOTAL.inc(slo="request", verdict=verdict)
             if verdict == "met":
                 self._slo_met += 1
             else:
                 self._slo_missed += 1
+        if self.telemetry:
+            trace.emit_span(
+                "serve.decode", parent=req.trace_ctx, start_unix_s=_unix_of(req.first_token_at),
+                duration_s=req.finished_at - req.first_token_at, request=req.id,
+                tokens=len(req.tokens), finish_reason=req.finish_reason,
+                tpot_s=round(req.tpot_s, 6) if req.token_deltas else None,
+            )
+            # The request's own span, emitted last: its identity is the
+            # request's context, so the spans above parent to it; it
+            # parents under the submitting tier's span when there was one.
+            trace.emit_span(
+                "serve.request", context=req.trace_ctx, parent=req.trace_parent,
+                start_unix_s=_unix_of(req.enqueued_at),
+                duration_s=req.finished_at - req.enqueued_at, request=req.id,
+                prompt_len=len(req.prompt), tokens=len(req.tokens),
+                finish_reason=req.finish_reason, queue_wait_s=round(req.queue_wait_s, 6),
+                ttft_s=round(req.ttft_s, 6), prefix_reused=req.prefix_reused,
+                slo=req.slo.get("request"),
+            )
+        obsreq.observe_finished(req)
         self._done.append(req)
         self._row_req[row] = None
         if self._kv_layout == "paged":
@@ -1248,7 +1470,12 @@ class ServeEngine:
         fixed at the call's start), its single blocking fetch, and the
         host-side token processing.  A row whose request finished at an
         earlier step of the same call burns the call's remaining steps:
-        each is counted in `wasted_steps` and its token dropped."""
+        each is counted in `wasted_steps` and its token dropped.  The
+        phases: dispatch runs to the blocking fetch, fetch to its end,
+        host to the end of the token processing."""
+        if self._profile_left > 0 and self._profiler is None:
+            self._start_profile()
+        t0 = time.perf_counter()
         n = self._steps_per_call
         self._device_steps += n
         B = self.slots
@@ -1301,19 +1528,30 @@ class ServeEngine:
             tok = torch.where(live, nxt, tok)
             pos = torch.where(live, pos + 1, pos)
             toks.append(tok)
+        t1 = time.perf_counter()
+        self._phase_acc["dispatch"] += t1 - t0
         # ONE blocking fetch per call: every step's tokens and logprobs,
         # and the final positions, together.
         ints, floats = self._fetch(toks + [pos], lps)
+        t2 = time.perf_counter()
+        self._phase_acc["fetch"] += t2 - t1
         self._tok = ints[n - 1]
         self._pos = ints[n]
         for s in range(n):
             for row in range(B):
                 if self._row_req[row] is None:
-                    # Stepped on after its request finished earlier in this
-                    # call: compute spent, token dropped.
-                    self._wasted_steps += stepped[row]
+                    if stepped[row]:
+                        # Stepped on after its request finished earlier in
+                        # this call: compute spent, token dropped.
+                        self._wasted_steps += 1
+                        SERVE_WASTED_STEPS.inc(engine=self.name)
                     continue
                 self._note_token(row, ints[s][row], floats[s][row])
+        self._phase_acc["host"] += time.perf_counter() - t2
+        if self._profiler is not None:
+            self._profile_left -= 1
+            if self._profile_left <= 0:
+                self._stop_profile()
 
     def tick(self) -> "list[Request]":
         """Admit waiting requests into free rows, then run
@@ -1322,21 +1560,129 @@ class ServeEngine:
         under ``"tick"`` (none on a prefill-tier engine: its admitted rows
         wait, frozen, for `handoff_out`, and a one-token request finished
         in its admission wave).  Returns the requests completed during
-        this tick."""
+        this tick.  The tick's wall time is split into busy and idle
+        seconds by occupancy (`capacity_snapshot`); with telemetry on it
+        also appends one `servestats.StepRecord`."""
         self._check_open()
+        t0 = time.perf_counter()
+        for p in self._phase_acc:
+            self._phase_acc[p] = 0.0
         done_before = len(self._done)
-        self._admit()
+        toks_before = self._tokens_emitted
+        paged = self._kv_layout == "paged"
+        preempt_before = self._swap_counts["preemptions"] if paged else 0
+        swapin_before = self._swap_counts["in_requests"] if paged else 0
+        admitted, prefix_hits = self._admit()
+        # Occupancy and queue as the tick's first device call sees them.
+        occupancy = sum(r is not None for r in self._row_req)
+        queue_depth = len(self._queue)
         if self.tier == "prefill":
             calls = 0
         else:
             calls = self.steps_per_tick if self.scheduling == "continuous" else 1
         for s in range(calls):
             if s:
-                self._admit()
+                a, h = self._admit()
+                admitted += a
+                prefix_hits += h
             if all(r is None for r in self._row_req):
                 break
             self._step_once()
-        return self._done[done_before:]
+        finished = self._done[done_before:]
+        # Stamped before the records below, so the phases divide the tick
+        # they tile.
+        step_wall = time.perf_counter() - t0
+        frac = min(1.0, occupancy / self.slots)
+        self._cap_busy_s += step_wall * frac
+        self._cap_idle_s += step_wall * (1.0 - frac)
+        self._cap_steps += 1
+        if occupancy > 0:
+            self._cap_last_step_mono = time.monotonic()
+        if self.telemetry:
+            phases = dict(self._phase_acc)
+            for p, v in phases.items():
+                if v > 0.0:
+                    SERVE_STEP_PHASE_SECONDS.observe(v, engine=self.name, phase=p)
+            if paged and (admitted or finished):
+                # The free-run scan is O(pool): every 8th tick that changed
+                # the pool's shape, the first one included.
+                if self._kv_frag_ticks % 8 == 0:
+                    for run in self._balloc.free_runs():
+                        SERVE_KV_FREE_RUN_BLOCKS.observe(run, engine=self.name)
+                self._kv_frag_ticks += 1
+            servestats.RECORDER.record(servestats.StepRecord(
+                engine=self.name, occupancy=occupancy, slots=self.slots,
+                queue_depth=queue_depth, admitted=admitted, prefix_hits=prefix_hits,
+                finished=len(finished), tokens=self._tokens_emitted - toks_before,
+                step_wall_s=step_wall, phase_s=phases,
+                preempted=self._swap_counts["preemptions"] - preempt_before if paged else 0,
+                swapped_in=self._swap_counts["in_requests"] - swapin_before if paged else 0,
+                slo_met=self._slo_met, slo_missed=self._slo_missed,
+            ))
+        return finished
+
+    # -- the deep profiler -----------------------------------------------
+    def profile_steps(self, n: int, trace_dir: "str | None" = None) -> str:
+        """Capture the next ``n`` device calls under `torch.profiler`
+        (the card's kernels too on a CUDA engine) and write them as a
+        Chrome trace, ``<name>.pt.trace.json``, into ``trace_dir`` (a
+        fresh temporary directory when omitted), which is returned.  The
+        capture starts at the next device call and stops by itself after
+        ``n`` of them (`profiling` tells whether one is armed); a profiler
+        failure lands in `profile_error`, never in the serving loop.  One
+        capture at a time."""
+        self._check_open()
+        if n < 1:
+            raise ValueError(f"profile_steps needs n >= 1, got {n}")
+        if self._profile_left > 0:
+            raise RuntimeError("a step profile is already armed; wait for it to finish")
+        if trace_dir is None:
+            import tempfile
+
+            trace_dir = tempfile.mkdtemp(prefix=f"tpudra-profile-{self.name}-")
+        self._profile_dir = trace_dir
+        self._profile_error = ""
+        self._profile_left = n
+        return trace_dir
+
+    @property
+    def profiling(self) -> bool:
+        """True while a `profile_steps` capture is armed or running."""
+        return self._profile_left > 0
+
+    @property
+    def profile_error(self) -> str:
+        """The last profiler start or stop failure ("" when healthy)."""
+        return self._profile_error
+
+    @property
+    def profile_path(self) -> str:
+        """Where `profile_steps` writes its trace."""
+        return os.path.join(self._profile_dir, f"{self.name}.pt.trace.json")
+
+    def _start_profile(self) -> None:
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            prof = profile(activities=acts)
+            prof.start()
+            self._profiler = prof
+        except Exception as e:
+            self._profile_error = f"{type(e).__name__}: {e}"
+            self._profile_left = 0
+
+    def _stop_profile(self) -> None:
+        prof, self._profiler = self._profiler, None
+        self._profile_left = 0
+        try:
+            prof.stop()
+            os.makedirs(self._profile_dir, exist_ok=True)
+            prof.export_chrome_trace(self.profile_path)
+        except Exception as e:
+            self._profile_error = f"{type(e).__name__}: {e}"
 
     def run(self, until_idle: int = 10_000) -> "list[Request]":
         """Tick until queue and rows are empty; returns all completed
@@ -1426,6 +1772,7 @@ class ServeEngine:
             entry.hits = int(item.get("hits", 0))
             self._prefix.release(entry)  # insert pins; nothing decodes
             self._prefill_tokens["computed"] += len(tokens)
+            SERVE_PREFILL_TOKENS.inc(len(tokens), kind="computed")
             warmed += 1
         return warmed
 
@@ -1467,6 +1814,69 @@ class ServeEngine:
         if self._prefix is None:
             return 0
         return self._prefix.peek(prompt, min_use=self.block_size)
+
+    def request_class_stats(self) -> dict:
+        """Live occupancy by priority class, the ``/debug/requests``
+        provider's document: for each class with work in flight, its
+        requests queued, decoding in a row, and swapped out to host."""
+        classes: "dict[int, dict]" = {}
+        for r in list(self._queue):
+            row = classes.setdefault(r.priority, {"queued": 0, "decoding": 0, "swapped": 0})
+            row["swapped" if r.swapped else "queued"] += 1
+        for r in list(self._row_req):
+            if r is not None:
+                row = classes.setdefault(r.priority, {"queued": 0, "decoding": 0, "swapped": 0})
+                row["decoding"] += 1
+        return {"engine": self.name,
+                "classes": {str(c): v for c, v in sorted(classes.items())}}
+
+    def kv_snapshot(self) -> "dict | None":
+        """The ``/debug/kv`` provider's document: `kv_block_stats`, the
+        free-run lengths, and one record per allocated block with the
+        owner tags resolved from this engine (``req:<id>`` table cells,
+        ``entry:<len>t`` resident prefix entries; a shared block lists
+        each).  None on rows.  A host-side walk of the pool, read by the
+        scrape thread without stopping the engine."""
+        if self._kv_layout != "paged":
+            return None
+        owners: "dict[int, list[str]]" = {}
+        for row, req in enumerate(self._row_req):
+            if req is None:
+                continue
+            for b in self._table[row]:
+                if b:
+                    owners.setdefault(int(b), []).append(f"req:{req.id}")
+        if self._prefix is not None:
+            for entry in self._prefix.export_blocks():
+                for b in entry["blocks"]:
+                    owners.setdefault(b, []).append(f"entry:{entry['length']}t")
+        snap = self.kv_block_stats
+        snap.update({
+            "engine": self.name,
+            "layout": "paged",
+            "block_size": self.block_size,
+            "table_cols": self._table_cols,
+            "device_steps": self._device_steps,
+            "free_runs": self._balloc.free_runs(),
+            "blocks": self._balloc.block_records(owners=owners,
+                                                 current_step=self._device_steps),
+        })
+        return snap
+
+    def capacity_snapshot(self) -> dict:
+        """The ``/debug/capacity`` provider's document: the cumulative
+        occupancy-weighted busy and idle seconds (their sum is the ticks'
+        summed wall time), the tick count, and the age of the last tick
+        that held work (None: never)."""
+        last = self._cap_last_step_mono
+        return {
+            "engine": self.name,
+            "slots": self.slots,
+            "busy_s": self._cap_busy_s,
+            "idle_s": self._cap_idle_s,
+            "steps": self._cap_steps,
+            "last_step_age_s": None if last is None else time.monotonic() - last,
+        }
 
     @property
     def queue_depth(self) -> int:
@@ -1543,11 +1953,24 @@ class ServeEngine:
         return stats
 
     def close(self) -> None:
-        """Mark the engine closed and drop its references to the device KV
-        (an engine sharing the pool keeps its own); later `submit` and
-        `tick` raise.  Idempotent; finished requests and the prefix index
-        stay readable."""
+        """Mark the engine closed, stop a running profile, retire its
+        gauge series and obs providers, and drop its references to the
+        device KV (an engine sharing the pool keeps its own); later
+        `submit` and `tick` raise.  Idempotent; finished requests, the
+        prefix index and the snapshots stay readable."""
         self._closed = True
+        if self._profiler is not None:
+            self._stop_profile()
+        self._profile_left = 0
+        SERVE_QUEUE_DEPTH.remove_function(engine=self.name)
+        SERVE_BATCH_OCCUPANCY.remove_function(engine=self.name)
+        SERVE_TIER_ENGINES.remove_function(engine=self.name, tier=self.tier)
+        if self._kv_layout == "paged":
+            for state in _KV_STATES:
+                SERVE_KV_BLOCKS.remove(engine=self.name, state=state)
+            obskv.unregister(self.name)
+        obsreq.unregister(self.name)
+        obscap.unregister(self.name)
         if self._kv_layout == "paged":
             self._pool = None
         else:
