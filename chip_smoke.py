@@ -86,7 +86,17 @@ Phases, each asserted; any failure exits non-zero and prints no result:
    through a cold engine, its index exported, a fresh engine warm-started
    from it: 384 tokens reused on every request from the first admission,
    tokens against the cold engine's, the digest claiming 384 tokens of
-   every prompt);
+   every prompt); then the serve fleet (`tpu_dra_torch.fleet.ServeFleet`
+   over paged kernel replicas of 8 slots and 3 prefix entries, all on one
+   cast weight tree; the reference's ``serve_fleet`` stanza at this width:
+   40 requests over 5 families of 384-token system prompts, a cold pass
+   and two steady ones, interleaved across fleets of 1, 2 and 4 replicas
+   on the affinity router, 4 on the seeded random one and 4 ticked in one
+   thread; every token against one engine's up to near-ties, K1's launches
+   == device steps x layers pass by pass, each replica's host syncs its
+   own contract's, ``/debug/fleet`` answering each fleet's `fleet_stats()`;
+   tokens/s and TTFT p50 of the steady passes, prefill tokens reused and
+   computed, placements by reason, weight and pool bytes);
 9. rows and MoE: the MoE family (4 experts, capacity factor 1.25, about
    5 B parameters) served at the same width on the rows layout: the main
    stream greedy (waves, steps, wasted steps, calls and host syncs the
@@ -202,7 +212,11 @@ layers) on (data 1, pipe 2, model 2) of 4 cards against one card with
 pipe 1 (losses within the cards' tolerance, each rank's step p50 and
 peak memory beside the GPipe bubble), and elastic resume: a checkpoint
 saved on `burnin_mesh` of 4 cards resumed on 2, the resumed losses within
-``ELASTIC_RTOL`` of the uninterrupted run's.
+``ELASTIC_RTOL`` of the uninterrupted run's; then the serve fleet of 4
+replicas, one on each of the first 4 cards (drained in threads, and
+ticked in one thread), against 4 replicas on card 0 on the same stream:
+tokens the one-card fleet's up to near-ties, K1 launches, host syncs,
+each replica's tensors on its own card, tokens/s side by side.
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; no network.
 """
@@ -218,6 +232,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -2162,6 +2177,365 @@ def phase_kv_hierarchy(torch, cfg_mod, serve_mod, swap_mod, disagg_mod, weights,
         launches.update(out if isinstance(out, dict) else {name: out})
         log(f"phase {name}: {time.perf_counter() - t:.3f} s")
     return launches
+
+
+# -- the serve fleet ----------------------------------------------------------
+# bench.py's serve_fleet stanza at the engine's width: FLEET_FAMILIES system
+# prompts of 384 tokens (3 blocks), FLEET_REQUESTS requests, request i is
+# family i mod 5 followed by its own 16-64 random tokens, a budget of
+# FLEET_BUDGET each (numpy seed 3).  Fleets of 1, 2 and 4 replicas on the
+# affinity router and of 4 on the seeded random one (the control arm),
+# FLEET_ROUNDS passes each, interleaved across the fleets: the first cold
+# (one request a family, then the rest as one burst), the others steady
+# (the whole stream as one burst).  Each replica is a paged kernel engine
+# whose prefix cache holds 3 entries, all of them built on one cast tree.
+# The replicas of a fleet drain in threads, as `ServeFleet.run` drains
+# them; "n4-lockstep" is the 4-replica fleet ticked in one thread
+# (``parallel_ticks=False``), the threads' own cost beside it.
+FLEET_FAMILIES, FLEET_REQUESTS, FLEET_BUDGET, FLEET_ROUNDS = 5, 40, 16, 3
+FLEET_SIZES = (("n1", 1, "affinity", True), ("n2", 2, "affinity", True),
+               ("n4", 4, "affinity", True), ("rand4", 4, "random", True),
+               ("n4-lockstep", 4, "affinity", False))
+FLEET_REPLICA = dict(slots=8, prompt_slots=512, max_new_cap=64, prefix_window=128,
+                     prefix_cache_slots=3, telemetry=False)
+
+
+def fleet_stream(vocab: int):
+    """The stanza's stream (`FLEET_REQUESTS` prompts) and its warm-up
+    prefix, from numpy seed 3."""
+    import numpy as np
+
+    rng = np.random.RandomState(3)
+    systems = [[int(t) for t in rng.randint(0, vocab, 384)] for _ in range(FLEET_FAMILIES)]
+    stream = [systems[i % FLEET_FAMILIES]
+              + [int(t) for t in rng.randint(0, vocab, rng.randint(16, 65))]
+              for i in range(FLEET_REQUESTS)]
+    return stream, [int(t) for t in rng.randint(0, vocab, 384)]
+
+
+class EngineSyncs:
+    """Host syncs and admission waves charged to the engine whose tick made
+    them, for replicas that tick in the fleet's worker threads: each
+    watched engine's ``tick`` names it in a thread-local, and a sync
+    warning (PyTorch's sync debug mode) made outside every tick is
+    charged to ``""``."""
+
+    def __init__(self):
+        self._local = threading.local()
+        self.syncs: "dict[str, int]" = {"": 0}
+        self.where: "dict[str, dict]" = {"": {}}
+        self.waves: "dict[str, int]" = {}
+
+    def watch(self, eng) -> None:
+        name = eng.name
+        self.syncs[name], self.where[name], self.waves[name] = 0, {}, 0
+
+        def tick(_real=eng.tick):
+            self._local.name = name
+            try:
+                return _real()
+            finally:
+                self._local.name = ""
+
+        def admit(_real=eng._admit):
+            admitted, hits = _real()
+            self.waves[name] += admitted > 0
+            return admitted, hits
+
+        eng.tick, eng._admit = tick, admit
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" in str(message):
+            name = getattr(self._local, "name", "")
+            where = f"{os.path.basename(filename)}:{lineno}"
+            self.syncs[name] += 1
+            self.where[name][where] = self.where[name].get(where, 0) + 1
+
+    @contextlib.contextmanager
+    def counting(self, torch):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = self._show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    def check(self, engines, label: str) -> str:
+        """Every watched engine held to the host-sync contract
+        (`check_host_syncs`), none made outside a tick.  Returns the
+        counts as text."""
+        if self.syncs[""]:
+            raise AssertionError(f"{label}: {self.syncs['']} host syncs outside every replica's "
+                                 f"tick ({self.where['']})")
+        for eng in engines:
+            check_host_syncs((self.syncs[eng.name], self.where[eng.name]), self.waves[eng.name],
+                             [eng], f"{label}, replica {eng.name}")
+        return (f"{sum(self.syncs.values())} host syncs = "
+                f"{sum(device_calls(e) for e in engines)} device calls + "
+                f"{sum(self.waves.values())} admission waves, each replica's its own")
+
+
+def new_fleet(ServeFleet, ServeEngine, params_on, cfg, n, policy, tag, devices, warm, syncs,
+              parallel_ticks=True):
+    """``n`` replicas, replica r on ``devices[r % len(devices)]`` over that
+    device's weights in ``params_on``, each warmed by a miss and a hit on
+    ``warm`` (the prefix path's first use off the record) and watched by
+    ``syncs``; caps wide open, so a burst places up front."""
+    engines = []
+    for r in range(n):
+        dev = devices[r % len(devices)]
+        eng = ServeEngine(params_on[dev], cfg, name=f"{tag}-{r}", device=dev,
+                          attn_backend="cuda", **FLEET_REPLICA)
+        syncs.watch(eng)
+        for k in (1, 2):
+            eng.submit(warm + [k], 2)
+        while eng.pending:
+            eng.tick()
+        engines.append(eng)
+    return ServeFleet(engines, policy=policy, seed=9, name=f"fleet-{tag}",
+                      max_queue_per_replica=FLEET_REQUESTS, parallel_ticks=parallel_ticks)
+
+
+def fleet_pass(pa, fleet, stream, cold: bool) -> dict:
+    """One timed pass of the stream through ``fleet`` (the stanza's cold
+    or steady protocol), ending when every request has its last token on
+    the host.  Returns the requests in stream order and the pass's
+    numbers: tokens/s and TTFT p50 (host clock), prefill tokens reused
+    and computed, device steps and K1 launches."""
+    before = {n: (fleet.engine(n).prefix_stats, fleet.engine(n).device_steps)
+              for n in fleet.replicas}
+    launches = pa.paged_attention.launches
+    t0 = time.perf_counter()
+    if cold:
+        fids = [fleet.submit(p, FLEET_BUDGET) for p in stream[:FLEET_FAMILIES]]
+        fleet.run()
+        fids += [fleet.submit(p, FLEET_BUDGET) for p in stream[FLEET_FAMILIES:]]
+    else:
+        fids = [fleet.submit(p, FLEET_BUDGET) for p in stream]
+    hint = fleet.scale_hint()["hint"]
+    fleet.run()
+    wall = time.perf_counter() - t0
+    reqs = [fleet.result(f) for f in fids]
+    for r in reqs:
+        if r.finish_reason != "budget" or len(r.tokens) != FLEET_BUDGET:
+            raise AssertionError(f"{fleet.name}: a request ended {r.finish_reason} after "
+                                 f"{len(r.tokens)} tokens")
+    delta = {k: 0 for k in ("prefill_tokens_reused", "prefill_tokens_computed", "hits", "misses")}
+    steps = 0
+    for n, (stats, s0) in before.items():
+        now = fleet.engine(n).prefix_stats
+        for k in delta:
+            delta[k] += now[k] - stats[k]
+        steps += fleet.engine(n).device_steps - s0
+    n_tok = sum(len(r.tokens) for r in reqs)
+    return {"reqs": reqs, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_p50_s": statistics.median(r.ttft_s for r in reqs), "hint_under_load": hint,
+            "steps": steps, "launches": pa.paged_attention.launches - launches, **delta}
+
+
+def drive_fleets(pa, fleets, stream) -> dict:
+    """`FLEET_ROUNDS` passes of every fleet, interleaved (round 0 cold);
+    K1's launches counted from 0 over them all, each fleet's read pass by
+    pass.  Returns the passes by fleet tag and the launches in all."""
+    pa.paged_attention.launches = 0
+    passes = {tag: [] for tag in fleets}
+    for rnd in range(FLEET_ROUNDS):
+        for tag, fleet in fleets.items():
+            passes[tag].append(fleet_pass(pa, fleet, stream, cold=rnd == 0))
+    return {"passes": passes, "launches": pa.paged_attention.launches}
+
+
+def serve_fleets(torch, pa, fleet_mod, serve_mod, params_on, cfg, specs, label: str):
+    """Build the fleets of ``specs`` (``(tag, replicas, policy, threads,
+    devices)``) and drive them (`drive_fleets`) on the stanza's stream
+    with every replica's host syncs counted; K1's launches and the host
+    syncs checked.  Returns the fleets by tag, the drive and K1's launches
+    by fleet."""
+    stream, warm = fleet_stream(cfg.vocab)
+    syncs = EngineSyncs()
+    with syncs.counting(torch):
+        fleets = {tag: new_fleet(fleet_mod.ServeFleet, serve_mod.ServeEngine, params_on, cfg, n,
+                                 policy, tag, devices, warm, syncs, threads)
+                  for tag, n, policy, threads, devices in specs}
+        drive = drive_fleets(pa, fleets, stream)
+    engines = [fleet.engine(n) for fleet in fleets.values() for n in fleet.replicas]
+    launches = check_fleet_launches(drive, cfg, label)
+    log(f"{label}: {syncs.check(engines, label)}; K1 launches {launches}")
+    return fleets, drive, launches
+
+
+def check_fleet_launches(drive, cfg, label: str) -> dict:
+    """K1 on every replica's decode step: each pass's launches equal its
+    replicas' device steps x layers, and so does the whole run's count.
+    Returns the launches by fleet."""
+    by_fleet = {}
+    for tag, passes in drive["passes"].items():
+        for i, p in enumerate(passes):
+            if p["launches"] != p["steps"] * cfg.n_layers:
+                raise AssertionError(f"{label} {tag} pass {i}: {p['launches']} K1 launches != "
+                                     f"{p['steps']} device steps x {cfg.n_layers} layers")
+        by_fleet[f"fleet {tag}"] = sum(p["launches"] for p in passes)
+    steps = sum(p["steps"] for passes in drive["passes"].values() for p in passes)
+    if drive["launches"] != steps * cfg.n_layers:
+        raise AssertionError(f"{label}: {drive['launches']} K1 launches != {steps} device steps x "
+                             f"{cfg.n_layers} layers")
+    return by_fleet
+
+
+def fleet_numbers(fleet, passes) -> dict:
+    """A fleet's numbers: tokens/s and TTFT p50 of the steady passes
+    (their p50), each pass's, the prefill tokens reused and computed over
+    every pass, its placements by reason and its affinity rate."""
+    steady, st = passes[1:], fleet.fleet_stats()
+    return {
+        "replicas": len(fleet.replicas), "policy": fleet.router.policy,
+        "tokens_per_s": statistics.median(p["tokens_per_s"] for p in steady),
+        "ttft_p50_s": statistics.median(p["ttft_p50_s"] for p in steady),
+        "passes": [{k: v for k, v in p.items() if k != "reqs"} for p in passes],
+        "prefill_tokens_reused": sum(p["prefill_tokens_reused"] for p in passes),
+        "prefill_tokens_computed": sum(p["prefill_tokens_computed"] for p in passes),
+        "routed": st["routed"],
+        "affinity_rate": round(st["routed"].get("affinity", 0) / st["requests"], 3),
+    }
+
+
+def fleet_line(num) -> str:
+    each = ", ".join(f"{p['tokens_per_s']:.3f}" for p in num["passes"])
+    return (f"{num['replicas']} x {num['policy']}, steady p50 {num['tokens_per_s']:.3f} tokens/s, "
+            f"TTFT p50 {num['ttft_p50_s'] * 1e3:.3f} ms (passes {each} tokens/s; host clocks)")
+
+
+def check_debug_fleet(metrics, fleets) -> dict:
+    """``/debug/fleet`` of a `MetricsServer` for each fleet: 200, and its
+    summary the fleet's `fleet_stats()` (placements by replica and by
+    reason, one a request)."""
+    import urllib.request
+
+    server = metrics.MetricsServer("127.0.0.1:0")
+    server.start()
+    try:
+        for tag, fleet in fleets.items():
+            url = f"http://127.0.0.1:{server.port}/debug/fleet?fleet={fleet.name}&limit=4096"
+            with urllib.request.urlopen(url, timeout=30) as r:
+                status, doc = r.status, json.loads(r.read().decode())
+            st = fleet.fleet_stats()
+            s = doc["summary"]
+            want = ({n: row["placements"] for n, row in st["replicas"].items()},
+                    dict(sorted(st["routed"].items())), st["requests"])
+            if status != 200 or (s["by_replica"], s["by_reason"], s["placements"]) != want:
+                raise AssertionError(f"/debug/fleet {tag}: {status} {s}, fleet_stats {want}")
+    finally:
+        server.stop()
+
+
+def check_fleet_tokens(torch, drive, want_of, logits_at, label: str) -> None:
+    """Every pass's tokens against ``want_of(tag, round)`` (rows by stream
+    index), up to near-ties (`check_near_ties`)."""
+    for tag, passes in drive["passes"].items():
+        for rnd, p in enumerate(passes):
+            got = {i: r for i, r in enumerate(p["reqs"])}
+            check_near_ties(torch, got, want_of(tag, rnd), logits_at, f"{label} {tag} pass {rnd}")
+
+
+def phase_fleet(torch, cfg_mod, serve_mod, weights, quant, pa, fleet_mod, metrics):
+    """The serve fleet at full width on one card (`FLEET_SIZES`,
+    `FLEET_ROUNDS` passes each): every request's tokens against one
+    engine's on the same prompt up to near-ties, K1 on every replica's
+    decode step (launches == device steps x layers, pass by pass), each
+    replica's host syncs its own contract's, one weight storage for every
+    replica, ``/debug/fleet`` answering each fleet's `fleet_stats()`.
+    Returns K1's launches by fleet."""
+    cfg = cfg_mod.BurninConfig(**SERVE_WIDTH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = weights.cast_matrices(cfg_mod.init_params(cfg, gen, device="cuda"))
+    logits_at = dense_logits_at(cfg_mod, params, cfg)
+    stream = fleet_stream(cfg.vocab)[0]
+    one, one_done, one_wall, one_steps, synced = serve(
+        serve_mod.ServeEngine, params, cfg, [(p, FLEET_BUDGET) for p in stream], "cuda")
+    one.close()
+    log(f"fleet stream through one engine (cache off, cuda): "
+        f"{serving_line(one_done, one_wall, one_steps)}; {synced}")
+    fleets, drive, launches = serve_fleets(
+        torch, pa, fleet_mod, serve_mod, {"cuda": params}, cfg,
+        [(*size, ["cuda"]) for size in FLEET_SIZES], "fleet")
+    engines = [fleet.engine(n) for fleet in fleets.values() for n in fleet.replicas]
+    ptrs = {e.params["layers"]["wqkv"].data_ptr() for e in engines}
+    if ptrs != {params["layers"]["wqkv"].data_ptr()}:
+        raise AssertionError(f"fleet: the replicas do not share one wqkv storage: {len(ptrs)}")
+    check_fleet_tokens(torch, drive, lambda tag, rnd: one_done, logits_at, "fleet")
+    check_debug_fleet(metrics, fleets)
+    numbers = {tag: fleet_numbers(fleets[tag], drive["passes"][tag]) for tag in fleets}
+    weight_bytes = quant.tree_bytes(params)
+    pools = {e.name: quant.tree_bytes(e._pool) for e in engines}
+    for tag, num in numbers.items():
+        log(f"fleet {tag}: {fleet_line(num)}; prefill tokens reused "
+            f"{num['prefill_tokens_reused']}, computed {num['prefill_tokens_computed']}; "
+            f"placements {num['routed']}, affinity rate {num['affinity_rate']}")
+    log(f"fleet, 4 replicas: TTFT p50 affinity {numbers['n4']['ttft_p50_s'] * 1e3:.3f} ms against "
+        f"random {numbers['rand4']['ttft_p50_s'] * 1e3:.3f} ms; tokens/s "
+        f"{numbers['n4']['tokens_per_s']:.3f} against {numbers['rand4']['tokens_per_s']:.3f}; "
+        f"aggregate over one replica: 2 replicas "
+        f"{numbers['n2']['tokens_per_s'] / numbers['n1']['tokens_per_s']:.4f}x, 4 replicas "
+        f"{numbers['n4']['tokens_per_s'] / numbers['n1']['tokens_per_s']:.4f}x; 4 replicas "
+        f"ticked in one thread {numbers['n4-lockstep']['tokens_per_s']:.3f} tokens/s against "
+        f"{numbers['n4']['tokens_per_s']:.3f} in threads")
+    log(f"fleet memory: weights {weight_bytes} bytes once, shared by {len(engines)} replicas; "
+        f"each replica's pool {sorted(set(pools.values()))} bytes ({sum(pools.values())} in all); "
+        f"allocated on the card {torch.cuda.memory_allocated()} bytes")
+    log("fleet numbers: " + json.dumps(numbers))
+    for fleet in fleets.values():
+        fleet.close()
+    return launches
+
+
+def to_device(tree, dev):
+    """A copy of a params tree on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_cards_fleet(torch, burnin, serve_mod, weights, quant, pa, fleet_mod, cards: int) -> dict:
+    """``--cards N``, the serve fleet: 4 replicas, one on each of the
+    first 4 cards (the weights copied to each), drained in threads and
+    ticked in one thread, against 4 replicas on card 0, on phase_fleet's
+    stream, the passes interleaved: the cards' tokens the one-card
+    fleet's up to near-ties pass by pass, K1 launches == device steps x
+    layers, each replica's host syncs its own contract's, its weights and
+    pool on its own card.  Returns the fleets' numbers."""
+    cfg = burnin.BurninConfig(**SERVE_WIDTH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = weights.cast_matrices(burnin.init_params(cfg, gen, device="cuda:0"))
+    logits_at = dense_logits_at(burnin, params, cfg)
+    devices = [f"cuda:{k}" for k in range(4)]
+    params_on = {"cuda:0": params, **{d: to_device(params, d) for d in devices[1:]}}
+    fleets, drive, launches = serve_fleets(
+        torch, pa, fleet_mod, serve_mod, params_on, cfg,
+        [("n4-card0", 4, "affinity", True, ["cuda:0"]), ("n4-cards", 4, "affinity", True, devices),
+         ("n4-cards-lockstep", 4, "affinity", False, devices)], f"{cards} cards fleet")
+    engines = [fleet.engine(n) for fleet in fleets.values() for n in fleet.replicas]
+    for eng in engines:
+        where = {str(t.device) for t in (eng.params["layers"]["wqkv"], *eng._pool.values())}
+        if where != {str(eng.device)}:
+            raise AssertionError(f"replica {eng.name} on {eng.device} holds tensors on {where}")
+    one_card = drive["passes"]["n4-card0"]
+    check_fleet_tokens(torch, {"passes": {tag: drive["passes"][tag]
+                                          for tag in ("n4-cards", "n4-cards-lockstep")}},
+                       lambda tag, rnd: dict(enumerate(one_card[rnd]["reqs"])), logits_at,
+                       f"{cards} cards fleet vs card 0")
+    numbers = {tag: fleet_numbers(fleets[tag], drive["passes"][tag]) for tag in fleets}
+    for tag, num in numbers.items():
+        log(f"{cards} cards, fleet {tag}: {fleet_line(num)}; placements {num['routed']}")
+    log(f"{cards} cards fleet: 4 replicas on 4 cards {numbers['n4-cards']['tokens_per_s']:.3f} "
+        f"tokens/s against 4 on one card {numbers['n4-card0']['tokens_per_s']:.3f} "
+        f"({numbers['n4-cards']['tokens_per_s'] / numbers['n4-card0']['tokens_per_s']:.4f}x), "
+        f"ticked in one thread {numbers['n4-cards-lockstep']['tokens_per_s']:.3f}; "
+        f"allocated by card {[torch.cuda.memory_allocated(d) for d in devices]} bytes")
+    for fleet in fleets.values():
+        fleet.close()
+    return {"launches": launches, **numbers}
 
 
 # -- rows and MoE -------------------------------------------------------------
@@ -4197,12 +4571,14 @@ def phase_burnin(torch, burnin, mfu, fa, data, ckpt, prng, validate, train_p50: 
 
 
 def main_cards(torch, cards: int) -> int:
-    """``python3 chip_smoke.py --cards N``: `phase_cards` alone, then its
-    JSON line, the card line and the result line."""
+    """``python3 chip_smoke.py --cards N``: `phase_cards`, the cards'
+    serving, pipeline and fleet phases, then their JSON line, the card line
+    and the result line."""
     if torch.cuda.device_count() < cards:
         print(f"chip_smoke: --cards {cards} needs {cards} cards, torch sees "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 1
+    from tpu_dra_torch.fleet import fleet as fleet_mod
     from tpu_dra_torch.parallel import burnin, mfu, paged, quant, serve, validate, weights
     from tpu_dra_torch.parallel.kernels import _build
     from tpu_dra_torch.parallel.kernels import flash_attn as fa
@@ -4230,12 +4606,17 @@ def main_cards(torch, cards: int) -> int:
         t = time.perf_counter()
         pipeline = phase_cards_pipeline(torch, validate, cards)
         log(f"phase cards pipeline and elastic resume: {time.perf_counter() - t:.3f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        fleet = phase_cards_fleet(torch, burnin, serve, weights, quant, pa, fleet_mod, cards)
+        log(f"phase cards fleet: {time.perf_counter() - t:.3f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     print(json.dumps({"sharded_cards": numbers, "sharded_serving_cards": serving,
-                      "pipeline_cards": pipeline}))
+                      "pipeline_cards": pipeline, "fleet_cards": fleet}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4264,6 +4645,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from tpu_dra_torch import models
+        from tpu_dra_torch.fleet import fleet as fleet_mod
         from tpu_dra_torch.parallel import (
             burnin, ckpt, data, decode, disagg, flash, mfu, moe, paged, prng, quant, ring,
             serve, speculative, spmd, swap, validate, weights,
@@ -4271,6 +4653,7 @@ def main() -> int:
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
         from tpu_dra_torch.parallel.kernels import paged_attn as pa
+        from tpu_dra_torch.utils import metrics
     except ImportError as e:
         print(f"chip_smoke: the tpu_dra_torch package is not beside this script: {e}",
               file=sys.stderr)
@@ -4325,6 +4708,12 @@ def main() -> int:
         log(f"phase KV hierarchy: {time.perf_counter() - t:.3f} s; kernel launches {hierarchy}")
         paged_row["launches_by_path"] = {"engine": paged_row["launches"], **telemetry, **sampled,
                                          **hierarchy}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        fleet_launches = phase_fleet(torch, burnin, serve, weights, quant, pa, fleet_mod, metrics)
+        paged_row["launches_by_path"].update(fleet_launches)
+        log(f"phase fleet: {time.perf_counter() - t:.3f} s; K1 launches {fleet_launches}")
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()

@@ -52,6 +52,8 @@ def test_port_has_the_slice_modules():
                  "ulysses", "validate", "weights", "kernels.flash_attn", "kernels.paged_attn"):
         assert f"tpu_dra_torch.parallel.{name}" in mods
     for name in ("tpu_dra_torch.models", "tpu_dra_torch.fleet", "tpu_dra_torch.fleet.digest",
+                 "tpu_dra_torch.fleet.router", "tpu_dra_torch.fleet.stats",
+                 "tpu_dra_torch.fleet.fleet",
                  "tpu_dra_torch.api", "tpu_dra_torch.api.topology", "tpu_dra_torch.utils.metrics",
                  "tpu_dra_torch.utils.trace", "tpu_dra_torch.utils.servestats",
                  "tpu_dra_torch.obs.kv", "tpu_dra_torch.obs.requests",

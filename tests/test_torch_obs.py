@@ -11,13 +11,16 @@ tpu_dra_torch/obs/{kv,requests,capacity}.py) against the reference's
   `render_waterfall`, the engines' rows of `obs.capacity.capacity_doc`
   and the trace renderings are equal to the reference's on the same
   records, snapshots and requests (ring sequence numbers, wall stamps and
-  process-wide counts aside).
+  process-wide counts aside).  Span comparisons pin both packages'
+  trace component (`same_component`), which other tests in the process
+  may have moved.
 - The port's `MetricsServer` is read by the reference's own CLI
   (``python -m tpu_dra.cmds.explain serve-stats|kv|requests``) as a
   subprocess, which prints what the port's renderings give; every route
   answers, and a bad query is a 400 where the reference's server answers
   400."""
 
+import contextlib
 import json
 import os
 import re
@@ -58,7 +61,7 @@ def _families(mod):
 class TestFamilies:
     def test_every_family_is_the_references(self):
         ported, ref = _families(tmetrics), _families(jmetrics)
-        assert len(ported) == 28
+        assert len(ported) == 34
         for name, fam in ported.items():
             want = ref[name]
             assert type(fam).__name__ == type(want).__name__, name
@@ -98,6 +101,63 @@ def _steps():
                          phase_s={"admit": 1e-4 * i, "dispatch": 2e-4, "fetch": 3e-4 * i,
                                   "host": 5e-5}, slo_met=i, slo_missed=i // 2))
     return rows
+
+
+@contextlib.contextmanager
+def pinned_components(name="tpu-dra"):
+    """Both packages' trace modules stamp spans with ``name``, each put
+    back afterwards.  Every span carries its module's global component,
+    which a reference test that runs the controller's or plugin's main
+    in-process sets (tpu_dra/cmds/controller.py, plugin.py); a test that
+    compares spans across the two packages must not inherit it."""
+    old = jtrace._COMPONENT, ttrace._COMPONENT
+    jtrace.set_component(name)
+    ttrace.set_component(name)
+    try:
+        yield
+    finally:
+        jtrace.set_component(old[0])
+        ttrace.set_component(old[1])
+
+
+@pytest.fixture
+def same_component():
+    with pinned_components():
+        yield
+
+
+@pytest.fixture
+def reference_component_moved():
+    """The reference's component as its plugin main leaves it."""
+    old = jtrace._COMPONENT
+    jtrace.set_component("plugin")
+    try:
+        yield
+    finally:
+        jtrace.set_component(old)
+
+
+def _check_trace_renderings():
+    records = []
+    for mod in (ttrace, jtrace):
+        exp = mod.SpanExporter(capacity=8)
+        root = mod.TraceContext("a" * 32, "b" * 16)
+        mod.emit_span("serve.request", context=root, exporter=exp, start_unix_s=10.0,
+                      duration_s=0.5, request=1)
+        mod.emit_span("serve.queue", parent=root, exporter=exp, start_unix_s=10.0,
+                      duration_s=0.1, request=1, queue_depth=None)
+        spans = exp.spans()
+        for s in spans:
+            s["span_id"] = "c" * 16 if s["name"] == "serve.queue" else s["span_id"]
+            s["thread"] = "main"
+        records.append(spans)
+    assert records[0] == records[1]
+    assert ttrace.render_tree(records[0]) == jtrace.render_tree(records[1])
+    assert ttrace.chrome_trace(records[0]) == jtrace.chrome_trace(records[1])
+    ctx = ttrace.TraceContext.new()
+    assert ttrace.parse_traceparent(ctx.to_traceparent()) == ctx
+    assert jtrace.parse_traceparent(ctx.to_traceparent()).to_traceparent() == (
+        ctx.to_traceparent())
 
 
 class TestDocuments:
@@ -186,27 +246,15 @@ class TestDocuments:
             for mod in (tcap, jcap):
                 mod.unregister("obs-cap")
 
-    def test_trace_renderings(self):
-        records = []
-        for mod in (ttrace, jtrace):
-            exp = mod.SpanExporter(capacity=8)
-            root = mod.TraceContext("a" * 32, "b" * 16)
-            mod.emit_span("serve.request", context=root, exporter=exp, start_unix_s=10.0,
-                          duration_s=0.5, request=1)
-            mod.emit_span("serve.queue", parent=root, exporter=exp, start_unix_s=10.0,
-                          duration_s=0.1, request=1, queue_depth=None)
-            spans = exp.spans()
-            for s in spans:
-                s["span_id"] = "c" * 16 if s["name"] == "serve.queue" else s["span_id"]
-                s["thread"] = "main"
-            records.append(spans)
-        assert records[0] == records[1]
-        assert ttrace.render_tree(records[0]) == jtrace.render_tree(records[1])
-        assert ttrace.chrome_trace(records[0]) == jtrace.chrome_trace(records[1])
-        ctx = ttrace.TraceContext.new()
-        assert ttrace.parse_traceparent(ctx.to_traceparent()) == ctx
-        assert jtrace.parse_traceparent(ctx.to_traceparent()).to_traceparent() == (
-            ctx.to_traceparent())
+    def test_trace_renderings(self, same_component):
+        _check_trace_renderings()
+
+    def test_trace_renderings_after_the_references_component_moved(
+            self, reference_component_moved, same_component):
+        """The guard of `same_component`: a reference test that runs a
+        plugin main in this process leaves the reference's spans stamped
+        ``component="plugin"``; pinned, the renderings still compare."""
+        _check_trace_renderings()
 
 
 # -- the endpoint, read by the reference's CLI ----------------------------------

@@ -9,6 +9,9 @@ tests/test_torch_cuda.py.
 Tolerance ``atol = rtol = 2e-2`` (tests/test_kernels.py's): bf16 outputs
 whose f32 sums run in another order."""
 
+import sys
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import torch
 from tpu_dra.parallel.kernels import paged_attention as jax_paged_attention
 from tpu_dra.parallel.quant import quantize_tensor
 from tpu_dra_torch.parallel.kernels import paged_attention, paged_attention_plain
+from tpu_dra_torch.parallel.kernels import paged_attn
 
 torch.set_num_threads(2)
 
@@ -165,6 +169,30 @@ class TestWrapper:
         before = paged_attention.launches
         assert torch.equal(paged_attention(*args), paged_attention_plain(*args))
         assert paged_attention.launches == before
+
+    def test_launch_count_is_exact_across_threads(self):
+        """A fleet's replicas launch from their own threads: 8 threads
+        counting 10,000 launches each move the count by exactly 80,000
+        (a thread switch every microsecond, to meet a lost update if the
+        count had one)."""
+        before, interval = paged_attention.launches, sys.getswitchinterval()
+
+        def count():
+            for _ in range(10_000):
+                paged_attn._count_launch()
+
+        threads = [threading.Thread(target=count) for _ in range(8)]
+        sys.setswitchinterval(1e-6)
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(t.is_alive() for t in threads)
+        assert paged_attention.launches - before == 80_000
+        paged_attention.launches = before
 
     def test_int8_pools_rejected(self):
         """int8 pools are taken in pairs only: an int8 K with a bf16 V (or

@@ -24,6 +24,7 @@ reference's ``_block_kv``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -33,6 +34,17 @@ from tpu_dra_torch.parallel.quant import is_quantized_leaf
 __all__ = ["paged_attention", "paged_attention_plain"]
 
 _NEG_INF = -1e30
+
+# Guards the launch counter: replicas of a fleet launch from their own
+# threads, and ``launches += 1`` is a read and a write an update of
+# another thread can fall between.
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one to ``paged_attention.launches``, exactly, from any thread."""
+    with _LAUNCHES_LOCK:
+        paged_attention.launches += 1
 
 
 def _sqrt_d(K: int) -> float:
@@ -213,7 +225,7 @@ def _launch(q, k_pool, v_pool, table, pos, dims):
         )
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")
-    paged_attention.launches += 1
+    _count_launch()
     return out
 
 

@@ -17,6 +17,9 @@ buckets, so a scraper reads the same series from either package, and
   aggregates (`obs.requests`): ``engine=``, ``class=``, ``trace_id=``;
 - ``GET /debug/capacity``             the engines' busy/idle device
   seconds (`obs.capacity`);
+- ``GET /debug/fleet``                the fleet placement recorder
+  (`fleet.stats`): ``fleet=``, ``replica=``, ``reason=``, ``limit=``,
+  ``format=json|text``;
 - ``GET /debug/traces``               finished spans (`utils.trace`):
   ``trace_id=``, ``limit=``, ``format=json|text|raw``.
 
@@ -390,6 +393,43 @@ SERVE_REQUEST_PHASE_SECONDS = REGISTRY.histogram(
     buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
              0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0),
 )
+# Serve-fleet router (fleet/): placements across engine replicas
+# by reason, plus the routing-health gauges — digest freshness, load
+# balance, and the fleet-level overflow queue.
+FLEET_ROUTED = REGISTRY.counter(
+    "tpu_dra_fleet_routed_total",
+    "Fleet router placements by replica and reason: affinity (digest "
+    "match won), load (no match, or the match shed to a colder "
+    "replica), spill (digest stale at placement — live verify missed), "
+    "random / round_robin (benchmark control policies)",
+)
+FLEET_ROUTE_TOTAL = REGISTRY.counter(
+    "tpu_dra_fleet_route_total",
+    "Fleet root spans (fleet.route) opened per routed request by "
+    "outcome: affinity, load, spill, random, round_robin — the "
+    "trace-side sibling of tpu_dra_fleet_routed_total{replica,reason} "
+    "(one increment per request-level trace root, replica-agnostic, so "
+    "an outcome-mix dashboard needs no replica fan-in)",
+)
+FLEET_DIGEST_AGE = REGISTRY.gauge(
+    "tpu_dra_fleet_digest_age_seconds",
+    "Age of each replica's cached prefix digest at scrape (per fleet "
+    "and replica; 0 until first built)",
+)
+FLEET_LOAD_SKEW = REGISTRY.gauge(
+    "tpu_dra_fleet_load_skew",
+    "Spread between the most and least loaded replica of a fleet, in "
+    "rounds of committed work per batch row ((queue+occupancy)/slots)",
+)
+FLEET_QUEUE_DEPTH = REGISTRY.gauge(
+    "tpu_dra_fleet_queue_depth",
+    "Requests parked at fleet level because every replica was at its "
+    "admission cap (per fleet, sampled at scrape)",
+)
+FLEET_SCALE_HINTS = REGISTRY.counter(
+    "tpu_dra_fleet_scale_hints_total",
+    "ServeFleet.scale_hint() verdicts by hint (grow, shrink, hold)",
+)
 SERVE_TIER_ENGINES = REGISTRY.gauge(
     "tpu_dra_serve_tier_engines",
     "Engines serving each disaggregation tier, value 1 per live engine "
@@ -530,6 +570,25 @@ def _capacity_doc(query: dict) -> "tuple[str, object]":
     return fmt, obscap.render_text(doc) if fmt == "text" else doc
 
 
+def _fleet_doc(query: dict) -> "tuple[str, object]":
+    from tpu_dra_torch.fleet import stats as fleetstats
+
+    limit = _query_int(query, "limit", 256, cap=fleetstats.RECORDER.capacity)
+    fmt = _query_format(query, ("json", "text"))
+    records = fleetstats.RECORDER.query(fleet=query.get("fleet", [""])[0] or None,
+                                        replica=query.get("replica", [""])[0] or None,
+                                        reason=query.get("reason", [""])[0] or None,
+                                        limit=limit)
+    if fmt == "text":
+        return fmt, fleetstats.render_text(records)
+    return fmt, {
+        "placements": [r.to_dict() for r in records],
+        "dropped": fleetstats.RECORDER.dropped,
+        "recorded": fleetstats.RECORDER.recorded,
+        "summary": fleetstats.summarize(records),
+    }
+
+
 def _traces_doc(query: dict) -> "tuple[str, object]":
     from tpu_dra_torch.utils import trace
 
@@ -562,7 +621,7 @@ class MetricsServer:
         self.ready_check = ready_check or (lambda: True)
         debug = {f"{self.pprof_path}/{name}": fn for name, fn in (
             ("engine", _engine_doc), ("requests", _requests_doc), ("kv", _kv_doc),
-            ("capacity", _capacity_doc), ("traces", _traces_doc))}
+            ("capacity", _capacity_doc), ("fleet", _fleet_doc), ("traces", _traces_doc))}
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
