@@ -425,19 +425,23 @@ class TestFleet:
 
 
 ORDER = ["fleet.route", "serve.request", "serve.queue", "serve.admit", "serve.decode"]
+# The TTFT split on the port's serve.admit span, which the reference lacks.
+PORT_ONLY_ATTRIBUTES = ("prefill_s", "wave_wait_s")
 
 
 def _normalized(spans, k):
     """One request's spans with the run's own identities and clocks taken
     out: trace and span ids by name, starts in the waterfall's order,
-    durations, offsets and second-valued attributes zeroed."""
+    durations, offsets and second-valued attributes zeroed; the port's
+    own attributes (`PORT_ONLY_ATTRIBUTES`) left out."""
     ids = {s["span_id"]: f"{ORDER.index(s['name']):016x}" for s in spans}
     out = []
     for s in spans:
         s = dict(s, trace_id=f"{k:032x}", span_id=ids[s["span_id"]],
                  parent_id=ids.get(s["parent_id"], s["parent_id"]), thread="main",
                  start_unix_s=float(ORDER.index(s["name"])), duration_s=0.0)
-        s["attributes"] = {a: 0 if a.endswith("_s") else v for a, v in s["attributes"].items()}
+        s["attributes"] = {a: 0 if a.endswith("_s") else v for a, v in s["attributes"].items()
+                           if a not in PORT_ONLY_ATTRIBUTES}
         s["events"] = [dict(e, offset_s=0.0, attributes={
             a: 0 if a.endswith("_s") else v for a, v in e["attributes"].items()})
             for e in s["events"]]

@@ -34,9 +34,15 @@ target of a nanosecond, always missed).  Held equal:
 Then the port alone: ``telemetry=False`` records no span and no step;
 `profile_steps` writes a Chrome trace on the CPU and disarms after its
 ``n`` device calls; ``trace_parent`` must be the port's TraceContext,
-with the reference's error."""
+with the reference's error; the profiler ranges (`trace.range`) of the
+engine's phases, the model's attention and expert layer and the
+trainer's phases; the trainer's phase histogram, its CUDA event sets
+driven through fakes; and the ``serve.admit`` span's TTFT split."""
 
+import contextlib
+import dataclasses
 import json
+import time
 
 import numpy as np
 import pytest
@@ -56,6 +62,7 @@ from tpu_dra.utils import trace as jtrace
 from tpu_dra_torch.obs import capacity as tcap
 from tpu_dra_torch.obs import kv as tkv
 from tpu_dra_torch.obs import requests as treq
+from tpu_dra_torch.parallel import burnin as tb
 from tpu_dra_torch.parallel.disagg import DisaggServer
 from tpu_dra_torch.parallel.serve import ServeEngine
 from tpu_dra_torch.utils import metrics as tmetrics
@@ -73,8 +80,9 @@ COUNTERS = ("SERVE_PREFILL_TOKENS", "SERVE_PREFIX_HITS", "SERVE_PREFIX_MISSES",
 # Histograms whose observations are events, not timed values.
 EVENT_HISTOGRAMS = ("SERVE_TTFT_SECONDS", "SERVE_TPOT_SECONDS", "SERVE_QUEUE_WAIT_SECONDS",
                     "SERVE_KV_BLOCK_AGE_SECONDS")
-# Span attributes that are times.
-TIMED = ("queue_wait_s", "ttft_s", "tpot_s", "parked_s")
+# Span attributes that are times (the last two, the TTFT split on
+# serve.admit, are the port's alone).
+TIMED = ("queue_wait_s", "ttft_s", "tpot_s", "parked_s", "prefill_s", "wave_wait_s")
 GAUGES = ("SERVE_QUEUE_DEPTH", "SERVE_BATCH_OCCUPANCY", "SERVE_TIER_ENGINES", "SERVE_KV_BLOCKS")
 
 
@@ -416,3 +424,215 @@ def test_trace_parent_must_be_the_ports_context(dense):
     assert root["parent_id"] == parent.span_id and root["span_id"] == req.trace_ctx.span_id
     eng.close()
     jeng.close()
+
+
+# -- profiler ranges -------------------------------------------------------------
+PHASE_RANGES = ("engine.admit", "engine.dispatch", "engine.fetch", "engine.host")
+MOE_RANGES = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+@pytest.fixture(scope="module")
+def moe(dense):
+    _, tcfg, _, _ = dense
+    cfg = dataclasses.replace(tcfg, moe_experts=4)
+    return cfg, tb.init_params(cfg, device="cpu")
+
+
+def _profiled(fn, tmp_path):
+    """Run ``fn`` under `torch.profiler` (CPU activity) and return its
+    Chrome trace's ``user_annotation`` events as (name, start_us, end_us)
+    in start order, with ``fn``'s result."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = sorted((e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events if e.get("cat") == "user_annotation" and e.get("ph") == "X")
+    return sorted(ranges, key=lambda r: r[1]), out
+
+
+def _inside(inner, outer):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def test_range_is_one_shared_null_context_without_a_profiler():
+    assert not torch._C._autograd._profiler_enabled()
+    a, b = ttrace.range("engine.tick"), ttrace.range("moe.route")
+    assert a is b and isinstance(a, contextlib.nullcontext)
+    with a:
+        pass
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert isinstance(ttrace.range("engine.tick"), torch.profiler.record_function)
+    assert ttrace.range("engine.tick") is a
+
+
+# Each engine's profiled tick admits one request through one of the
+# three prefill calls: the paged prefill, a rows prefix hit's suffix,
+# and the rows B=1 prefill of the MoE model.
+RANGE_ENGINES = {
+    "paged": dict(kv_layout="paged"),
+    "rows_prefix_hit": dict(kv_layout="rows", prefix_cache_slots=2),
+    "moe_rows": dict(kv_layout="rows"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RANGE_ENGINES))
+def test_a_tick_marks_its_phases_as_ranges(dense, moe, case, tmp_path):
+    _, tcfg, _, tparams = dense
+    cfg, params = moe if case == "moe_rows" else (tcfg, tparams)
+    name = f"tele-ranges-{case}"
+    eng = ServeEngine(params, cfg, slots=2, prompt_slots=8, max_new_cap=4, prefix_window=2,
+                      device="cpu", name=name, **RANGE_ENGINES[case])
+    if case == "rows_prefix_hit":
+        eng.submit([5, 9, 2, 7, 1], 2)
+        eng.run()
+    rid = eng.submit([5, 9, 2, 7, 3], 3)
+    ranges, _ = _profiled(eng.tick, tmp_path)
+    record = tstats.RECORDER.query(engine=name)[-1]
+    assert (eng.request(rid).prefix_reused > 0) == (case == "rows_prefix_hit")
+    by = {}
+    for r in ranges:
+        by.setdefault(r[0], []).append(r)
+    (tick,) = by["engine.tick"]
+    (admit,) = by["engine.admit"]
+    (prefill,) = by["engine.prefill"]
+    assert _inside(admit, tick) and _inside(prefill, admit)
+    for phase in PHASE_RANGES[1:]:
+        (r,) = by[phase]
+        assert _inside(r, tick) and r[1] >= admit[2]
+    assert by["engine.dispatch"][0][2] <= by["engine.fetch"][0][1]
+    assert by["engine.fetch"][0][2] <= by["engine.host"][0][1]
+    for phase in PHASE_RANGES:
+        spent = sum(r[2] - r[1] for r in by[phase]) * 1e-6
+        want = record.phase_s[phase.split(".")[1]]
+        assert abs(spent - want) <= max(0.1 * want, 5e-4), (phase, spent, want)
+    assert all(_inside(r, tick) for r in by["decode.attn"])
+    eng.close()
+
+
+@pytest.mark.parametrize("tick", ["admission", "decode"])
+def test_moe_ranges_once_per_layer_per_model_call(moe, tick, tmp_path):
+    cfg, params = moe
+    eng = ServeEngine(params, cfg, slots=2, prompt_slots=8, max_new_cap=4, device="cpu",
+                      kv_layout="rows", name=f"tele-moe-{tick}")
+    eng.submit([1, 2, 3], 4)
+    if tick == "decode":
+        eng.tick()
+    ranges, _ = _profiled(eng.tick, tmp_path)
+    calls = 2 if tick == "admission" else 1  # the B=1 prefill, then the decode step
+    names = [r[0] for r in ranges]
+    for name in MOE_RANGES + ("decode.attn",):
+        assert names.count(name) == cfg.n_layers * calls, name
+    # Each layer's parts in order, inside the layer's call.
+    parts = [r for r in ranges if r[0] in MOE_RANGES]
+    for i in range(0, len(parts), 4):
+        assert [r[0] for r in parts[i:i + 4]] == list(MOE_RANGES)
+        assert all(a[2] <= b[1] for a, b in zip(parts[i:i + 4], parts[i + 1:i + 4]))
+    eng.close()
+
+
+# -- the trainer's phase times -----------------------------------------------------
+def _phase_hist():
+    h = tmetrics.TRAIN_PHASE_DEVICE_SECONDS
+    with h._lock:
+        return {dict(k)["phase"]: (sum(v), h._sums[k]) for k, v in h._counts.items()}
+
+
+def test_cpu_train_steps_observe_their_phases(dense, tmp_path):
+    _, tcfg, _, _ = dense
+    step, state = tb.make_train_step(tcfg, device="cpu")
+    tokens = tb.prepare_tokens(tcfg, device="cpu")
+    before = _phase_hist()
+    wall = 0.0
+    for i in range(3):
+        t0 = time.perf_counter()
+        if i < 2:
+            state, loss = step(state, tokens)
+        else:
+            ranges, (state, loss) = _profiled(lambda: step(state, tokens), tmp_path)
+        float(loss)
+        wall += time.perf_counter() - t0
+    after = _phase_hist()
+    assert set(after) == set(tb.TRAIN_PHASES)
+    for phase in tb.TRAIN_PHASES:
+        n = after[phase][0] - before.get(phase, (0, 0.0))[0]
+        spent = after[phase][1] - before.get(phase, (0, 0.0))[1]
+        assert n in (2, 3) and 0.0 < spent <= wall, phase
+    spans = [r for r in ranges if r[0].startswith("train.")]
+    assert [r[0] for r in spans] == [f"train.{p}" for p in tb.TRAIN_PHASES]
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
+
+
+class _FakeEvent:
+    """A CUDA event's surface as `burnin._PhaseClock` uses it: ``record``
+    stamps a fake device clock, ``query`` reads a done flag the test sets."""
+
+    clock = 0.0
+
+    def __init__(self, enable_timing=False):
+        self.t, self.done = None, True
+
+    def record(self, stream=None):
+        _FakeEvent.clock += 1.0
+        self.t, self.done = _FakeEvent.clock, False
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3  # milliseconds: each phase reads one second
+
+
+# Per step, whether its events are done at each later step's start: the
+# first step is never observed; a set pending at the next step's start is
+# read one step later; one still pending two steps on is dropped.
+CLOCK_CASES = {
+    "done_at_once": ([0, 0, 0, 0, 0], 3),
+    "done_one_step_late": ([0, 1, 1, 1, 1], 2),
+    "pending_two_steps": ([0, 2, 2, 0, 0], 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLOCK_CASES))
+def test_cuda_phase_clock_reads_done_sets_and_drops_stale_ones(monkeypatch, case):
+    lags, observed = CLOCK_CASES[case]
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    clock = tb._PhaseClock(torch.device("cuda"))
+    before = _phase_hist()
+    steps = []  # (events, lag) of each step
+    for lag in lags:
+        for k, (events, left) in enumerate(steps):
+            if left == 0:
+                events[3].done = True
+            steps[k] = (events, left - 1)
+        turn = clock._turn
+        clock.start()
+        clock.mark(1)
+        clock.mark(2)
+        clock.end()
+        steps.append((clock._sets[turn], lag))
+    after = _phase_hist()
+    for phase in tb.TRAIN_PHASES:
+        n = after.get(phase, (0, 0.0))[0] - before.get(phase, (0, 0.0))[0]
+        spent = after.get(phase, (0, 0.0))[1] - before.get(phase, (0, 0.0))[1]
+        assert n == observed and spent == pytest.approx(observed * 1.0), (phase, n)
+
+
+# -- the TTFT split on serve.admit -------------------------------------------------
+@pytest.mark.parametrize("layout", ["paged", "rows"])
+def test_admit_span_splits_the_time_to_first_token(dense, layout):
+    eng = _port_engine(dense, kv_layout=layout, name=f"tele-ttft-{layout}")
+    ids = [eng.submit(p, 3) for p in ([1, 2, 3], [4, 5, 6, 7], [8, 9], [3, 1])]
+    eng.run()
+    for rid in ids:
+        req = eng.request(rid)
+        (admit,) = [s for s in ttrace.EXPORTER.spans(trace_id=req.trace_id)
+                    if s["name"] == "serve.admit"]
+        a = admit["attributes"]
+        assert a["prefill_s"] > 0 and a["wave_wait_s"] >= 0
+        assert a["prefill_s"] + a["wave_wait_s"] == pytest.approx(admit["duration_s"], abs=1e-3)
+        assert req.queue_wait_s + a["prefill_s"] + a["wave_wait_s"] == pytest.approx(
+            req.ttft_s, abs=1e-3)
+    eng.close()

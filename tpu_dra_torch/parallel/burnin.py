@@ -80,6 +80,8 @@ from tpu_dra_torch.parallel.quant import dequantize_bf16
 from tpu_dra_torch.parallel.ring import ring_attention_sharded
 from tpu_dra_torch.parallel.spmd import mesh_sizes
 from tpu_dra_torch.parallel.ulysses import ulysses_attention_sharded
+from tpu_dra_torch.utils import trace
+from tpu_dra_torch.utils.metrics import TRAIN_PHASE_DEVICE_SECONDS
 
 __all__ = [
     "BurninConfig",
@@ -856,7 +858,13 @@ def make_train_step(config: BurninConfig, mesh=None, *, device: "str | torch.dev
     On a mesh every rank calls the step with its shards of the state
     (`state_shardings`; `weights.shard_state` cuts the reference's) and
     its batch rows (`prepare_tokens`); the loss is the global one on every
-    rank.  ``config`` must fit the mesh (`BurninConfig.scaled_to`)."""
+    rank.  ``config`` must fit the mesh (`BurninConfig.scaled_to`).
+
+    Every step's phases, forward (the loss), backward (the gradients; on
+    a mesh, reduced over it) and update (clip and optimizer), are the
+    ranges ``train.forward``, ``train.backward`` and ``train.update``
+    under a profiler, and their device-clock times are observed into
+    ``tpu_dra_train_phase_device_seconds`` (`_PhaseClock`)."""
     c = config
     _validate_optim(c)
     mesh, device = _placement(mesh, device)
@@ -865,22 +873,29 @@ def make_train_step(config: BurninConfig, mesh=None, *, device: "str | torch.dev
         return _sharded_step(c, place), (_init_state(c, place.device, place) if with_state
                                          else None)
     dev = resolve_device(device)
+    clock = _PhaseClock(dev)
 
     def step(state, tokens):
         params, opt = state
+        clock.start()
         leaves = _leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
-            loss = _loss(params, tokens, c)
-            # With rope the additive position table is unused: its
-            # gradient is zeros, as the reference's is.
-            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                             materialize_grads=True))
-        with torch.no_grad():
+            with trace.range("train.forward"):
+                loss = _loss(params, tokens, c)
+            clock.mark(1)
+            with trace.range("train.backward"):
+                # With rope the additive position table is unused: its
+                # gradient is zeros, as the reference's is.
+                grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                 materialize_grads=True))
+            clock.mark(2)
+        with torch.no_grad(), trace.range("train.update"):
             if c.grad_clip_norm > 0:
                 _clip_grads(grads, c.grad_clip_norm)
             _apply_update(c, leaves, opt, grads)
+        clock.end()
         return state, loss.detach()
 
     return step, (_init_state(c, dev) if with_state else None)
@@ -888,28 +903,98 @@ def make_train_step(config: BurninConfig, mesh=None, *, device: "str | torch.dev
 
 def _sharded_step(c: BurninConfig, place: "spmd.Place"):
     specs = _leaves(param_specs(c, place.sizes))
+    clock = _PhaseClock(place.device)
 
     def step(state, tokens):
         params, opt = state
+        clock.start()
         leaves = _leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
-            loss = _loss_sharded(params, tokens, c, place)
-            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                             materialize_grads=True))
-        with torch.no_grad():
-            # A leaf replicated over an axis (every leaf over data; the
-            # norms, the router and the position table over model too,
-            # whose inputs are sequence-sharded) holds a partial gradient
-            # on each rank of it.
-            spmd.reduce_grads(grads, specs, place)
+            with trace.range("train.forward"):
+                loss = _loss_sharded(params, tokens, c, place)
+            clock.mark(1)
+            with trace.range("train.backward"):
+                grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                                 materialize_grads=True))
+                # A leaf replicated over an axis (every leaf over data; the
+                # norms, the router and the position table over model too,
+                # whose inputs are sequence-sharded) holds a partial
+                # gradient on each rank of it.
+                with torch.no_grad():
+                    spmd.reduce_grads(grads, specs, place)
+            clock.mark(2)
+        with torch.no_grad(), trace.range("train.update"):
             if c.grad_clip_norm > 0:
                 _clip_grads(grads, c.grad_clip_norm, specs, place)
             _apply_update(c, leaves, opt, grads)
+        clock.end()
         return state, _total(loss, place)
 
     return step
+
+
+TRAIN_PHASES = ("forward", "backward", "update")
+
+
+class _PhaseClock:
+    """A train step's phase times on the device's clock, each observed
+    into `TRAIN_PHASE_DEVICE_SECONDS` once a step.
+
+    On CUDA four events on the step's stream mark the phases' bounds
+    (the step's start, then the end of each of `TRAIN_PHASES`); two sets
+    serve in turn, so a step allocates nothing.  A set is read at a
+    later step's start once its last event is done (``query``), never
+    waited for; one still pending when its turn comes round again, two
+    steps on, is dropped.  The events time the device's own clock, so a
+    phase includes the device's waits for the host's launches inside
+    it.  On a CPU device the ops run as they are issued, so host
+    ``perf_counter`` stamps stand in.  A trainer's first step is not
+    observed: it builds the kernels and grows the allocator."""
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._cuda = device.type == "cuda"
+        if self._cuda:
+            self._sets = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                          for _ in range(2)]
+        else:
+            self._sets = [[0.0] * 4]
+        self._pending = [False, False]
+        self._turn = 0
+        self._steps = 0
+
+    def start(self) -> None:
+        if self._cuda:
+            for k, events in enumerate(self._sets):
+                if self._pending[k] and events[3].query():
+                    self._observe([a.elapsed_time(b) * 1e-3 for a, b in zip(events, events[1:])])
+                    self._pending[k] = False
+            self._pending[self._turn] = False  # pending two steps on: dropped
+        self.mark(0)
+
+    def mark(self, i: int) -> None:
+        """Bound ``i`` of the step: 0 its start, then the end of each phase."""
+        if self._cuda:
+            self._sets[self._turn][i].record(torch.cuda.current_stream(self._device))
+        else:
+            self._sets[0][i] = time.perf_counter()
+
+    def end(self) -> None:
+        self.mark(3)
+        self._steps += 1
+        if self._cuda:
+            self._pending[self._turn] = self._steps > 1
+            self._turn ^= 1
+        elif self._steps > 1:
+            stamps = self._sets[0]
+            self._observe([b - a for a, b in zip(stamps, stamps[1:])])
+
+    @staticmethod
+    def _observe(seconds: "list[float]") -> None:
+        for phase, s in zip(TRAIN_PHASES, seconds):
+            TRAIN_PHASE_DEVICE_SECONDS.observe(s, phase=phase)
 
 
 def _shard(t, spec, place: "spmd.Place"):

@@ -92,6 +92,7 @@ from tpu_dra_torch.parallel.quant import (
     quant_param_specs,
     quantize_tensor,
 )
+from tpu_dra_torch.utils import trace
 
 __all__ = [
     "cache_spec",
@@ -364,11 +365,13 @@ def _decode_block(layer, x, ck, cv, p0, *, config: BurninConfig, mask,
     T)) — the training block's arithmetic, minus gradients.  The expert
     MLP's queues hold ``min(S, expert_capacity)`` tokens: the training
     capacity clamped to the tokens present, so a prefill drops where
-    training would and a one-token step is dropless."""
+    training would and a one-token step is dropless.  Under a profiler
+    the attention half is the ``decode.attn`` range."""
     c = config
     S = x.shape[1]
-    att, ck, cv = _attention(layer, x, ck, cv, p0, c, mask, rope_tab, kv_io)
-    x = x + _matmul_bf16(att, layer["wo"], 2)
+    with trace.range("decode.attn"):
+        att, ck, cv = _attention(layer, x, ck, cv, p0, c, mask, rope_tab, kv_io)
+        x = x + _matmul_bf16(att, layer["wo"], 2)
     capacity = min(S, expert_capacity(c)) if c.moe_experts > 0 else None
     x, _ = _mlp(layer, x, c, capacity)
     return x, ck, cv

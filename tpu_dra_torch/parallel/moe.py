@@ -38,6 +38,7 @@ import math
 import torch
 
 from tpu_dra_torch.parallel import spmd
+from tpu_dra_torch.utils import trace
 from tpu_dra_torch.parallel.mesh import logical_mesh
 
 __all__ = [
@@ -125,22 +126,30 @@ def moe_mlp(layer, h, config, capacity: "int | None" = None):
 
     ``capacity`` overrides the per-(batch row, expert) queue length (the
     decode path passes the training capacity clamped to the slice
-    length)."""
+    length).
+
+    Under a profiler the parts are ranges: ``moe.route`` (the router),
+    ``moe.dispatch`` (queues, the load-balance term and the tokens'
+    gather into the experts' queues), ``moe.experts`` (the expert GEMMs)
+    and ``moe.combine``."""
     E = config.moe_experts
     C = expert_capacity(config) if capacity is None else capacity
     bf16 = torch.bfloat16
 
-    probs = route(layer, h)
-    onehot, dispatch, combine = _dispatch(probs, C, dim=1)  # dispatch (B, S, E, C)
-    frac = onehot.mean(dim=(0, 1))
-    meanp = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(frac * meanp)
-
-    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(bf16), h)
-    h1 = torch.einsum("ebcd,edf->ebcf", expert_in, layer["w1e"].to(bf16))
-    h1 = torch.where(h1 > 0, h1, _SLOPE * h1)
-    out_e = torch.einsum("ebcf,efd->ebcd", h1, layer["w2e"].to(bf16))
-    out = torch.einsum("bsec,ebcd->bsd", combine.to(bf16), out_e)
+    with trace.range("moe.route"):
+        probs = route(layer, h)
+    with trace.range("moe.dispatch"):
+        onehot, dispatch, combine = _dispatch(probs, C, dim=1)  # dispatch (B, S, E, C)
+        frac = onehot.mean(dim=(0, 1))
+        meanp = probs.mean(dim=(0, 1))
+        aux = E * torch.sum(frac * meanp)
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch.to(bf16), h)
+    with trace.range("moe.experts"):
+        h1 = torch.einsum("ebcd,edf->ebcf", expert_in, layer["w1e"].to(bf16))
+        h1 = torch.where(h1 > 0, h1, _SLOPE * h1)
+        out_e = torch.einsum("ebcf,efd->ebcd", h1, layer["w2e"].to(bf16))
+    with trace.range("moe.combine"):
+        out = torch.einsum("bsec,ebcd->bsd", combine.to(bf16), out_e)
     return out, aux
 
 

@@ -123,9 +123,26 @@ counters and histograms move where the reference's do; scrape-time
 gauges and the ``/debug/kv``, ``/debug/requests`` and
 ``/debug/capacity`` providers hold the engine by weak reference and
 ``close()`` retires them.  ``telemetry=False`` drops the spans, the step
-records and the per-token observations, as the reference's does;
-`profile_steps` captures the next device calls under `torch.profiler`.
-On a mesh every rank records its own.
+records and the per-token observations, as the reference's does.  The
+``serve.admit`` span splits the time to first token after the queue:
+``prefill_s``, the request's own admission (prefix match, blocks, its
+prefill call's issue), and ``wave_wait_s``, the rest until its first
+token is noted: the wave's later admissions, its sample and its one
+fetch (``queue_wait_s + prefill_s + wave_wait_s`` is the time from
+enqueue to first token).
+
+Under a profiler (`profile_steps`, which captures the next device calls
+under `torch.profiler`, or any other) the engine marks its phases as
+ranges on the profiler's clock, beside the kernels they launch
+(`trace.range`; nothing is recorded and nothing allocated while no
+profiler runs): ``engine.tick`` over a tick; ``engine.admit``,
+``engine.dispatch``, ``engine.fetch`` and ``engine.host`` where the
+step record's phases are stamped; ``engine.prefill`` over each
+admission's prefill call; inside the model, ``decode.attn`` over each
+block's attention half and ``moe.route``, ``moe.dispatch``,
+``moe.experts``, ``moe.combine`` over the expert layer's parts.  An
+idle gap of the card inside ``engine.admit`` is time the card waited
+on admission.  On a mesh every rank records its own.
 """
 
 from __future__ import annotations
@@ -205,6 +222,14 @@ _ENGINE_IDS = itertools.count()
 
 # perf_counter stamps onto the wall clock, for span records.
 _unix_of = trace.unix_of
+
+# Profiler ranges (`trace.range`): one a step phase, named from the
+# step record's phases so the two cannot drift apart, opened and closed
+# where that phase's perf_counter stamps are taken; the whole tick; and
+# each admission's prefill call, inside the admit phase.
+_PHASE_RANGE = {p: f"engine.{p}" for p in servestats.PHASES}
+_TICK_RANGE = "engine.tick"
+_PREFILL_RANGE = "engine.prefill"
 
 # The paged engine's block-state gauge series.
 _KV_STATES = ("free", "allocated", "aliased", "host")
@@ -1148,7 +1173,8 @@ class ServeEngine:
         self._table[row, :] = 0
         self._table[row, :total_cols] = cols
         # The windows before fw are aliased and never written.
-        last = self._prefill_into(self._prompt_stage[row], req.prompt, self._table[row], fw)
+        with trace.range(_PREFILL_RANGE):
+            last = self._prefill_into(self._prompt_stage[row], req.prompt, self._table[row], fw)
         if cacheable and length >= w and (m_raw < length or entry is None or entry.length < length):
             # Park the prompt's blocks, unless the exact prompt is already
             # resident at full length or is shorter than a window; a
@@ -1236,11 +1262,13 @@ class ServeEngine:
             tokens, lens, _ = self._upload(stage, req.prompt)
             cache1 = init_cache(self.config, 1, self.kv_int8, device=self.device, mesh=self.mesh)
             copy_prefix_into_row(cache1, 0, self._prefix.pool, entry.slot, fw * w)
-            last, cache1 = self._suffix(self.params, tokens, lens, cache1, first_window=fw)
+            with trace.range(_PREFILL_RANGE):
+                last, cache1 = self._suffix(self.params, tokens, lens, cache1, first_window=fw)
             req.prefix_reused = fw * w
             SERVE_PREFILL_TOKENS.inc(fw * w, kind="reused")
         else:
-            cache1, last = self._prefill_row(stage, req.prompt)
+            with trace.range(_PREFILL_RANGE):
+                cache1, last = self._prefill_row(stage, req.prompt)
         SERVE_PREFILL_TOKENS.inc(length - req.prefix_reused, kind="computed")
         self._prefill_tokens["reused"] += req.prefix_reused
         self._prefill_tokens["computed"] += length - req.prefix_reused
@@ -1279,9 +1307,15 @@ class ServeEngine:
         prefix_hits)`` for the tick's step record.  A swapped-out or
         handed-in head is restored instead and joins no wave (its next
         token is frozen on the host).  The wave's first tokens come back
-        in ONE fetch.  The whole call is the tick's admit phase."""
+        in ONE fetch.  The whole call is the tick's admit phase, and its
+        ``engine.admit`` range."""
+        with trace.range(_PHASE_RANGE["admit"]):
+            return self._admit_wave()
+
+    def _admit_wave(self) -> "tuple[int, int]":
         t_phase = time.perf_counter()
-        wave: "list[tuple[int, torch.Tensor, float]]" = []
+        # (row, last logits, admitted at, own admission's seconds)
+        wave: "list[tuple[int, torch.Tensor, float, float]]" = []
         hits = 0
         while self._queue and any(r is None for r in self._row_req):
             head = self._head_index()
@@ -1310,14 +1344,15 @@ class ServeEngine:
                 last, pins = self._admit_paged(req, row)
             else:
                 last, pins = self._admit_rows(req, row)
+            prefill_s = time.perf_counter() - t_admit
             self._row_req[row] = req
             self._pos[row] = len(req.prompt)
             self._row_pins[row] = pins
-            wave.append((row, last[0], t_admit))
+            wave.append((row, last[0], t_admit, prefill_s))
             hits += req.prefix_reused > 0
         if wave:
-            rows = [row for row, _, _ in wave]
-            logits = torch.stack([last for _, last, _ in wave])
+            rows = [row for row, *_ in wave]
+            logits = torch.stack([last for _, last, *_ in wave])
             seeds = positions = None
             if self._sampled:
                 # A request's first token lands in position len(prompt).
@@ -1332,7 +1367,7 @@ class ServeEngine:
             fetched = self._fetch(
                 [toks], [_chosen_logprob(logits, toks)] if self.with_logprobs else []
             )
-            for i, (row, _, t_admit) in enumerate(wave):
+            for i, (row, _, t_admit, prefill_s) in enumerate(wave):
                 req = self._row_req[row]
                 self._tok[row] = fetched[0][0][i]
                 self._note_token(row, fetched[0][0][i], fetched[1][0][i])
@@ -1343,6 +1378,8 @@ class ServeEngine:
                         prompt_len=len(req.prompt), prefix_hit=req.prefix_reused > 0,
                         prefix_reused=req.prefix_reused,
                         suffix_len=len(req.prompt) - req.prefix_reused,
+                        prefill_s=prefill_s,
+                        wave_wait_s=req.first_token_at - t_admit - prefill_s,
                     )
         self._phase_acc["admit"] += time.perf_counter() - t_phase
         return len(wave), hits
@@ -1476,77 +1513,80 @@ class ServeEngine:
         if self._profile_left > 0 and self._profiler is None:
             self._start_profile()
         t0 = time.perf_counter()
-        n = self._steps_per_call
-        self._device_steps += n
-        B = self.slots
-        stepped = [r is not None for r in self._row_req]
-        stage = self._stage.numpy()
-        stage[:B] = self._tok
-        stage[B:2 * B] = self._pos
-        stage[2 * B:3 * B] = stepped
-        stage[3 * B:4 * B] = [r.seed if r is not None else 0 for r in self._row_req]
-        paged = self._kv_layout == "paged"
-        if paged:
-            stage[4 * B:] = self._table.reshape(-1)
-        state = self._stage.to(self.device, non_blocking=True)
-        tok, pos = state[:B], state[B:2 * B]
-        live = state[2 * B:3 * B].bool()
-        seeds = state[3 * B:4 * B]
-        table = state[4 * B:].view(B, self._table_cols)
-        rows = self._rows
-        toks, lps = [], []
-        for _ in range(n):
-            if paged and rows is None:
-                logits, self._pool = paged_decode_step_rows(
-                    self.params, tok, self._pool, table, pos, self.config,
-                    backend=self.attn_backend,
-                )
-            elif paged:
-                logits, self._pool = _paged_step(self.params, tok, self._pool, table, pos,
-                                                 self.config, "gather", rows)
-            elif rows is None:
-                # A row that walks past the context in a fused call
-                # writes its own last slot (`decode_step_rows` clamps).
-                logits, self._cache = decode_step_rows(self.params, tok, self._cache, pos,
-                                                       self.config)
-            else:
-                logits, self._cache = _step_rows(self.params, tok, self._cache, pos,
-                                                 self.config, rows)
-            # The token fed at position pos lands in pos + 1.  On a mesh
-            # the logits are the rank's group's rows.
-            ahead = pos + 1
-            if rows is not None:
-                nxt = self._sample(logits, rows.group(seeds), rows.group(ahead))
-            else:
-                nxt = self._sample(logits, seeds, ahead)
-            lp = _chosen_logprob(logits, nxt) if self.with_logprobs else None
-            nxt, lp = self._global_picks(nxt, lp)
-            if self.with_logprobs:
-                lps.append(lp)
-            # Frozen rows keep their token and position, so their harmless
-            # writes stay on one stale slot of scratch block 0.
-            tok = torch.where(live, nxt, tok)
-            pos = torch.where(live, pos + 1, pos)
-            toks.append(tok)
+        with trace.range(_PHASE_RANGE["dispatch"]):
+            n = self._steps_per_call
+            self._device_steps += n
+            B = self.slots
+            stepped = [r is not None for r in self._row_req]
+            stage = self._stage.numpy()
+            stage[:B] = self._tok
+            stage[B:2 * B] = self._pos
+            stage[2 * B:3 * B] = stepped
+            stage[3 * B:4 * B] = [r.seed if r is not None else 0 for r in self._row_req]
+            paged = self._kv_layout == "paged"
+            if paged:
+                stage[4 * B:] = self._table.reshape(-1)
+            state = self._stage.to(self.device, non_blocking=True)
+            tok, pos = state[:B], state[B:2 * B]
+            live = state[2 * B:3 * B].bool()
+            seeds = state[3 * B:4 * B]
+            table = state[4 * B:].view(B, self._table_cols)
+            rows = self._rows
+            toks, lps = [], []
+            for _ in range(n):
+                if paged and rows is None:
+                    logits, self._pool = paged_decode_step_rows(
+                        self.params, tok, self._pool, table, pos, self.config,
+                        backend=self.attn_backend,
+                    )
+                elif paged:
+                    logits, self._pool = _paged_step(self.params, tok, self._pool, table, pos,
+                                                     self.config, "gather", rows)
+                elif rows is None:
+                    # A row that walks past the context in a fused call
+                    # writes its own last slot (`decode_step_rows` clamps).
+                    logits, self._cache = decode_step_rows(self.params, tok, self._cache, pos,
+                                                           self.config)
+                else:
+                    logits, self._cache = _step_rows(self.params, tok, self._cache, pos,
+                                                     self.config, rows)
+                # The token fed at position pos lands in pos + 1.  On a mesh
+                # the logits are the rank's group's rows.
+                ahead = pos + 1
+                if rows is not None:
+                    nxt = self._sample(logits, rows.group(seeds), rows.group(ahead))
+                else:
+                    nxt = self._sample(logits, seeds, ahead)
+                lp = _chosen_logprob(logits, nxt) if self.with_logprobs else None
+                nxt, lp = self._global_picks(nxt, lp)
+                if self.with_logprobs:
+                    lps.append(lp)
+                # Frozen rows keep their token and position, so their harmless
+                # writes stay on one stale slot of scratch block 0.
+                tok = torch.where(live, nxt, tok)
+                pos = torch.where(live, pos + 1, pos)
+                toks.append(tok)
         t1 = time.perf_counter()
         self._phase_acc["dispatch"] += t1 - t0
         # ONE blocking fetch per call: every step's tokens and logprobs,
         # and the final positions, together.
-        ints, floats = self._fetch(toks + [pos], lps)
+        with trace.range(_PHASE_RANGE["fetch"]):
+            ints, floats = self._fetch(toks + [pos], lps)
         t2 = time.perf_counter()
         self._phase_acc["fetch"] += t2 - t1
-        self._tok = ints[n - 1]
-        self._pos = ints[n]
-        for s in range(n):
-            for row in range(B):
-                if self._row_req[row] is None:
-                    if stepped[row]:
-                        # Stepped on after its request finished earlier in
-                        # this call: compute spent, token dropped.
-                        self._wasted_steps += 1
-                        SERVE_WASTED_STEPS.inc(engine=self.name)
-                    continue
-                self._note_token(row, ints[s][row], floats[s][row])
+        with trace.range(_PHASE_RANGE["host"]):
+            self._tok = ints[n - 1]
+            self._pos = ints[n]
+            for s in range(n):
+                for row in range(B):
+                    if self._row_req[row] is None:
+                        if stepped[row]:
+                            # Stepped on after its request finished earlier
+                            # in this call: compute spent, token dropped.
+                            self._wasted_steps += 1
+                            SERVE_WASTED_STEPS.inc(engine=self.name)
+                        continue
+                    self._note_token(row, ints[s][row], floats[s][row])
         self._phase_acc["host"] += time.perf_counter() - t2
         if self._profiler is not None:
             self._profile_left -= 1
@@ -1562,8 +1602,13 @@ class ServeEngine:
         in its admission wave).  Returns the requests completed during
         this tick.  The tick's wall time is split into busy and idle
         seconds by occupancy (`capacity_snapshot`); with telemetry on it
-        also appends one `servestats.StepRecord`."""
+        also appends one `servestats.StepRecord`.  Under a profiler the
+        tick is the ``engine.tick`` range."""
         self._check_open()
+        with trace.range(_TICK_RANGE):
+            return self._tick()
+
+    def _tick(self) -> "list[Request]":
         t0 = time.perf_counter()
         for p in self._phase_acc:
             self._phase_acc[p] = 0.0

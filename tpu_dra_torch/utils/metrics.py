@@ -473,6 +473,18 @@ TRACE_SPANS_DROPPED = REGISTRY.counter(
     "means a busy engine is quietly losing the tail of every trace "
     "before /debug/traces or the cluster collector reads it",
 )
+# The port's own family (the reference's trainer has none): the burn-in
+# trainer's step phases on the device's clock (parallel/burnin.py).
+TRAIN_PHASE_DEVICE_SECONDS = REGISTRY.histogram(
+    "tpu_dra_train_phase_device_seconds",
+    "Burn-in train step time by phase on the device's clock: forward "
+    "(the loss), backward (the gradients), update (clip and optimizer); "
+    "CUDA events read once done, never waited for (a step whose events "
+    "are still pending two steps later is dropped); the host clock on a "
+    "CPU device; a trainer's first step (kernel builds) is not observed",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0),
+)
 
 
 # -- the HTTP endpoint ---------------------------------------------------------

@@ -1,18 +1,21 @@
-"""Request tracing: W3C-traceparent identities, spans, and the process's
-ring of finished spans.
+"""Request tracing: W3C-traceparent identities, spans, the process's
+ring of finished spans, and profiler ranges.
 
 Counterpart of `tpu_dra.utils.trace`, without the claim-lifecycle
-annotation helpers and the JSON log formatter, which belong to the
-control plane:
+annotation helpers, the JSON log formatter and the ambient ``with
+span(...)`` machinery, which belong to the control plane:
 
 - `TraceContext`: a 32-hex trace id, a 16-hex span id and flags,
   serialized as ``00-<trace_id>-<span_id>-<flags>``;
-- `Span` (``with span(...)``) and `emit_span`, a span whose boundaries
-  were measured before (the serving engine's queue span runs from
-  ``submit`` to an admission many ticks later);
+- `emit_span`, a span whose boundaries were measured before (the
+  serving engine's queue span runs from ``submit`` to an admission many
+  ticks later);
 - `SpanExporter`, a bounded ring of finished span records, and the
   process's `EXPORTER`, which ``/debug/traces`` reads
-  (`metrics.MetricsServer`) as Chrome-trace JSON or a text tree.
+  (`metrics.MetricsServer`) as Chrome-trace JSON or a text tree;
+- `range`, a named range on `torch.profiler`'s clock while a profiler
+  collects (and nothing otherwise): the engine's and the trainer's
+  phases beside the kernels they launch.
 
 Every finished span moves ``tpu_dra_trace_spans_total`` and
 ``tpu_dra_span_seconds``, the reference's series.
@@ -20,12 +23,14 @@ Every finished span moves ``tpu_dra_trace_spans_total`` and
 
 from __future__ import annotations
 
-import contextvars
+import contextlib
 import os
 import re
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
+
+import torch
 
 TRACEPARENT_VERSION = "00"
 
@@ -90,15 +95,7 @@ def parse_traceparent(value: str) -> "TraceContext | None":
     return TraceContext(trace_id=trace_id, span_id=span_id, flags=flags)
 
 
-# Kept under the name the propagation call sites read naturally.
-extract = parse_traceparent
-
-
-# -- ambient propagation ------------------------------------------------------
-
-_CURRENT: "contextvars.ContextVar[Span | None]" = contextvars.ContextVar(
-    "tpu_dra_current_span", default=None
-)
+# -- components --------------------------------------------------------------
 
 # Which binary this process is ("controller", "plugin", ...); stamps spans so
 # the Chrome trace viewer groups them into per-component tracks even when a
@@ -112,21 +109,6 @@ def set_component(name: str) -> None:
     _COMPONENT = name
 
 
-def current_span() -> "Span | None":
-    return _CURRENT.get()
-
-
-def current_context() -> "TraceContext | None":
-    span = _CURRENT.get()
-    return span.context if span is not None else None
-
-
-def inject(context: "TraceContext | None" = None) -> str:
-    """The traceparent to hand to the next hop ("" when no trace is live)."""
-    ctx = context or current_context()
-    return ctx.to_traceparent() if ctx is not None else ""
-
-
 def unix_of(perf_t: float) -> float:
     """Map a ``perf_counter`` timestamp onto the wall clock for span
     records: timelines run on the monotonic clock, chrome-trace wants
@@ -138,123 +120,6 @@ def unix_of(perf_t: float) -> float:
 
 
 # -- spans --------------------------------------------------------------------
-
-
-@dataclass
-class SpanEvent:
-    name: str
-    offset_s: float  # seconds since span start
-    attributes: dict = field(default_factory=dict)
-
-
-class Span:
-    """One timed operation.  Use via ``with trace.span(...) as sp:``."""
-
-    def __init__(
-        self,
-        name: str,
-        *,
-        parent: "TraceContext | None" = None,
-        exporter: "SpanExporter | None" = None,
-        **attributes,
-    ):
-        self.name = name
-        self.attributes = {k: v for k, v in attributes.items() if v is not None}
-        ambient = _CURRENT.get()
-        if parent is not None:
-            self.context = parent.child()
-            self.parent_id = parent.span_id
-        elif ambient is not None:
-            self.context = ambient.context.child()
-            self.parent_id = ambient.context.span_id
-        else:
-            self.context = TraceContext.new()
-            self.parent_id = ""
-        self.component = _COMPONENT
-        self.status = "OK"
-        self.status_message = ""
-        self.events: "list[SpanEvent]" = []
-        self._exporter = exporter
-        self._start_unix = 0.0
-        self._start_perf = 0.0
-        self.duration_s = 0.0
-        self._token: "contextvars.Token | None" = None
-
-    # -- recording ----------------------------------------------------------
-
-    def set_attribute(self, key: str, value) -> None:
-        self.attributes[key] = value
-
-    def add_event(self, name: str, **attributes) -> None:
-        offset = time.perf_counter() - self._start_perf if self._start_perf else 0.0
-        self.events.append(SpanEvent(name, offset, dict(attributes)))
-
-    def set_status(self, status: str, message: str = "") -> None:
-        self.status = status
-        self.status_message = message
-
-    # -- context manager -----------------------------------------------------
-
-    def __enter__(self) -> "Span":
-        # Epoch anchor for chrome-trace export; the duration below is
-        # measured on perf_counter, never from this stamp.
-        self._start_unix = time.time()  # noqa: A201 — epoch anchor, not a duration
-        self._start_perf = time.perf_counter()
-        self._token = _CURRENT.set(self)
-        return self
-
-    def __exit__(self, exc_type, exc, tb) -> bool:
-        self.duration_s = time.perf_counter() - self._start_perf
-        if self._token is not None:
-            _CURRENT.reset(self._token)
-            self._token = None
-        if exc is not None:
-            self.status = "ERROR"
-            self.status_message = f"{type(exc).__name__}: {exc}"
-            self.events.append(
-                SpanEvent(
-                    "exception",
-                    self.duration_s,
-                    {"type": type(exc).__name__, "message": str(exc)},
-                )
-            )
-        (self._exporter or EXPORTER).export(self._record())
-        from tpu_dra_torch.utils.metrics import SPAN_SECONDS, TRACE_SPANS_TOTAL
-
-        TRACE_SPANS_TOTAL.inc(name=self.name, status=self.status)
-        SPAN_SECONDS.observe(self.duration_s, name=self.name)
-        return False  # never swallow
-
-    def _record(self) -> dict:
-        return {
-            "name": self.name,
-            "trace_id": self.context.trace_id,
-            "span_id": self.context.span_id,
-            "parent_id": self.parent_id,
-            "component": self.component,
-            "thread": threading.current_thread().name,
-            "start_unix_s": self._start_unix,
-            "duration_s": self.duration_s,
-            "status": self.status,
-            "status_message": self.status_message,
-            "attributes": dict(self.attributes),
-            "events": [
-                {"name": e.name, "offset_s": e.offset_s, "attributes": e.attributes}
-                for e in self.events
-            ],
-        }
-
-
-def span(
-    name: str,
-    *,
-    parent: "TraceContext | None" = None,
-    exporter: "SpanExporter | None" = None,
-    **attributes,
-) -> Span:
-    """A span context manager: parented to ``parent`` when given, else to
-    the ambient span, else a fresh trace root."""
-    return Span(name, parent=parent, exporter=exporter, **attributes)
 
 
 def emit_span(
@@ -284,14 +149,12 @@ def emit_span(
     it) while still nesting it under an outer span.  With only
     ``parent`` the span is a fresh child; with neither, a fresh trace
     root.  ``events`` attaches timestamped span events (dicts with
-    ``name``/``offset_s``/``attributes`` — the ``SpanEvent`` record
-    shape): a re-route decision inside a routing span is an event on
+    ``name``/``offset_s``/``attributes``): a re-route decision inside a routing span is an event on
     that span, never a fresh trace.  Returns the span's context so
     callers can parent further spans under it.
 
-    Same exit contract as ``Span.__exit__``: the record lands in the ring
-    exporter and moves the span counter/duration metrics, so retro spans
-    and ``with`` spans are indistinguishable to ``/debug/traces``."""
+    The record lands in the ring exporter and moves the span
+    counter/duration metrics."""
     if context is not None:
         ctx = context
         parent_id = parent.span_id if parent is not None else ""
@@ -319,6 +182,25 @@ def emit_span(
     TRACE_SPANS_TOTAL.inc(name=name, status=status)
     SPAN_SECONDS.observe(duration_s, name=name)
     return ctx
+
+
+# -- profiler ranges ------------------------------------------------------------
+
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled  # this thread's profiler is collecting
+
+
+def range(name: str):  # shadows the builtin in this module, which uses none
+    """A context manager that marks ``name`` on the profiler's clock:
+    `torch.profiler.record_function` while a `torch.profiler` collects
+    on this thread (the range lands in its trace as a ``user_annotation``
+    event, beside the kernels its work launched), else one shared
+    `contextlib.nullcontext`.  Off, the cost is one check and no
+    allocation; an ungated ``record_function`` costs tens of times more
+    even with no profiler running."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 # -- exporter -----------------------------------------------------------------
@@ -349,7 +231,7 @@ class SpanExporter:
                 del self._spans[:overflow]
                 self._dropped += overflow
         if overflow:
-            # Lazy import, matching Span.__exit__: the metrics module
+            # Lazy import, matching emit_span: the metrics module
             # must not couple to this one at load time.  The dedicated
             # spans-dropped counter is the trace plane's own loss signal
             # (RING_DROPPED is the shared cross-ring form): a busy
