@@ -1528,6 +1528,7 @@ def phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at):
         staging = None
         if mode == "alias":  # one allocator and one pool dict for both
             pre._balloc, pre._pool = dec._balloc, dec._pool
+            pre._capture_prefill()  # its prefill graphs, on the shared pool
         else:
             staging = swap_mod.HostBlockPool(4 * pre._table_cols)
         copies = []

@@ -276,6 +276,24 @@ def _rank_one_rank(rank, args):
     return out
 
 
+def _rank_one_rank_windows(rank, args):
+    """On a one-rank mesh (each rank its own), a paged engine drains a
+    stream: ``(graph windows, eager windows, windows run, captured)``.
+    A mesh engine runs its prefill op by op, on any device."""
+    fields, tree = args
+    mesh = tlogical([dist.get_rank()], data=1, fsdp=1, model=1)
+    cfg = tb.BurninConfig(**fields)
+    eng = ServeEngine(_shards(tree, cfg, mesh), cfg, **ENGINE, mesh=mesh)
+    stream = _mixed_stream(cfg.vocab, 4, seed=9)
+    for prompt, budget in stream:
+        eng.submit(prompt, budget)
+    eng.run()
+    stats = eng.prefix_stats
+    windows = len(stream) * (ENGINE["prompt_slots"] // eng.block_size)
+    return (stats["prefill_windows_graph"], stats["prefill_windows_eager"], windows,
+            eng._prefill_graphs is not None)
+
+
 def _rank_speculative(rank, args):
     fields, tree, prompt = args
     mesh = _mesh()
@@ -358,6 +376,8 @@ def ranks(inputs):
         ("engines", _rank_engines, (dataclasses.asdict(serve), serve_np)),
         ("one_rank", _rank_one_rank, (dataclasses.asdict(serve), serve_np,
                                       inputs["one_prompt"])),
+        ("one_rank_windows", _rank_one_rank_windows, (dataclasses.asdict(serve),
+                                                      serve_np["bf16"])),
         ("speculative", _rank_speculative, (dataclasses.asdict(serve), serve_np["bf16"],
                                             inputs["one_prompt"])),
         ("families", _rank_families, FAMILY_CASES),
@@ -603,6 +623,11 @@ class TestOneRank:
     def test_every_mesh_path_is_bitwise_the_one_device_path(self, ranks):
         got = ranks.get()[0]["one_rank"]
         assert got and all(got.values()), {k: v for k, v in got.items() if not v}
+
+    def test_mesh_engine_runs_its_prefill_eagerly(self, ranks):
+        for res in ranks.get():
+            graph, eager, windows, captured = res["one_rank_windows"]
+            assert (graph, eager, captured) == (0, windows, False) and windows > 0
 
 
 class TestSpeculative:

@@ -354,7 +354,9 @@ def rope_tables(positions, d_head: int, *, base: float = 10000.0):
         raise ValueError(f"rope needs an even d_head, got {d_head}")
     half = d_head // 2
     exps = -torch.arange(half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(base, dtype=torch.float32, device=positions.device), exps)
+    # The base filled on the device, not copied from the host: a CUDA
+    # graph (the paged prefill's) can capture a fill, not that copy.
+    freqs = torch.pow(torch.full((), base, dtype=torch.float32, device=positions.device), exps)
     ang = positions[..., None].float() * freqs
     return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
 

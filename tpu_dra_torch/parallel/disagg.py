@@ -207,6 +207,9 @@ class DisaggServer:
             # cache refs its blocks in the shared allocator too.
             self._prefill._balloc = self._decode._balloc
             self._prefill._pool = self._decode._pool
+            # The prefill tier's captured windows (one CUDA device) address
+            # the pool they were captured on: capture them on this one.
+            self._prefill._capture_prefill()
             if self._prefill._prefix is not None:
                 self._prefill._prefix._alloc = self._decode._balloc
             self._staging = None

@@ -64,6 +64,7 @@ from tpu_dra_torch.utils.metrics import SERVE_KV_BLOCK_AGE_SECONDS
 
 __all__ = [
     "BlockAllocator",
+    "PrefillGraphs",
     "block_pool_spec",
     "copy_block",
     "init_block_pool",
@@ -285,7 +286,8 @@ def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int, mes
     blocks (overwritten by decode before the mask reaches them) or into
     scratch.  On a ``mesh`` the prompt, lengths and table are global, the
     pool the rank's heads, ``last`` the rank's rows (a B=1 admission is
-    replicated over data x fsdp: every rank prefills it)."""
+    replicated over data x fsdp: every rank prefills it).  `PrefillGraphs`
+    replays the same windows as captured CUDA graphs."""
     c = config
     _check_prefix_window(c, prompt_slots, window)
     W = window
@@ -293,10 +295,7 @@ def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int, mes
     place = _place(mesh)
 
     def prefill(params, prompt, lens_c, pool, table, first_window=0):
-        if not 0 <= first_window < nwin:
-            raise ValueError(f"first_window must be in [0, {nwin}), got {first_window}")
-        dev = prompt.device
-        t_eff = table.shape[1] * W
+        _check_first_window(first_window, nwin)
         rows = _rows(place, prompt.shape[0])
         if rows is None:
             kv = _PagedKV(table, W)
@@ -304,31 +303,115 @@ def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int, mes
             kv = _MeshPagedKV(table, W, rows)
             lens_c = rows.group(lens_c)
         lens_c = lens_c.long()
-        n = lens_c.shape[0]
-        last = torch.zeros((n, c.vocab), device=dev)
+        last = torch.zeros((lens_c.shape[0], c.vocab), device=prompt.device)
         for i in range(first_window, nwin):
-            p0 = i * W
-            valid = (
-                torch.arange(t_eff, device=dev)[None, :]
-                <= p0 + torch.arange(W, device=dev)[:, None]
-            )  # (W, NW*W)
-            if rows is not None:
-                pos_emb = None if c.rope else params["pos"][None, p0:p0 + W, :]
-                x = _embed_mesh(params, prompt[:, p0:p0 + W], pos_emb, rows)
-                logits, pool = _run_blocks_mesh(params, x, pool, p0, valid[None, None], c,
-                                                rows, kv_io=kv)
-            else:
-                x = _embed_lookup(params["embed"], prompt[:, p0:p0 + W])
-                if not c.rope:
-                    x = x + params["pos"][None, p0:p0 + W, :]
-                logits, pool = _run_blocks(params, x, pool, p0, valid[None, None], c, kv_io=kv)
-            off = lens_c - 1 - p0  # last real position, window-relative
-            cand = logits[torch.arange(n, device=dev), off.clamp(0, W - 1)]
-            hit = (off >= 0) & (off < W)
-            last = torch.where(hit[:, None], cand, last)
+            last, pool = _prefill_window(params, prompt, lens_c, pool, kv, last, i * W, c, rows)
         return (last if rows is None else rows.own_of_group(last)), pool
 
     return prefill
+
+
+def _check_first_window(first_window: int, nwin: int) -> None:
+    if not 0 <= first_window < nwin:
+        raise ValueError(f"first_window must be in [0, {nwin}), got {first_window}")
+
+
+def _prefill_window(params, prompt, lens_c, pool, kv: _PagedKV, last, p0: int,
+                    c: BurninConfig, rows: "_Rows | None" = None):
+    """The prefill's window at ``p0`` (on the W grid): its tokens' KV
+    into block column ``p0 // W`` of ``kv``'s table, attending over the
+    table's reach; ``last`` takes the logits of each row whose last real
+    position ``lens_c - 1`` falls in the window.  Returns ``(last,
+    pool)``."""
+    W, dev = kv.W, prompt.device
+    t_eff = kv.table.shape[1] * W
+    valid = (
+        torch.arange(t_eff, device=dev)[None, :]
+        <= p0 + torch.arange(W, device=dev)[:, None]
+    )  # (W, NW*W)
+    if rows is not None:
+        pos_emb = None if c.rope else params["pos"][None, p0:p0 + W, :]
+        x = _embed_mesh(params, prompt[:, p0:p0 + W], pos_emb, rows)
+        logits, pool = _run_blocks_mesh(params, x, pool, p0, valid[None, None], c, rows,
+                                        kv_io=kv)
+    else:
+        x = _embed_lookup(params["embed"], prompt[:, p0:p0 + W])
+        if not c.rope:
+            x = x + params["pos"][None, p0:p0 + W, :]
+        logits, pool = _run_blocks(params, x, pool, p0, valid[None, None], c, kv_io=kv)
+    n = lens_c.shape[0]
+    off = lens_c.long() - 1 - p0  # last real position, window-relative
+    cand = logits[torch.arange(n, device=dev), off.clamp(0, W - 1)]
+    hit = (off >= 0) & (off < W)
+    return torch.where(hit[:, None], cand, last), pool
+
+
+class PrefillGraphs:
+    """`make_paged_prefill`'s B=1 admission prefill on one CUDA device,
+    each window captured once as a CUDA graph and replayed: the same
+    kernels in the same order on the caller's stream as the eager
+    windows, over static device inputs, so one launch runs a window's
+    gathers, products and writes of every layer.
+
+    The inputs live in one device buffer, ``staged``: the padded prompt
+    ``(prompt_slots,)``, the table row ``(table_cols,)`` and the length,
+    the layout of the engine's staging row; the caller copies a row into
+    it before `__call__`.  ``last`` (1, vocab) is static too: every
+    window graph updates it in place, and `__call__` hands back a copy,
+    since the next admission's replay rewrites it before a wave reads
+    its logits.  The graphs address ``params`` and ``pool`` as they are
+    at capture: a caller that rebinds its pool captures again.
+
+    Capture runs on the constructing thread (``thread_local`` error
+    mode, so other threads' CUDA work does not void it) on a side
+    stream, after one warm-up pass of every window there, with the table
+    on scratch block 0 and the prompt and length zero: the pool's real
+    blocks take no write.  The windows share one private memory pool;
+    replays run in window order on one stream, so their intermediates
+    never overlap in time."""
+
+    def __init__(self, config: BurninConfig, prompt_slots: int, window: int,
+                 table_cols: int, params, pool):
+        c = config
+        _check_prefix_window(c, prompt_slots, window)
+        W, P = window, prompt_slots
+        self.nwin = P // W
+        dev = _values(pool["k"]).device
+        self.staged = torch.zeros(P + table_cols + 1, dtype=torch.int32, device=dev)
+        self.last = torch.zeros((1, c.vocab), device=dev)
+        prompt, lens = self.staged[None, :P], self.staged[-1:]
+        kv = _PagedKV(self.staged[None, P:P + table_cols], W)
+
+        def run(i: int) -> None:
+            last, _ = _prefill_window(params, prompt, lens, pool, kv, self.last, i * W, c)
+            self.last.copy_(last)
+
+        with torch.cuda.device(dev):
+            caller, stream = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                for i in range(self.nwin):
+                    run(i)
+            mempool = torch.cuda.graph_pool_handle()
+            self._graphs = []
+            for i in range(self.nwin):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=mempool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    run(i)
+                self._graphs.append(graph)
+            # The warm-up's writes (scratch, ``last``) before the caller's
+            # next work.
+            caller.wait_stream(stream)
+
+    def __call__(self, first_window: int = 0) -> torch.Tensor:
+        """Replay windows ``[first_window, nwin)`` over ``staged``;
+        returns a copy of ``last``."""
+        _check_first_window(first_window, self.nwin)
+        self.last.zero_()
+        for graph in self._graphs[first_window:]:
+            graph.replay()
+        return self.last.clone()
 
 
 def _tree_map(fn, *trees):

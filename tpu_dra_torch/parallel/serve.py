@@ -181,6 +181,7 @@ from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.paged import (
     MESH_KERNEL_REFUSAL,
     BlockAllocator,
+    PrefillGraphs,
     _paged_step,
     _tree_map,
     copy_block,
@@ -205,6 +206,7 @@ from tpu_dra_torch.utils.metrics import (
     SERVE_KV_FREE_RUN_BLOCKS,
     SERVE_KV_SWAPS,
     SERVE_PREFILL_TOKENS,
+    SERVE_PREFILL_WINDOWS,
     SERVE_QUEUE_DEPTH,
     SERVE_QUEUE_WAIT_SECONDS,
     SERVE_SLO_TOTAL,
@@ -409,7 +411,11 @@ class ServeEngine:
     ``"cuda"``; raises when CUDA is absent).  ``params`` must be on it,
     plain or int8 (`quant.quantize_params`); the engine serves from a
     copy whose plain layer matrices are bf16, int8 pairs as they are
-    (bf16 matrices are shared with ``params``, not copied).
+    (bf16 matrices are shared with ``params``, not copied).  A paged
+    engine on one CUDA device captures its admission prefill's windows
+    as CUDA graphs here (`paged.PrefillGraphs`) and replays them (a
+    decode tier, which never prefills, captures none); on the CPU and on
+    a mesh the prefill is launched op by op.
 
     ``mesh``: serve on a `DeviceMesh` of ranks (module docstring): every
     rank builds its engine with its shards of the params
@@ -598,6 +604,11 @@ class ServeEngine:
         self._sampled = temperature > 0
         self._pick = _make_pick(self._sampled, temperature, top_k, top_p)
         self._prefill_tokens = {"computed": 0, "reused": 0}
+        # Paged prefill windows run, by path (`_prefill_into`), and the
+        # captured windows that the graph path replays (`_capture_prefill`;
+        # None where the prefill runs op by op).
+        self._prefill_windows = {"graph": 0, "eager": 0}
+        self._prefill_graphs: "PrefillGraphs | None" = None
         # Swapped-out and handed-in requests (paged only; empty on rows).
         self._swap_state: "dict[int, dict]" = {}
         self._handoff_state: "dict[int, dict]" = {}
@@ -698,6 +709,7 @@ class ServeEngine:
                         BlockAllocator(nb, clock=lambda: float(self._device_steps)))
         self._pool = init_block_pool(c, nb, w, self.kv_int8, device=self.device, mesh=self.mesh)
         self._prefill = make_paged_prefill(c, self.prompt_slots, w, mesh=self.mesh)
+        self._capture_prefill()
         self._prefix = (
             PagedPrefixCache(prefix_cache_slots, self._balloc, block_size=w)
             if prefix_cache_slots else None
@@ -1201,11 +1213,12 @@ class ServeEngine:
         req.kv_blocks = total_cols
         return last, pins
 
-    def _upload(self, stage: torch.Tensor, prompt: "list[int]", table_row=None):
+    def _upload(self, stage: torch.Tensor, prompt: "list[int]", table_row=None, out=None):
         """ONE upload of ``stage`` (a staging row: the padded prompt, the
-        table row on paged, the length) without a host sync.  Returns
-        the device's ``(prompt (1, prompt_slots), lens (1,), table (1,
-        cols))``."""
+        table row on paged, the length) without a host sync, into a new
+        device tensor or into ``out`` (a device buffer of its layout).
+        Returns the device's ``(prompt (1, prompt_slots), lens (1,),
+        table (1, cols))``."""
         P = self.prompt_slots
         host = stage.numpy()
         host[:] = 0
@@ -1213,17 +1226,45 @@ class ServeEngine:
         if table_row is not None:
             host[P:P + self._table_cols] = table_row
         host[-1] = len(prompt)
-        staged = stage.to(self.device, non_blocking=True)
+        if out is None:
+            staged = stage.to(self.device, non_blocking=True)
+        else:
+            staged = out.copy_(stage, non_blocking=True)
         return staged[None, :P], staged[-1:], staged[None, P:P + self._table_cols]
+
+    def _capture_prefill(self) -> None:
+        """Capture the admission prefill's windows on the engine's pool
+        as it is now, on the calling thread, before the engine serves: a
+        paged engine on one CUDA device that prefills (a decode tier never
+        does).  Code that rebinds the engine's pool calls it again, as a
+        `DisaggServer` does once it has shared an alias prefill tier's
+        pool with the decode tier: the graphs address the pool they were
+        captured on."""
+        self._prefill_graphs = None  # the old graphs' memory first
+        if self.mesh is None and self.device.type == "cuda" and self.tier != "decode":
+            self._prefill_graphs = PrefillGraphs(self.config, self.prompt_slots,
+                                                 self.block_size, self._table_cols,
+                                                 self.params, self._pool)
 
     def _prefill_into(self, stage: torch.Tensor, prompt: "list[int]", table_row,
                       first_window: int) -> torch.Tensor:
         """Prefill ``prompt`` into the blocks ``table_row`` names, from
-        window ``first_window`` on, through ONE upload of ``stage``.
-        Returns the logits at the prompt's last position, on the device."""
-        tokens, lens, table = self._upload(stage, prompt, table_row)
-        last, self._pool = self._prefill(self.params, tokens, lens, self._pool, table,
-                                         first_window=first_window)
+        window ``first_window`` on, through ONE upload of ``stage``:
+        replayed from the captured windows where the engine has them,
+        launched op by op elsewhere.  Returns the logits at the prompt's
+        last position, on the device."""
+        graphs = self._prefill_graphs
+        if graphs is not None:
+            self._upload(stage, prompt, table_row, out=graphs.staged)
+            last, path = graphs(first_window), "graph"
+        else:
+            tokens, lens, table = self._upload(stage, prompt, table_row)
+            last, self._pool = self._prefill(self.params, tokens, lens, self._pool, table,
+                                             first_window=first_window)
+            path = "eager"
+        windows = self.prompt_slots // self.block_size - first_window
+        self._prefill_windows[path] += windows
+        SERVE_PREFILL_WINDOWS.inc(windows, path=path)
         return last
 
     def _prefill_row(self, stage: torch.Tensor, prompt: "list[int]"):
@@ -1985,8 +2026,11 @@ class ServeEngine:
     def prefix_stats(self) -> "dict[str, int]":
         """The prefix cache's counters (hits, misses, evictions,
         resident, pool_slots, epoch, trimmed_blocks; zeros without a
-        cache) and the admission prefill split: tokens computed, and
-        tokens reused (aliased instead of prefilled)."""
+        cache), the admission prefill split: tokens computed, and
+        tokens reused (aliased instead of prefilled), and the paged
+        prefill's windows by path: replayed from captured CUDA graphs
+        (``prefill_windows_graph``) or launched op by op
+        (``prefill_windows_eager``; zeros on rows)."""
         stats = (
             self._prefix.stats()
             if self._prefix is not None
@@ -1995,6 +2039,8 @@ class ServeEngine:
         )
         stats["prefill_tokens_computed"] = self._prefill_tokens["computed"]
         stats["prefill_tokens_reused"] = self._prefill_tokens["reused"]
+        stats["prefill_windows_graph"] = self._prefill_windows["graph"]
+        stats["prefill_windows_eager"] = self._prefill_windows["eager"]
         return stats
 
     def close(self) -> None:
@@ -2018,6 +2064,7 @@ class ServeEngine:
         obscap.unregister(self.name)
         if self._kv_layout == "paged":
             self._pool = None
+            self._prefill_graphs = None
         else:
             self._cache = None
             if self._prefix is not None:

@@ -281,6 +281,15 @@ SERVE_PREFILL_TOKENS = REGISTRY.counter(
     "Prompt tokens at admission by kind: computed (ran through prefill) "
     "vs reused (copied from a resident prefix segment)",
 )
+SERVE_PREFILL_WINDOWS = REGISTRY.counter(
+    "tpu_dra_serve_prefill_windows_total",
+    "Paged admission prefill windows by path: graph (replayed as captured "
+    "CUDA graphs, one CUDA device) vs eager (launched op by op: CPU and mesh "
+    "engines)",
+)
+# Both series from the start, so a graph share reads 0, not absent.
+for _path in ("graph", "eager"):
+    SERVE_PREFILL_WINDOWS.inc(0, path=_path)
 SERVE_TTFT_SECONDS = REGISTRY.histogram(
     "tpu_dra_serve_ttft_seconds",
     "Serve-engine time to first token per request (submit to first "
