@@ -192,11 +192,18 @@ Phases, each asserted; any failure exits non-zero and prints no result:
     both bitwise the uninterrupted run's, the fall-back past a torn shard
     beside a ``.tmp`` orphan); then ``validate --family pipelined --train
     2`` (one card: the reference's `pipeline_mesh` refusal, exit 1);
-15. the kernels' JSON line (K1's rows also list each path's launches, K2's
+15. Moonlight-16B-A3B at its published widths: K3 (the paged latent
+    attention decode kernel) against its plain version at the engine's
+    shapes (128 rows, contexts to 2,816), timed beside its bound; then
+    the whole model through the paged engine, a few requests served
+    through K3 (27 launches a decode step) with every prefill window
+    replayed from its graph, a decode tick at 128 rows timed, and the
+    served tokens against the plain reference (`tests/ref_mla_moe.py`);
+16. the kernels' JSON line (K1's rows also list each path's launches, K2's
     the trainer's, the sharded trainer's, the Ulysses trainer's, the
     stream-fed and the checkpointed paths', the pipelined and the mesh
     payload's, and its times on the swapped view; K2's sharded form a row
-    of its own), the card's line, and the result line.
+    of its own; K3's row), the card's line, and the result line.
 
 ``python3 chip_smoke.py --cards N`` (N a multiple of 4, N cards) runs the
 flash and long_context_a2a families sharded over N ranks against one
@@ -4571,6 +4578,116 @@ def phase_burnin(torch, burnin, mfu, fa, data, ckpt, prng, validate, train_p50: 
     return {"train_on_stream": stream_launches, "train_with_resume": ckpt_launches}
 
 
+# K3 against its plain version: the same bf16 values, the online softmax
+# rescaled every 64 positions in the kernel and every 128 in the plain
+# version, so the probabilities round to bf16 at other points; 2**-7 of
+# the output's scale (measured about 2**-9.6 at the engine's shapes).
+K3_TOL = 2 ** -7
+# The engine's served tokens against the plain reference at full width,
+# mean gap a token: sound runs read under 1e-3 in the benchmark; a wrong
+# latent read or routing reads gaps of the logits' scale (about 1).
+MOONLIGHT_GAP_MEAN = 1e-2
+
+
+def phase_moonlight(torch, serve_mod, mla_moe, k3):
+    """Moonlight-16B-A3B at its published widths on one card: K3 at the
+    engine's shapes against its plain version and timed beside its bound;
+    then the whole model through the paged engine (128 slots, 768 prompt
+    slots, 2048 new tokens, W 128): a few requests served through K3,
+    its launches counted (one a layer a decode step), every prefill
+    window replayed from its captured graph, the served tokens' logits
+    against the plain reference's (`tests/ref_mla_moe.py`), and a
+    decode step timed at 128 rows.  Returns K3's kernel row."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import ref_mla_moe as ref
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    B, NB, NW = 128, 2817, 22
+    pool = torch.randn(NB, 128, 576, device="cuda", generator=g).to(torch.bfloat16)
+    q = torch.randn(B, 16, 576, device="cuda", generator=g).to(torch.bfloat16)
+    table = torch.randint(1, NB, (B, NW), device="cuda", generator=g, dtype=torch.int32)
+    pos = torch.randint(0, NW * 128, (B,), device="cuda", generator=g, dtype=torch.int32)
+    args = (q, pool, table, pos)
+    kw = dict(v_dim=512, scale=192 ** -0.5)
+    want = k3.mla_decode_plain(*args, **kw)
+    got = k3.mla_decode(*args, **kw)
+    err = (got - want).abs().max().item()
+    assert err < K3_TOL * want.abs().max().item(), f"K3 vs plain: {err}"
+    assert torch.equal(got, k3.mla_decode(*args, **kw)), "K3 is not repeatable"
+    scrub = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    kernel_ms = time_ms(lambda: k3.mla_decode(*args, **kw), scrub.zero_)
+    plain_ms = time_ms(lambda: k3.mla_decode_plain(*args, **kw), scrub.zero_, n=10, warmup=2)
+    nbytes = (pos.long() + 1).sum().item() * 1152 + B * 16 * (576 * 2 + 512 * 4)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    log(f"K3 at 128 rows, contexts 1-2816 (mean {pos.float().mean().item() + 1:.0f}): kernel "
+        f"{kernel_ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound_ms:.6f} ms (bytes), "
+        f"max abs err {err:.3e}, {k3.split_count(B, NW)} programs a row")
+    del pool, q, table, pos, want, got, args, scrub
+
+    cfg = mla_moe.MlaMoeConfig()
+    params = mla_moe.init_params(cfg, 2026, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    eng = serve_mod.ServeEngine(params, cfg, slots=128, prompt_slots=768, max_new_cap=2048,
+                                prefix_window=128, device="cuda", record_routes=True)
+    log(f"Moonlight engine built (weights {mla_moe.param_count(cfg)} parameters, prefill "
+        f"windows captured) in {time.perf_counter() - t:.3f} s")
+    rng = torch.Generator().manual_seed(21)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in (1, 127, 128, 129, 384, 768)]
+    k3.mla_decode.launches = 0  # count only the served requests' launches
+    ids = [eng.submit(p, 16) for p in prompts]
+    eng.run()
+    launches = k3.mla_decode.launches
+    assert launches == 27 * eng.device_steps, (launches, eng.device_steps)
+    stats = eng.prefix_stats
+    assert stats["prefill_windows_eager"] == 0 and stats["prefill_windows_graph"] == 6 * 6
+    for _ in range(128):
+        eng.submit(torch.randint(0, cfg.vocab_size, (384,), generator=rng).tolist(), 24)
+    eng.tick()
+    walls = []
+    for _ in range(12):
+        t = time.perf_counter()
+        eng.tick()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    eng.run()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"Moonlight decode tick at {eng.occupancy or 128} rows: median "
+        f"{statistics.median(walls) * 1e3:.1f} ms; K3 launches {launches} = 27 x "
+        f"{launches // 27} steps; prefill windows {stats['prefill_windows_graph']} replayed, 0 "
+        f"eager; memory peak {peak} B ({peak / 80e9:.1%} of 80 GB)")
+    done = [eng.request(i) for i in ids]
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    gaps = []
+    with torch.no_grad(), ref.strict_fp32():
+        for r in done:
+            logits = ref.forward(params, torch.tensor(r.prompt + r.tokens[:-1], device="cuda"),
+                                 dataclasses.asdict(cfg), routes=r.routes)[len(r.prompt) - 1:]
+            served = torch.tensor(r.tokens, device="cuda")[:, None]
+            gaps.append(logits.max(-1).values - logits.gather(-1, served)[:, 0])
+    gap = torch.cat(gaps)
+    log(f"Moonlight served tokens against the reference: mean gap {gap.mean().item():.3e}, "
+        f"widest {gap.max().item():.3e} over {gap.numel()} tokens")
+    assert gap.mean().item() < MOONLIGHT_GAP_MEAN
+    return {
+        "name": "mla_decode",
+        "route": "triton",
+        "source": "tpu_dra_torch/parallel/kernels/mla_decode.py",
+        "replaces": None,  # no TPU kernel: the JAX package has no latent attention
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
 def main_cards(torch, cards: int) -> int:
     """``python3 chip_smoke.py --cards N``: `phase_cards`, the cards'
     serving, pipeline and fleet phases, then their JSON line, the card line
@@ -4651,8 +4768,10 @@ def main() -> int:
             burnin, ckpt, data, decode, disagg, flash, mfu, moe, paged, prng, quant, ring,
             serve, speculative, spmd, swap, validate, weights,
         )
+        from tpu_dra_torch.models import mla_moe
         from tpu_dra_torch.parallel.kernels import _build
         from tpu_dra_torch.parallel.kernels import flash_attn as fa
+        from tpu_dra_torch.parallel.kernels import mla_decode as k3
         from tpu_dra_torch.parallel.kernels import paged_attn as pa
         from tpu_dra_torch.utils import metrics
     except ImportError as e:
@@ -4782,13 +4901,18 @@ def main() -> int:
         int8_row["launches_by_path"].update(pipe["k1"])
         log(f"phase pipeline and mesh payload: {time.perf_counter() - t:.3f} s; K1 launches "
             f"{pipe['k1']}, K2 launches {pipe['k2']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        k3_row = phase_moonlight(torch, serve, mla_moe, k3)
+        log(f"phase Moonlight: {time.perf_counter() - t:.3f} s; K3 launches {k3_row['launches']}")
         log(f"all phases: {time.perf_counter() - started:.3f} s")
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
-    print(json.dumps({"kernels": [paged_row, flash_row, sharded_row, int8_row]}))
+    print(json.dumps({"kernels": [paged_row, flash_row, sharded_row, int8_row, k3_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -27,6 +27,7 @@ from test_serve import isolated
 from test_torch_prefix import assert_same_tokens, dense, settled  # noqa: F401
 from tpu_dra.parallel.disagg import DisaggServer as JaxServer
 from tpu_dra.parallel.serve import ServeEngine as JaxEngine
+from tpu_dra_torch.parallel import paged as tpaged
 from tpu_dra_torch.parallel import serve as tserve
 from tpu_dra_torch.parallel.disagg import DisaggServer
 
@@ -170,14 +171,14 @@ class TestSharing:
         _, tcfg, _, tparams = dense
         prefill, decode = _specs()
         made = []
-        real = tserve.init_block_pool
+        real = tpaged.init_block_pool
 
         def tracked(*a, **kw):
             pool = real(*a, **kw)
             made.append(weakref.ref(pool["k"]))
             return pool
 
-        monkeypatch.setattr(tserve, "init_block_pool", tracked)
+        monkeypatch.setattr(tpaged, "init_block_pool", tracked)
         srv = DisaggServer(tparams, tcfg, prefill=dict(prefill, device="cpu"),
                            decode=dict(decode, device="cpu"), handoff="alias")
         pre, dec = srv.tiers["prefill"], srv.tiers["decode"]

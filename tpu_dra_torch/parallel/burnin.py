@@ -147,6 +147,12 @@ class BurninConfig:
             raise ValueError(f"d_model {self.d_model} not divisible by n_heads {self.n_heads}")
         return self.d_model // self.n_heads
 
+    def paged_model(self, *, slots: int, positions: int, record_routes: bool = False):
+        """The serving engine's seam to this model (`paged.PagedLM`)."""
+        from tpu_dra_torch.parallel.paged import PagedLM
+
+        return PagedLM(self, record_routes=record_routes)
+
     @property
     def context_parallel(self) -> bool:
         """Either cp flavor: the sequence stays sharded through the whole

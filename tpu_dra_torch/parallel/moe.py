@@ -29,6 +29,12 @@ queues run over a group, not the whole sequence.  On a mesh
 sequence is gathered: a rank routes its own block, dispatches to its
 own experts on ``expert``, and the combine's partial sums are summed
 over ``expert``.  `routing_temp_comparison` measures what that saves.
+
+DeepSeek-V3's expert layer (`topk_moe_mlp`, the port's own: the JAX
+package has none) sits beside the switch layer and shares nothing with
+it: dropless top-k routing on sigmoid scores with a selection-only bias
+(`route_topk`), SwiGLU experts run as one grouped product a projection
+over the tokens sorted by expert, and a shared expert.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from tpu_dra_torch.parallel.mesh import logical_mesh
 
 __all__ = [
     "expert_capacity", "moe_mesh", "moe_mlp", "moe_mlp_local", "moe_mlp_local_sharded",
-    "moe_mlp_sharded", "moe_param_specs", "routing_temp_comparison",
+    "moe_mlp_sharded", "moe_param_specs", "route_topk", "routing_temp_comparison", "swiglu",
+    "topk_moe_mlp",
 ]
 
 
@@ -356,3 +363,87 @@ def _routing_peaks(place: "spmd.Place", peak, *, seq: int, d_model: int, d_ff: i
         return moe_mlp_local_sharded(l_layer, h, c, place, l_specs)[0]
 
     return peak(global_form, place.device), peak(local_form, place.device)
+
+
+# -- dropless top-k experts (DeepSeek-V3's expert layer) ----------------------
+
+
+def swiglu(h, w_gate, w_up, w_down):
+    """A SwiGLU MLP of ``h`` (T, d) bf16 through ``(d, f)``, ``(d, f)``
+    and ``(f, d)`` bf16 matrices: each product accumulates in f32 and
+    stores bf16; ``silu(gate) * up`` is taken in f32 and rounded to bf16
+    before the down product.  Returns (T, d) bf16."""
+    g = h @ w_gate
+    u = h @ w_up
+    a = (torch.nn.functional.silu(g.float()) * u.float()).to(torch.bfloat16)
+    return a @ w_down
+
+
+def route_topk(layer, h32, k: int, scale: float):
+    """DeepSeek-V3's router (``scoring_func`` sigmoid, ``topk_method``
+    noaux_tc with one group): ``scores = sigmoid(h32 @ router)`` in f32,
+    the ``k`` experts of the largest ``scores + bias`` (the bias picks,
+    it never weighs), and their weights, the unbiased scores normalised
+    over the ``k`` and times ``scale``.  ``h32`` (T, d) f32.  Returns
+    ``(topi (T, k) int64, weights (T, k) f32)``."""
+    scores = torch.sigmoid(h32 @ layer["router"])
+    topi = torch.topk(scores + layer["bias"], k, dim=-1).indices
+    w = scores.gather(-1, topi)
+    return topi, w / w.sum(-1, keepdim=True) * scale
+
+
+def _expert_products(xs, offs, counts, we_gate, we_up, we_down):
+    """SwiGLU of each expert over its run of ``xs`` (rows sorted by
+    expert; ``offs`` the runs' ends, int32): on a CUDA card one grouped
+    GEMM a projection (`torch._grouped_mm`, the expert matrices stored
+    (E, out, in) and read transposed), on the CPU a loop over the
+    experts with rows.  The rounding is `swiglu`'s."""
+    if xs.is_cuda:
+        g = torch._grouped_mm(xs, we_gate.transpose(-2, -1), offs=offs)
+        u = torch._grouped_mm(xs, we_up.transpose(-2, -1), offs=offs)
+        a = (torch.nn.functional.silu(g.float()) * u.float()).to(torch.bfloat16)
+        return torch._grouped_mm(a, we_down.transpose(-2, -1), offs=offs)
+    out = torch.empty_like(xs)
+    lo = 0
+    for e, n in enumerate(counts.tolist()):
+        if n:
+            out[lo:lo + n] = swiglu(xs[lo:lo + n], we_gate[e].T, we_up[e].T, we_down[e].T)
+        lo += n
+    return out
+
+
+def topk_moe_mlp(layer, h32, *, k: int, scale: float):
+    """DeepSeek-V3's expert layer over ``h32`` (T, d) f32 post-norm
+    hidden states, dropless: every token's ``k`` routed experts (`route_topk`;
+    ``router`` (d, E) and ``bias`` (E,) f32) and the shared expert, all
+    SwiGLU.  ``layer`` holds the routed experts ``we_gate``/``we_up`` (E,
+    f, d) and ``we_down`` (E, d, f), and the shared expert's ``ws_gate``,
+    ``ws_up`` (d, fs) and ``ws_down`` (fs, d), bf16.  The token-expert
+    assignments are sorted by expert and run as grouped products; the
+    routed outputs are weighed in f32 and summed into each token's row,
+    and the shared output added.  Nothing syncs with the host on a card,
+    so a CUDA graph captures the layer.
+
+    Returns ``(out (T, d) f32, topi (T, k), counts (E,) int64)``: the
+    layer's output, each token's chosen experts, and the assignments
+    each expert took.  Under a profiler the parts are ranges:
+    ``moe.route``, ``moe.experts`` (the sort and the grouped products),
+    ``moe.shared`` and ``moe.combine``."""
+    E = layer["router"].shape[1]
+    h = h32.to(torch.bfloat16)
+    with trace.range("moe.route"):
+        topi, w = route_topk(layer, h32, k, scale)
+    with trace.range("moe.experts"):
+        flat = topi.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.zeros(E, dtype=torch.int64, device=h.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+        offs = torch.cumsum(counts, 0).to(torch.int32)
+        rows = order // k
+        y = _expert_products(h[rows], offs, counts, layer["we_gate"], layer["we_up"],
+                             layer["we_down"])
+    with trace.range("moe.shared"):
+        shared = swiglu(h, layer["ws_gate"], layer["ws_up"], layer["ws_down"])
+    with trace.range("moe.combine"):
+        out = shared.float().index_add_(0, rows, y.float() * w.reshape(-1)[order, None])
+    return out, topi, counts

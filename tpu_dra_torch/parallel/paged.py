@@ -45,6 +45,7 @@ import torch
 from tpu_dra_torch.parallel import spmd
 from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
+    _check_chunk,
     _check_prefix_window,
     _embed_lookup,
     _embed_mesh,
@@ -60,10 +61,12 @@ from tpu_dra_torch.parallel.decode import (
 )
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.quant import dequantize_bf16, is_quantized_leaf
+from tpu_dra_torch.parallel.weights import cast_matrices
 from tpu_dra_torch.utils.metrics import SERVE_KV_BLOCK_AGE_SECONDS
 
 __all__ = [
     "BlockAllocator",
+    "PagedLM",
     "PrefillGraphs",
     "block_pool_spec",
     "copy_block",
@@ -351,7 +354,9 @@ class PrefillGraphs:
     each window captured once as a CUDA graph and replayed: the same
     kernels in the same order on the caller's stream as the eager
     windows, over static device inputs, so one launch runs a window's
-    gathers, products and writes of every layer.
+    gathers, products and writes of every layer.  ``window_fn(prompt,
+    lens, table, last, p0) -> last`` runs another model's window in
+    place of the burn-in LM's (``device`` then names the card).
 
     The inputs live in one device buffer, ``staged``: the padded prompt
     ``(prompt_slots,)``, the table row ``(table_cols,)`` and the length,
@@ -371,20 +376,25 @@ class PrefillGraphs:
     never overlap in time."""
 
     def __init__(self, config: BurninConfig, prompt_slots: int, window: int,
-                 table_cols: int, params, pool):
+                 table_cols: int, params, pool, *, window_fn=None, device=None):
         c = config
-        _check_prefix_window(c, prompt_slots, window)
         W, P = window, prompt_slots
+        if window_fn is None:
+            _check_prefix_window(c, P, W)
         self.nwin = P // W
-        dev = _values(pool["k"]).device
+        dev = _values(pool["k"]).device if device is None else device
         self.staged = torch.zeros(P + table_cols + 1, dtype=torch.int32, device=dev)
         self.last = torch.zeros((1, c.vocab), device=dev)
         prompt, lens = self.staged[None, :P], self.staged[-1:]
-        kv = _PagedKV(self.staged[None, P:P + table_cols], W)
+        table = self.staged[None, P:P + table_cols]
+        if window_fn is None:
+            kv = _PagedKV(table, W)
+
+            def window_fn(prompt, lens, table, last, p0):
+                return _prefill_window(params, prompt, lens, pool, kv, last, p0, c)[0]
 
         def run(i: int) -> None:
-            last, _ = _prefill_window(params, prompt, lens, pool, kv, self.last, i * W, c)
-            self.last.copy_(last)
+            self.last.copy_(window_fn(prompt, lens, table, self.last, i * W))
 
         with torch.cuda.device(dev):
             caller, stream = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
@@ -613,3 +623,70 @@ class BlockAllocator:
             "blocks_allocated": self.allocated_count,
             "blocks_aliased": self.aliased_count,
         }
+
+
+class PagedLM:
+    """The burn-in LM's side of `serve.ServeEngine`'s model seam
+    (`BurninConfig.paged_model`): the engine asks its model for the
+    served tree, the pool, the eager prefill, the captured prefill
+    windows and the decode step through these methods, has it check the
+    engine's options, and tells it of admissions and finished requests.
+    Here each is this module's own function; `models.mla_moe.PagedMlaMoe`
+    is the latent-attention model's."""
+
+    tally = None  # no expert tally: the switch layer serves on rows
+    swap_tier = True
+
+    def __init__(self, config: BurninConfig, *, record_routes: bool = False):
+        if record_routes:
+            raise ValueError("record_routes keeps a top-k router's choices: the burn-in LM "
+                             "has none")
+        self.config = config
+
+    @property
+    def default_layout(self) -> str:
+        """MoE serves on rows: the paged prefill runs in windows, and
+        per-window capacity queues would route other tokens than the
+        one-shot prefill."""
+        return "rows" if self.config.moe_experts > 0 else "paged"
+
+    def refuse(self, *, kv_layout, **_engine_options) -> None:
+        if kv_layout == "paged" and self.config.moe_experts > 0:
+            raise ValueError(
+                "kv_layout='paged' is not supported with moe_experts > 0: "
+                "the block-table prefill runs in windows, which would "
+                "restart the per-expert capacity queues and diverge from "
+                "the one-shot routing (serve MoE with kv_layout='rows')"
+            )
+
+    def check_chunk(self, prompt_slots: int, prefill_chunk: "int | None") -> None:
+        _check_chunk(self.config, prompt_slots, prefill_chunk, "prompt_slots")
+
+    def check_window(self, prompt_slots: int, window: int) -> None:
+        _check_prefix_window(self.config, prompt_slots, window)
+
+    def prepare(self, params):
+        return cast_matrices(params)
+
+    def init_pool(self, num_blocks: int, block_size: int, *, kv_int8: bool, device, mesh):
+        return init_block_pool(self.config, num_blocks, block_size, kv_int8, device=device,
+                               mesh=mesh)
+
+    def make_prefill(self, prompt_slots: int, block_size: int, mesh=None):
+        return make_paged_prefill(self.config, prompt_slots, block_size, mesh=mesh)
+
+    def capture(self, prompt_slots: int, block_size: int, table_cols: int, params, pool):
+        return PrefillGraphs(self.config, prompt_slots, block_size, table_cols, params, pool)
+
+    def admitted(self, row: int, length: int) -> None:
+        pass
+
+    def finished(self, row: int, req) -> None:
+        pass
+
+    def fed_routes(self, row: int, req) -> None:
+        return None
+
+    def decode(self, params, tok, pool, table, pos, backend: str):
+        return paged_decode_step_rows(params, tok, pool, table, pos, self.config,
+                                      backend=backend)

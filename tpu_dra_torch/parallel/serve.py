@@ -165,8 +165,6 @@ from tpu_dra_torch.parallel.burnin import BurninConfig
 from tpu_dra_torch.parallel.decode import (
     _build_prefill_padded,
     _build_prefill_suffix,
-    _check_chunk,
-    _check_prefix_window,
     _check_window,
     _chosen_logprob,
     _make_pick,
@@ -185,16 +183,12 @@ from tpu_dra_torch.parallel.paged import (
     _paged_step,
     _tree_map,
     copy_block,
-    init_block_pool,
-    make_paged_prefill,
-    paged_decode_step_rows,
     read_block,
     write_block,
 )
 from tpu_dra_torch.parallel.prefixcache import PagedPrefixCache, PrefixCache
 from tpu_dra_torch.parallel.quant import is_quantized
 from tpu_dra_torch.parallel.swap import AgeHeatPolicy, HostBlockPool
-from tpu_dra_torch.parallel.weights import cast_matrices
 from tpu_dra_torch.utils import servestats, trace
 from tpu_dra_torch.utils.metrics import (
     DISAGG_HANDOFF_BLOCKS,
@@ -205,6 +199,7 @@ from tpu_dra_torch.utils.metrics import (
     SERVE_KV_COW,
     SERVE_KV_FREE_RUN_BLOCKS,
     SERVE_KV_SWAPS,
+    SERVE_MOE_ASSIGNMENTS,
     SERVE_PREFILL_TOKENS,
     SERVE_PREFILL_WINDOWS,
     SERVE_QUEUE_DEPTH,
@@ -331,6 +326,10 @@ class Request:
     trace_id: str = ""
     trace_ctx: "trace.TraceContext | None" = field(default=None, repr=False)
     trace_parent: "trace.TraceContext | None" = field(default=None, repr=False)
+    # A top-k expert model's chosen experts at each position the request
+    # fed, (positions, expert layers, k) uint8 on the device (engines
+    # built with record_routes; None otherwise).
+    routes: object = field(default=None, repr=False)
     _last_token_at: float = field(default=0.0, repr=False)
     _swapped_at: float = field(default=0.0, repr=False)
     _handoff_at: float = field(default=0.0, repr=False)
@@ -417,6 +416,16 @@ class ServeEngine:
     decode tier, which never prefills, captures none); on the CPU and on
     a mesh the prefill is launched op by op.
 
+    ``config``: a `BurninConfig`, or a `models.mla_moe.MlaMoeConfig`
+    (DeepSeek-V3's block: latent attention and top-k experts), which
+    serves on the paged layout through its own pool, prefill windows and
+    decode step (the config's `paged_model`, the engine's one seam to its
+    model) and refuses what that model does not serve yet (int8, the
+    prefix cache, swap, the disaggregated tiers, the rows layout, meshes).
+    ``record_routes``: keep each request's chosen experts at every
+    position it fed (``Request.routes``, on the device; a top-k expert
+    model only).
+
     ``mesh``: serve on a `DeviceMesh` of ranks (module docstring): every
     rank builds its engine with its shards of the params
     (`weights.shard_params` of the whole tree, quantized first for int8)
@@ -454,8 +463,19 @@ class ServeEngine:
         tier: str = "mono",
         mesh=None,
         device: "str | torch.device" = "cuda",
+        record_routes: bool = False,
     ):
         c = config
+        # The model's side of the paged engine (the config's
+        # `paged_model`): the served tree, the pool, the prefill windows
+        # and the decode step, and what the model refuses.
+        model = c.paged_model(slots=slots, positions=prompt_slots + max_new_cap,
+                              record_routes=record_routes)
+        model.refuse(kv_layout=kv_layout, kv_int8=kv_int8, quantized=is_quantized(params),
+                     prefix_cache_slots=prefix_cache_slots, host_kv_blocks=host_kv_blocks,
+                     tier=tier, mesh=mesh)
+        if not model.swap_tier and host_kv_blocks is None:
+            host_kv_blocks = 0
         if tier not in ("mono", "prefill", "decode"):
             raise ValueError(f"tier must be 'mono', 'prefill', or 'decode', got {tier!r}")
         place = None if mesh is None else spmd.Place(mesh)
@@ -471,17 +491,14 @@ class ServeEngine:
                 f"scheduling must be 'continuous' or 'tick', got {scheduling!r}"
             )
         _validate_filters(c.vocab, temperature > 0, top_k, top_p)
-        _check_chunk(c, prompt_slots, prefill_chunk, "prompt_slots")
+        model.check_chunk(prompt_slots, prefill_chunk)
         if prefix_cache_slots < 0:
             raise ValueError(f"prefix_cache_slots must be >= 0, got {prefix_cache_slots}")
         for knob, value in (("ttft_slo_s", ttft_slo_s), ("tpot_slo_s", tpot_slo_s)):
             if value is not None and not value > 0:
                 raise ValueError(f"{knob} must be > 0, got {value}")
         if kv_layout is None:
-            # MoE serves on rows: the paged prefill runs in windows, and
-            # per-window capacity queues would route other tokens than
-            # the one-shot prefill.
-            kv_layout = "rows" if c.moe_experts > 0 else "paged"
+            kv_layout = model.default_layout
         if kv_layout not in ("paged", "rows"):
             raise ValueError(f"kv_layout must be 'paged' or 'rows', got {kv_layout!r}")
         if tier != "mono" and kv_layout != "paged":
@@ -489,13 +506,6 @@ class ServeEngine:
                 "prefill/decode tier engines require kv_layout='paged': "
                 "the handoff unit is a block table (docs/SERVING.md "
                 "\"Disaggregated serving\")"
-            )
-        if kv_layout == "paged" and c.moe_experts > 0:
-            raise ValueError(
-                "kv_layout='paged' is not supported with moe_experts > 0: "
-                "the block-table prefill runs in windows, which would "
-                "restart the per-expert capacity queues and diverge from "
-                "the one-shot routing (serve MoE with kv_layout='rows')"
             )
         if kv_blocks is not None and kv_layout != "paged":
             raise ValueError("kv_blocks only applies to kv_layout='paged'")
@@ -543,7 +553,7 @@ class ServeEngine:
                 # reference's default block size.
                 cap = max(1, prompt_slots // 4)
                 w = max(d for d in range(1, cap + 1) if prompt_slots % d == 0)
-            _check_prefix_window(c, prompt_slots, w)
+            model.check_window(prompt_slots, w)
         if kv_layout == "paged" and prefill_chunk is not None and prefill_chunk != w:
             raise ValueError(
                 f"paged prefill runs on the block grid: prefill_chunk ({prefill_chunk}) must "
@@ -556,7 +566,8 @@ class ServeEngine:
         self._rows = None if place is None else _Rows(place, slots)
         self.prefill_chunk = prefill_chunk
         self.device = dev
-        self.params = cast_matrices(params)
+        self._model = model
+        self.params = model.prepare(params)
         self.slots = slots
         self.prompt_slots = prompt_slots
         self.max_new_cap = max_new_cap
@@ -609,6 +620,8 @@ class ServeEngine:
         # None where the prefill runs op by op).
         self._prefill_windows = {"graph": 0, "eager": 0}
         self._prefill_graphs: "PrefillGraphs | None" = None
+        # The expert tally as `moe_assignments` last read it.
+        self._moe_seen: "list[list[int]] | None" = None
         # Swapped-out and handed-in requests (paged only; empty on rows).
         self._swap_state: "dict[int, dict]" = {}
         self._handoff_state: "dict[int, dict]" = {}
@@ -707,8 +720,9 @@ class ServeEngine:
         # every rank counts alike (wall clocks differ between ranks).
         self._balloc = (BlockAllocator(nb) if self.mesh is None else
                         BlockAllocator(nb, clock=lambda: float(self._device_steps)))
-        self._pool = init_block_pool(c, nb, w, self.kv_int8, device=self.device, mesh=self.mesh)
-        self._prefill = make_paged_prefill(c, self.prompt_slots, w, mesh=self.mesh)
+        self._pool = self._model.init_pool(nb, w, kv_int8=self.kv_int8, device=self.device,
+                                           mesh=self.mesh)
+        self._prefill = self._model.make_prefill(self.prompt_slots, w, mesh=self.mesh)
         self._capture_prefill()
         self._prefix = (
             PagedPrefixCache(prefix_cache_slots, self._balloc, block_size=w)
@@ -1187,6 +1201,7 @@ class ServeEngine:
         # The windows before fw are aliased and never written.
         with trace.range(_PREFILL_RANGE):
             last = self._prefill_into(self._prompt_stage[row], req.prompt, self._table[row], fw)
+            self._model.admitted(row, length)
         if cacheable and length >= w and (m_raw < length or entry is None or entry.length < length):
             # Park the prompt's blocks, unless the exact prompt is already
             # resident at full length or is shorter than a window; a
@@ -1242,9 +1257,8 @@ class ServeEngine:
         captured on."""
         self._prefill_graphs = None  # the old graphs' memory first
         if self.mesh is None and self.device.type == "cuda" and self.tier != "decode":
-            self._prefill_graphs = PrefillGraphs(self.config, self.prompt_slots,
-                                                 self.block_size, self._table_cols,
-                                                 self.params, self._pool)
+            self._prefill_graphs = self._model.capture(self.prompt_slots, self.block_size,
+                                                       self._table_cols, self.params, self._pool)
 
     def _prefill_into(self, stage: torch.Tensor, prompt: "list[int]", table_row,
                       first_window: int) -> torch.Tensor:
@@ -1535,6 +1549,7 @@ class ServeEngine:
         obsreq.observe_finished(req)
         self._done.append(req)
         self._row_req[row] = None
+        self._model.finished(row, req)
         if self._kv_layout == "paged":
             self._balloc.unref([int(b) for b in self._table[row] if b], step=self._device_steps)
             self._table[row, :] = 0
@@ -1576,10 +1591,8 @@ class ServeEngine:
             toks, lps = [], []
             for _ in range(n):
                 if paged and rows is None:
-                    logits, self._pool = paged_decode_step_rows(
-                        self.params, tok, self._pool, table, pos, self.config,
-                        backend=self.attn_backend,
-                    )
+                    logits, self._pool = self._model.decode(self.params, tok, self._pool, table,
+                                                            pos, self.attn_backend)
                 elif paged:
                     logits, self._pool = _paged_step(self.params, tok, self._pool, table, pos,
                                                      self.config, "gather", rows)
@@ -1878,6 +1891,19 @@ class ServeEngine:
         None for unknown ids and for requests handed off elsewhere."""
         return self._by_id.get(rid)
 
+    def request_routes(self, rid: int):
+        """The chosen experts at every position request ``rid`` has fed,
+        (positions, moe layers, k) on the device, for an engine built
+        with ``record_routes``: ``Request.routes`` once it finished, a
+        copy of its row's record while it decodes; None otherwise."""
+        req = self._by_id.get(rid)
+        if req is None or req.routes is not None:
+            return None if req is None else req.routes
+        for row, q in enumerate(self._row_req):
+            if q is req:
+                return self._model.fed_routes(row, req)
+        return None
+
     @property
     def replica_id(self) -> str:
         """The engine's identity as a fleet replica: its ``name``."""
@@ -2021,6 +2047,27 @@ class ServeEngine:
         stats["handoffs_alias_total"] = self._handoff_counts["alias"]
         stats["handoffs_dma_total"] = self._handoff_counts["dma"]
         return stats
+
+    def moe_assignments(self) -> "list[list[int]] | None":
+        """The assignments each expert of each expert layer took since
+        the engine was built (every decode row, and the prefill windows'
+        real prompt tokens), as (layer, expert) lists; None for a model
+        without top-k experts.  A host sync: the tally lives on the
+        device and the engine never reads it in a tick.  Each call adds
+        what moved since the last one to
+        ``tpu_dra_serve_moe_assignments_total{expert}`` (summed over the
+        layers)."""
+        tally = self._model.tally
+        if tally is None:
+            return None
+        now = tally.tolist()
+        seen = self._moe_seen or [[0] * len(r) for r in now]
+        for e in range(len(now[0]) if now else 0):
+            moved = sum(r[e] for r in now) - sum(r[e] for r in seen)
+            if moved:
+                SERVE_MOE_ASSIGNMENTS.inc(moved, expert=str(e))
+        self._moe_seen = now
+        return now
 
     @property
     def prefix_stats(self) -> "dict[str, int]":

@@ -290,6 +290,13 @@ SERVE_PREFILL_WINDOWS = REGISTRY.counter(
 # Both series from the start, so a graph share reads 0, not absent.
 for _path in ("graph", "eager"):
     SERVE_PREFILL_WINDOWS.inc(0, path=_path)
+SERVE_MOE_ASSIGNMENTS = REGISTRY.counter(
+    "tpu_dra_serve_moe_assignments_total",
+    "Token-expert assignments a top-k expert model's layers computed, by "
+    "routed expert, summed over the expert layers (every decode row and the "
+    "prefill windows' real prompt tokens); moves when ServeEngine.moe_assignments reads "
+    "the device tally",
+)
 SERVE_TTFT_SECONDS = REGISTRY.histogram(
     "tpu_dra_serve_ttft_seconds",
     "Serve-engine time to first token per request (submit to first "
