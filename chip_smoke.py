@@ -738,8 +738,26 @@ def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=Fals
     wall = time.perf_counter() - t0
     if sorted(done) != sorted(ids):
         raise AssertionError(f"{backend}: finished {sorted(done)} of {sorted(ids)}")
-    synced = "" if warm_up else check_host_syncs(syncs, waves[0], [eng], f"{backend} engine")
+    synced = "" if warm_up else (f"{check_host_syncs(syncs, waves[0], [eng], f'{backend} engine')}"
+                                 f"; {decode_paths([eng], f'{backend} engine')}")
     return eng, done, wall, step_walls, synced
+
+
+def decode_paths(engines, label: str) -> str:
+    """The engines' decode steps by path (`prefix_stats`): a paged engine
+    on one card replays every step from the graphs it captured when it
+    was built, a mesh or rows engine none.  Returns the graph path's
+    share as text."""
+    graph = steps = 0
+    for eng in engines:
+        s = eng.prefix_stats
+        want = eng.device_steps if eng.kv_layout == "paged" and eng.mesh is None else 0
+        if (s["decode_steps_graph"], s["decode_steps_eager"]) != (want, eng.device_steps - want):
+            raise AssertionError(f"{label}, {eng.name}: decode steps {s['decode_steps_graph']} "
+                                 f"graph and {s['decode_steps_eager']} eager of "
+                                 f"{eng.device_steps}, want {want} replayed")
+        graph, steps = graph + want, steps + eng.device_steps
+    return f"decode steps replayed {graph} of {steps} ({100 * graph / max(steps, 1):.1f} %)"
 
 
 def profile_decode(torch, ServeEngine, params, cfg, steps: int = 8, kv_int8=False,
@@ -1535,7 +1553,7 @@ def phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at):
         staging = None
         if mode == "alias":  # one allocator and one pool dict for both
             pre._balloc, pre._pool = dec._balloc, dec._pool
-            pre._capture_prefill()  # its prefill graphs, on the shared pool
+            pre._capture()  # its graphs, on the shared pool
         else:
             staging = swap_mod.HostBlockPool(4 * pre._table_cols)
         copies = []
@@ -1570,7 +1588,8 @@ def phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at):
             raise AssertionError(f"handoff dma: {staging.used_count} staging slots left")
         log(f"handoff {mode}: {len(reqs)} requests, {kv['handoff_in_blocks_total']} blocks moved, "
             f"{len(copies)} copy_block/write_block calls, {steps} steps, "
-            f"{pa.paged_attention.launches} kernel launches, {wall:.3f} s; {synced}")
+            f"{pa.paged_attention.launches} kernel launches, {wall:.3f} s; {synced}; "
+            f"{decode_paths([pre, dec], f'handoff {mode}')}")
         check_near_ties(torch, dict(enumerate(reqs)), mono_done, logits_at,
                         f"handoff {mode} vs mono engine")
         pre.close()
@@ -1698,7 +1717,8 @@ def phase_disagg(torch, disagg_mod, serve_mod, pa, params, cfg, logits_at, token
             f"off, {len(copies)} copy_block/write_block calls, {stats['deferred_handoffs']} "
             f"deferred handoffs; prefill tier {pre.device_steps} decode steps, "
             f"{prefill_launches[0]} kernel launches; decode tier {dec.device_steps} steps, {n} "
-            f"kernel launches; {synced}; {serving_line(done, wall, dec_steps)}")
+            f"kernel launches; {synced}; {decode_paths([pre, dec], f'disagg {mode}')}; "
+            f"{serving_line(done, wall, dec_steps)}")
         check_near_ties(torch, done, mono_done, logits_at, f"disagg {mode} vs mono engine")
         tokens_out[mode] = {i: list(r.tokens) for i, r in done.items()}
         srv.close()
@@ -2370,7 +2390,8 @@ def serve_fleets(torch, pa, fleet_mod, serve_mod, params_on, cfg, specs, label: 
         drive = drive_fleets(pa, fleets, stream)
     engines = [fleet.engine(n) for fleet in fleets.values() for n in fleet.replicas]
     launches = check_fleet_launches(drive, cfg, label)
-    log(f"{label}: {syncs.check(engines, label)}; K1 launches {launches}")
+    log(f"{label}: {syncs.check(engines, label)}; K1 launches {launches}; "
+        f"{decode_paths(engines, label)}")
     return fleets, drive, launches
 
 

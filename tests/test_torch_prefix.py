@@ -42,13 +42,15 @@ torch.set_num_threads(2)
 
 # -- helpers shared by the engine tests of the KV hierarchy ---------------
 # The port engine's `prefix_stats` keys that the reference's engine has
-# no counterpart of: the paged admission prefill's windows by path.
-PORT_PREFILL_WINDOW_KEYS = ("prefill_windows_graph", "prefill_windows_eager")
+# no counterpart of: the paged admission prefill's windows and the decode
+# steps, by path.
+PORT_ONLY_KEYS = ("prefill_windows_graph", "prefill_windows_eager", "decode_steps_graph",
+                  "decode_steps_eager")
 
 
 def reference_prefix_stats(stats: dict) -> dict:
     """A port engine's `prefix_stats` on the reference's keys."""
-    return {k: v for k, v in stats.items() if k not in PORT_PREFILL_WINDOW_KEYS}
+    return {k: v for k, v in stats.items() if k not in PORT_ONLY_KEYS}
 
 
 def first_difference(got, want):

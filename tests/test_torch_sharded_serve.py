@@ -278,8 +278,10 @@ def _rank_one_rank(rank, args):
 
 def _rank_one_rank_windows(rank, args):
     """On a one-rank mesh (each rank its own), a paged engine drains a
-    stream: ``(graph windows, eager windows, windows run, captured)``.
-    A mesh engine runs its prefill op by op, on any device."""
+    stream: ``(graph windows, eager windows, windows run, captured,
+    graph decode steps, eager decode steps, device steps)``.  A mesh
+    engine runs its prefill and its decode steps op by op, on any
+    device."""
     fields, tree = args
     mesh = tlogical([dist.get_rank()], data=1, fsdp=1, model=1)
     cfg = tb.BurninConfig(**fields)
@@ -291,7 +293,8 @@ def _rank_one_rank_windows(rank, args):
     stats = eng.prefix_stats
     windows = len(stream) * (ENGINE["prompt_slots"] // eng.block_size)
     return (stats["prefill_windows_graph"], stats["prefill_windows_eager"], windows,
-            eng._prefill_graphs is not None)
+            eng._prefill_graphs is not None, stats["decode_steps_graph"],
+            stats["decode_steps_eager"], eng.device_steps)
 
 
 def _rank_speculative(rank, args):
@@ -626,8 +629,13 @@ class TestOneRank:
 
     def test_mesh_engine_runs_its_prefill_eagerly(self, ranks):
         for res in ranks.get():
-            graph, eager, windows, captured = res["one_rank_windows"]
+            graph, eager, windows, captured = res["one_rank_windows"][:4]
             assert (graph, eager, captured) == (0, windows, False) and windows > 0
+
+    def test_mesh_engine_counts_its_decode_steps_eager(self, ranks):
+        for res in ranks.get():
+            graph, eager, steps = res["one_rank_windows"][4:]
+            assert (graph, eager) == (0, steps) and steps > 0
 
 
 class TestSpeculative:

@@ -39,17 +39,21 @@ layer (`kernels.mla_decode`, K3, on a card; its plain version or a
 gather on the CPU), then ``o[h] = o_lat[h] @ W_UV[h]``.  The two forms
 are one function in exact arithmetic; in bf16 they round at other
 points.  On a card the decode step is captured as CUDA graphs, one a
-block half, and replayed (`_DecodeGraphs`), as the prefill windows are.
+block half, and replayed (`paged.DecodeGraphs`), as the prefill windows
+are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 
+from tpu_dra_torch.parallel.kernels import mla_decode as k3
 from tpu_dra_torch.parallel.moe import swiglu, topk_moe_mlp
+from tpu_dra_torch.parallel.paged import DecodeGraphs, PrefillGraphs
 from tpu_dra_torch.utils import trace
 
 __all__ = [
@@ -358,7 +362,9 @@ class PagedMlaMoe:
         self.tally = None
         self.routes = None
         self._prefill_routes = None
-        self._decode_graphs: "_DecodeGraphs | None" = None
+        self._decode_graphs: "DecodeGraphs | None" = None
+        # How the last `decode` ran: "graph" (replayed) or "eager".
+        self.decode_path = "eager"
 
     def refuse(self, *, kv_layout, kv_int8, quantized, prefix_cache_slots, host_kv_blocks,
                tier, mesh, **_engine_options) -> None:
@@ -483,8 +489,6 @@ class PagedMlaMoe:
 
     def capture(self, prompt_slots: int, block_size: int, table_cols: int, params, pool):
         """The windows captured as CUDA graphs (`paged.PrefillGraphs`)."""
-        from tpu_dra_torch.parallel.paged import PrefillGraphs
-
         self._prefill_buffers(prompt_slots, pool["latent"].device)
         nwin = prompt_slots // block_size
 
@@ -512,15 +516,20 @@ class PagedMlaMoe:
         req.routes = self.fed_routes(row, req)
 
     # -- decode --------------------------------------------------------------
+    def capture_decode(self, params, pool, tok, table, pos, backend: str) -> None:
+        """Nothing captured at build: the first step on a card runs op by
+        op over its real inputs and captures the step (`decode`)."""
+
+    def drop_decode_graphs(self) -> None:
+        self._decode_graphs = None
+
     def _decode_parts(self, params, pool, backend: str) -> list:
         """The decode step cut at its block halves, in order: ``(name,
         part)`` pairs, each ``part(st)`` reading and writing the step's
         state ``st`` (the inputs ``tok``, ``table``, ``pos``; the residual
         stream ``x``; ``logits`` at the end).  ``name`` is the range a
-        replay of the part's graph runs under (`_DecodeGraphs`); eagerly
-        the parts open their own ranges."""
-        from tpu_dra_torch.parallel.kernels.mla_decode import mla_decode
-
+        replay of the part's graph runs under (`paged.DecodeGraphs`);
+        eagerly the parts open their own ranges."""
         c = self.config
         lat_pool = pool["latent"]
         W = lat_pool.shape[2]
@@ -549,7 +558,8 @@ class PagedMlaMoe:
                     q_lat = torch.einsum("bhn,hnl->bhl", q_nope[:, 0], layer["uk_t"])
                     q = torch.cat([q_lat, q_pe[:, 0]], dim=-1).contiguous()
                     if backend == "cuda":
-                        o_lat = mla_decode(q, lat_pool[i], table, pos, v_dim=R, scale=c.scale)
+                        o_lat = k3.mla_decode(q, lat_pool[i], table, pos, v_dim=R,
+                                              scale=c.scale)
                     else:
                         ctx = lat_pool[i][table.long()].reshape(B, -1, c.latent_width)
                         o_lat = absorbed_dense(q, ctx, pos, c)
@@ -585,88 +595,23 @@ class PagedMlaMoe:
         ``"gather"``: the table's reach gathered and contracted densely.
         On a card with K3 the first step runs op by op and is captured,
         and later steps of the same shapes, params and pool replay it
-        (`_DecodeGraphs`): the logits are then the graphs' static output,
-        valid until the next call.  Returns ``(logits (B, V) f32, pool)``."""
+        (`paged.DecodeGraphs`): the logits are then the graphs' static
+        output, valid until the next call; `decode_path` says which ran.
+        Returns ``(logits (B, V) f32, pool)``."""
         if backend == "cuda" and tok.device.type == "cuda":
             key = (id(params), pool["latent"].data_ptr(), tok.shape[0], table.shape[1])
             graphs = self._decode_graphs
             if graphs is not None and graphs.key == key:
+                self.decode_path = "graph"
                 return graphs(tok, table, pos), pool
-            self._decode_graphs = None  # the old graphs' memory first
-            graphs = _DecodeGraphs(key, self._decode_parts(params, pool, backend),
-                                   self.config.n_layers)
+            self.drop_decode_graphs()  # the old graphs' memory first
+            graphs = DecodeGraphs(key, self._decode_parts(params, pool, backend),
+                                  functools.partial(k3.note_replays, self.config.n_layers))
             self._decode_graphs = graphs
-            return graphs.first(tok, table, pos), pool
+            self.decode_path = "eager"
+            return graphs.capture(tok.clone(), table.clone(), pos.clone()), pool
+        self.decode_path = "eager"
         st = {"tok": tok, "table": table, "pos": pos}
         for _, part in self._decode_parts(params, pool, backend):
             part(st)
         return st["logits"], pool
-
-
-class _DecodeGraphs:
-    """`PagedMlaMoe`'s decode step on one CUDA card, each part (`_decode_parts`:
-    the head, every block's attention and MLP halves, the logits) captured
-    as a CUDA graph and replayed in order on the caller's stream, so the
-    host issues 2 L + 2 graphs a step where the eager step issues every
-    product, norm, gather and sort.  A replay runs the same kernels in the
-    same order as the eager step (whose expert combine sums with atomics,
-    in an order that varies from run to run either way).  The
-    halves replay under the ranges the eager step opens (``mla.attn``;
-    ``moe.layer`` for an expert half), so a profile still splits the step.
-
-    `first` runs the first step op by op on a side stream (the warm-up:
-    K3 built, every kernel's first launch, the state the step writes) and
-    then captures the parts there, from static copies of its inputs.
-    Capture launches nothing, so K3's counter counts the first step's
-    launches and then ``n_layers`` a replay.  The parts share one private
-    memory pool and replay in capture order on one stream, so the
-    activations one part leaves are what the next reads."""
-
-    def __init__(self, key, parts: list, n_layers: int):
-        self.key = key
-        self._parts = parts
-        self._n_layers = n_layers
-        self._graphs: "list[tuple[str | None, torch.cuda.CUDAGraph]]" = []
-        self.st: dict = {}
-
-    def first(self, tok, table, pos):
-        """The step over the real inputs, op by op, then the capture."""
-        dev = tok.device
-        self.st = {"tok": tok.clone(), "table": table.clone(), "pos": pos.clone()}
-        with torch.cuda.device(dev):
-            caller, stream = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
-            stream.wait_stream(caller)
-            with torch.cuda.stream(stream):
-                st = {"tok": tok, "table": table, "pos": pos}
-                for _, part in self._parts:
-                    part(st)
-                first = st.pop("logits")
-                del st
-            mempool = torch.cuda.graph_pool_handle()
-            for name, part in self._parts:
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=mempool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    part(self.st)
-                self._graphs.append((name, graph))
-            self._parts = None
-            caller.wait_stream(stream)
-        return first.clone()
-
-    def __call__(self, tok, table, pos):
-        """Replay the step over ``tok``, ``table`` and ``pos``; returns the
-        static logits."""
-        from tpu_dra_torch.parallel.kernels import mla_decode as k3
-
-        st = self.st
-        st["tok"].copy_(tok)
-        st["table"].copy_(table)
-        st["pos"].copy_(pos)
-        for name, graph in self._graphs:
-            if name is None:
-                graph.replay()
-            else:
-                with trace.range(name):
-                    graph.replay()
-        k3.note_replays(self._n_layers)
-        return st["logits"]

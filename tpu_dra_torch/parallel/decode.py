@@ -111,6 +111,9 @@ __all__ = [
     "serving_config",
 ]
 
+# The profiler range over each decode block's attention half, eager or
+# replayed from a captured graph (`paged.DecodeGraphs`).
+ATTN_RANGE = "decode.attn"
 
 def serving_config(config: BurninConfig) -> BurninConfig:
     """The serving view of a training config: the training-only
@@ -365,16 +368,22 @@ def _decode_block(layer, x, ck, cv, p0, *, config: BurninConfig, mask,
     T)) — the training block's arithmetic, minus gradients.  The expert
     MLP's queues hold ``min(S, expert_capacity)`` tokens: the training
     capacity clamped to the tokens present, so a prefill drops where
-    training would and a one-token step is dropless.  Under a profiler
-    the attention half is the ``decode.attn`` range."""
+    training would and a one-token step is dropless."""
     c = config
     S = x.shape[1]
-    with trace.range("decode.attn"):
-        att, ck, cv = _attention(layer, x, ck, cv, p0, c, mask, rope_tab, kv_io)
-        x = x + _matmul_bf16(att, layer["wo"], 2)
+    x, ck, cv = _attn_half(layer, x, ck, cv, p0, c, mask, rope_tab, kv_io)
     capacity = min(S, expert_capacity(c)) if c.moe_experts > 0 else None
     x, _ = _mlp(layer, x, c, capacity)
     return x, ck, cv
+
+
+def _attn_half(layer, x, ck, cv, p0, c: BurninConfig, mask, rope_tab, kv_io):
+    """A decode block's attention half, its residual added: `_attention`
+    and the ``wo`` product.  Under a profiler it is the `ATTN_RANGE`
+    range.  Returns ``(x, ck, cv)``."""
+    with trace.range(ATTN_RANGE):
+        att, ck, cv = _attention(layer, x, ck, cv, p0, c, mask, rope_tab, kv_io)
+        return x + _matmul_bf16(att, layer["wo"], 2), ck, cv
 
 
 def _attention(layer, x, ck, cv, p0, c: BurninConfig, mask, rope_tab, kv_io):

@@ -209,7 +209,7 @@ class DisaggServer:
             self._prefill._pool = self._decode._pool
             # The prefill tier's captured windows (one CUDA device) address
             # the pool they were captured on: capture them on this one.
-            self._prefill._capture_prefill()
+            self._prefill._capture()
             if self._prefill._prefix is not None:
                 self._prefill._prefix._alloc = self._decode._balloc
             self._staging = None

@@ -16,13 +16,16 @@ reference's ``_block_kv``.
   The CPU runs it, and the card holds the kernel against it.
 - `paged_attention`: the public entry.  CPU tensors go to the plain
   version; CUDA tensors launch the kernel's bf16 or int8 form (and bump
-  ``paged_attention.launches``); anything else raises.  Nothing falls
-  back: a kernel that does not build or launch is an error, and an int8
-  pool is never dequantized for the bf16 form.
+  ``paged_attention.launches``, except inside `uncounted`: a decode
+  graph's warm-up and capture; `note_replays` counts a graph's replays
+  instead); anything else raises.  Nothing falls back: a kernel that
+  does not build or launch is an error, and an int8 pool is never
+  dequantized for the bf16 form.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -31,7 +34,7 @@ import torch
 from tpu_dra_torch.parallel.burnin import bf16_scalar
 from tpu_dra_torch.parallel.quant import is_quantized_leaf
 
-__all__ = ["paged_attention", "paged_attention_plain"]
+__all__ = ["note_replays", "paged_attention", "paged_attention_plain", "uncounted"]
 
 _NEG_INF = -1e30
 
@@ -39,12 +42,35 @@ _NEG_INF = -1e30
 # threads, and ``launches += 1`` is a read and a write an update of
 # another thread can fall between.
 _LAUNCHES_LOCK = threading.Lock()
+# ``off`` is true on a thread inside `uncounted`.
+_UNCOUNTED = threading.local()
 
 
 def _count_launch() -> None:
-    """Add one to ``paged_attention.launches``, exactly, from any thread."""
+    """Add one to ``paged_attention.launches``, exactly, from any thread
+    outside `uncounted`."""
+    if getattr(_UNCOUNTED, "off", False):
+        return
     with _LAUNCHES_LOCK:
         paged_attention.launches += 1
+
+
+def note_replays(n: int) -> None:
+    """Count ``n`` launches run by replaying captured CUDA graphs."""
+    with _LAUNCHES_LOCK:
+        paged_attention.launches += n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches this thread makes inside the block are not counted: a
+    decode graph's warm-up on scratch and its capture, which serve no
+    step."""
+    _UNCOUNTED.off = True
+    try:
+        yield
+    finally:
+        _UNCOUNTED.off = False
 
 
 def _sqrt_d(K: int) -> float:

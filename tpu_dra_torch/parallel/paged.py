@@ -23,6 +23,10 @@ handoff payload), `write_block` (its inverse) and `copy_block` (the COW
 privatization).  The rule they serve: a block with more than one owner
 is never written.
 
+On one CUDA device the engine replays its admission windows and its
+decode step from CUDA graphs captured when it is built (`PrefillGraphs`,
+`DecodeGraphs`).
+
 On a mesh (``mesh=`` on `init_block_pool`, `paged_decode_step_rows` and
 `make_paged_prefill`; `block_pool_spec`) a rank holds its heads of every
 block: the pool is shared storage addressed by the tables, so it is
@@ -38,20 +42,25 @@ the gather.
 
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
 
 from tpu_dra_torch.parallel import spmd
-from tpu_dra_torch.parallel.burnin import BurninConfig
+from tpu_dra_torch.parallel.burnin import BurninConfig, _logits, _mlp
 from tpu_dra_torch.parallel.decode import (
+    ATTN_RANGE,
+    _attn_half,
     _check_chunk,
     _check_prefix_window,
     _embed_lookup,
     _embed_mesh,
     _kv_writes,
+    _layer,
     _local_heads,
     _place,
+    _rope_tab,
     _rows,
     _Rows,
     _run_blocks,
@@ -60,12 +69,15 @@ from tpu_dra_torch.parallel.decode import (
     _zeros_kv,
 )
 from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.moe import expert_capacity
 from tpu_dra_torch.parallel.quant import dequantize_bf16, is_quantized_leaf
 from tpu_dra_torch.parallel.weights import cast_matrices
+from tpu_dra_torch.utils import trace
 from tpu_dra_torch.utils.metrics import SERVE_KV_BLOCK_AGE_SECONDS
 
 __all__ = [
     "BlockAllocator",
+    "DecodeGraphs",
     "PagedLM",
     "PrefillGraphs",
     "block_pool_spec",
@@ -247,30 +259,86 @@ def paged_decode_step_rows(params, tok, pool, table, pos, config: BurninConfig,
 
 def _paged_step(params, tok, pool, table, pos, config: BurninConfig, backend: str,
                 rows: "_Rows | None" = None):
-    """`paged_decode_step_rows`' body; on a mesh (``rows``) the logits of
-    the rank's fsdp group's rows."""
+    """`paged_decode_step_rows`' body: on one device its parts
+    (`_decode_parts`) in order; on a mesh (``rows``) the logits of the
+    rank's fsdp group's rows."""
+    if rows is None:
+        st = {"tok": tok, "table": table, "pos": pos}
+        for _, part in _decode_parts(params, pool, config, backend):
+            part(st)
+        return st["logits"], pool
     W = _pool_block_size(pool)
-    reach = min(table.shape[1] * W, config.seq)
-    over = pos >= reach
-    pos = pos.clamp(max=reach - 1)
-    table = torch.where(over[:, None], 0, table)
-    if rows is not None:
-        own = rows.own(pos)
-        pos_emb = None if config.rope else params["pos"][own][:, None, :]
-        x = _embed_mesh(params, tok[:, None], pos_emb, rows)
-        slots = torch.arange(table.shape[1] * W, device=tok.device)[None, :]
-        mask = (slots <= own[:, None])[:, None, None, :]
-        kv_io = _MeshPagedKV(table, W, rows, pos)
-        logits, pool = _run_blocks_mesh(params, x, pool, own, mask, config, rows, kv_io=kv_io)
-        return logits[:, 0], pool
-    x = _embed_lookup(params["embed"], tok)[:, None, :]
-    if not config.rope:
-        x = x + params["pos"][pos][:, None, :]
+    table, pos = _clamp_to_reach(table, pos, W, config.seq)
+    own = rows.own(pos)
+    pos_emb = None if config.rope else params["pos"][own][:, None, :]
+    x = _embed_mesh(params, tok[:, None], pos_emb, rows)
     slots = torch.arange(table.shape[1] * W, device=tok.device)[None, :]
-    mask = (slots <= pos[:, None])[:, None, None, :]  # (B, 1, 1, NW*W)
-    kv_io = _PagedKernelKV(table, W, pos) if backend == "cuda" else _PagedKV(table, W)
-    logits, pool = _run_blocks(params, x, pool, pos, mask, config, kv_io=kv_io)
+    mask = (slots <= own[:, None])[:, None, None, :]
+    kv_io = _MeshPagedKV(table, W, rows, pos)
+    logits, pool = _run_blocks_mesh(params, x, pool, own, mask, config, rows, kv_io=kv_io)
     return logits[:, 0], pool
+
+
+def _clamp_to_reach(table, pos, W: int, seq: int):
+    """``(table, pos)`` with every overrun row (at or past the reach)
+    moved to the reach's last position over a table row of scratch."""
+    reach = min(table.shape[1] * W, seq)
+    over = pos >= reach
+    return torch.where(over[:, None], 0, table), pos.clamp(max=reach - 1)
+
+
+# The attention half's leaves of a layer; the MLP half reads the others.
+_ATTN_LEAVES = ("ln1", "wqkv", "wo")
+
+
+def _decode_parts(params, pool, config: BurninConfig, backend: str) -> list:
+    """The one-device decode step cut at its block halves, in order:
+    ``(name, part)`` pairs, each ``part(st)`` reading and writing the
+    step's state ``st`` (the inputs ``tok``, ``table``, ``pos``; the
+    residual stream ``x``; ``logits`` at the end).  The head clamps the
+    overrun rows and embeds the tokens, then come every block's
+    attention and MLP halves (an int8 layer's matrices dequantized in
+    the half that reads them), and the tail's final norm and logits.
+    ``name`` is the range a replay of the part's graph runs under
+    (`DecodeGraphs`); eagerly the attention half opens it itself."""
+    c = config
+    W = _pool_block_size(pool)
+    mlp_leaves = [n for n in params["layers"] if n not in _ATTN_LEAVES]
+    capacity = min(1, expert_capacity(c)) if c.moe_experts > 0 else None
+
+    def leaves(i, names):
+        return {n: dequantize_bf16(_layer(params["layers"][n], i)) for n in names}
+
+    def head(st):
+        table, pos = _clamp_to_reach(st["table"], st["pos"], W, c.seq)
+        x = _embed_lookup(params["embed"], st["tok"])[:, None, :]
+        if not c.rope:
+            x = x + params["pos"][pos][:, None, :]
+        slots = torch.arange(table.shape[1] * W, device=pos.device)[None, :]
+        st["mask"] = (slots <= pos[:, None])[:, None, None, :]  # (B, 1, 1, NW*W)
+        st["rope"] = _rope_tab(c, pos, x)
+        st["kv"] = _PagedKernelKV(table, W, pos) if backend == "cuda" else _PagedKV(table, W)
+        st["pos_c"], st["x"] = pos, x
+
+    def attn(i):
+        def part(st):
+            st["x"], _, _ = _attn_half(leaves(i, _ATTN_LEAVES), st["x"], _layer(pool["k"], i),
+                                       _layer(pool["v"], i), st["pos_c"], c, st["mask"],
+                                       st["rope"], st["kv"])
+        return part
+
+    def mlp(i):
+        def part(st):
+            st["x"], _ = _mlp(leaves(i, mlp_leaves), st["x"], c, capacity)
+        return part
+
+    def tail(st):
+        st["logits"] = _logits(params, st["x"])[:, 0]
+
+    parts = [(None, head)]
+    for i in range(c.n_layers):
+        parts += [(ATTN_RANGE, attn(i)), (None, mlp(i))]
+    return parts + [(None, tail)]
 
 
 def _pool_block_size(pool) -> int:
@@ -422,6 +490,79 @@ class PrefillGraphs:
         for graph in self._graphs[first_window:]:
             graph.replay()
         return self.last.clone()
+
+
+class DecodeGraphs:
+    """A paged model's decode step on one CUDA card, each of its parts
+    (``(name, part)`` pairs in order, each ``part(st)`` reading and
+    writing the step's state: `_decode_parts` for the burn-in LM,
+    `models.mla_moe.PagedMlaMoe._decode_parts` for DeepSeek-V3's block)
+    captured as a CUDA graph and replayed in order on the caller's
+    stream, so the host issues one graph a part where the eager step
+    issues every product, norm, gather and kernel.  A replay runs the
+    eager step's kernels in the same order.  A named part replays under
+    that profiler range (the one its eager form opens), so a profile
+    still splits the step.  ``key`` names what the graphs address (the
+    params and the pool as captured); ``launches``, when given, is called
+    at each replay to count the kernel launches it made.
+
+    `capture` runs the step op by op on a side stream over its inputs
+    (the warm-up: every kernel's first launch, the state the step writes)
+    and then captures the parts there, over the same input tensors, which
+    stay the graphs' static inputs.  The parts share one private memory
+    pool and replay in capture order on one stream, so the activations
+    one part leaves are what the next reads."""
+
+    def __init__(self, key, parts: list, launches=None):
+        self.key = key
+        self._parts = parts
+        self._launches = launches
+        self._graphs: "list[tuple[str | None, torch.cuda.CUDAGraph]]" = []
+        self.st: dict = {}
+
+    def capture(self, tok, table, pos) -> torch.Tensor:
+        """The step over ``tok``, ``table`` and ``pos``, op by op, then the
+        capture over the same tensors.  Returns the step's logits (a
+        copy)."""
+        dev = tok.device
+        self.st = {"tok": tok, "table": table, "pos": pos}
+        with torch.cuda.device(dev):
+            caller, stream = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+            stream.wait_stream(caller)
+            with torch.cuda.stream(stream):
+                st = dict(self.st)
+                for _, part in self._parts:
+                    part(st)
+                first = st.pop("logits")
+                del st
+            mempool = torch.cuda.graph_pool_handle()
+            for name, part in self._parts:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=mempool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    part(self.st)
+                self._graphs.append((name, graph))
+            self._parts = None
+            caller.wait_stream(stream)
+        return first.clone()
+
+    def __call__(self, tok, table, pos) -> torch.Tensor:
+        """Replay the step over ``tok``, ``table`` and ``pos``, each copied
+        into its static input unless it is that tensor's storage already.
+        Returns the static logits, valid until the next replay."""
+        st = self.st
+        for name, t in (("tok", tok), ("table", table), ("pos", pos)):
+            if t.data_ptr() != st[name].data_ptr():
+                st[name].copy_(t)
+        for name, graph in self._graphs:
+            if name is None:
+                graph.replay()
+            else:
+                with trace.range(name):
+                    graph.replay()
+        if self._launches is not None:
+            self._launches()
+        return st["logits"]
 
 
 def _tree_map(fn, *trees):
@@ -629,8 +770,9 @@ class PagedLM:
     """The burn-in LM's side of `serve.ServeEngine`'s model seam
     (`BurninConfig.paged_model`): the engine asks its model for the
     served tree, the pool, the eager prefill, the captured prefill
-    windows and the decode step through these methods, has it check the
-    engine's options, and tells it of admissions and finished requests.
+    windows and the decode step, eager or captured, through these
+    methods, has it check the engine's options, and tells it of
+    admissions and finished requests.
     Here each is this module's own function; `models.mla_moe.PagedMlaMoe`
     is the latent-attention model's."""
 
@@ -642,6 +784,9 @@ class PagedLM:
             raise ValueError("record_routes keeps a top-k router's choices: the burn-in LM "
                              "has none")
         self.config = config
+        self._decode_graphs: "DecodeGraphs | None" = None
+        # How the last `decode` ran: "graph" (replayed) or "eager".
+        self.decode_path = "eager"
 
     @property
     def default_layout(self) -> str:
@@ -687,6 +832,40 @@ class PagedLM:
     def fed_routes(self, row: int, req) -> None:
         return None
 
+    def capture_decode(self, params, pool, tok, table, pos, backend: str) -> None:
+        """Capture the decode step on this pool as CUDA graphs
+        (`DecodeGraphs`) over the static inputs ``tok``, ``table`` and
+        ``pos``, which the engine's staging upload writes; they hold zeros
+        here, so the warm-up's writes land in scratch block 0.  Neither
+        the warm-up nor the capture counts a K1 launch; a replay counts
+        one a layer.  The caller drops the old graphs first."""
+        from tpu_dra_torch.parallel.kernels import paged_attn
+
+        launches = (functools.partial(paged_attn.note_replays, self.config.n_layers)
+                    if backend == "cuda" else None)
+        graphs = DecodeGraphs(_decode_key(params, pool, backend),
+                              _decode_parts(params, pool, self.config, backend), launches)
+        with paged_attn.uncounted():
+            graphs.capture(tok, table, pos)
+        self._decode_graphs = graphs
+
+    def drop_decode_graphs(self) -> None:
+        """Forget the captured step (later steps run op by op)."""
+        self._decode_graphs = None
+
     def decode(self, params, tok, pool, table, pos, backend: str):
+        """`paged_decode_step_rows`, replayed from the captured graphs
+        when they address these params, this pool and this backend (the
+        logits are then the graphs' static output, valid until the next
+        call), else op by op; `decode_path` says which ran."""
+        graphs = self._decode_graphs
+        if graphs is not None and graphs.key == _decode_key(params, pool, backend):
+            self.decode_path = "graph"
+            return graphs(tok, table, pos), pool
+        self.decode_path = "eager"
         return paged_decode_step_rows(params, tok, pool, table, pos, self.config,
                                       backend=backend)
+
+
+def _decode_key(params, pool, backend: str) -> tuple:
+    return id(params), _values(pool["k"]).data_ptr(), backend

@@ -194,6 +194,7 @@ from tpu_dra_torch.utils.metrics import (
     DISAGG_HANDOFF_BLOCKS,
     DISAGG_HANDOFFS,
     SERVE_BATCH_OCCUPANCY,
+    SERVE_DECODE_STEPS,
     SERVE_KV_ALIAS,
     SERVE_KV_BLOCKS,
     SERVE_KV_COW,
@@ -412,9 +413,11 @@ class ServeEngine:
     copy whose plain layer matrices are bf16, int8 pairs as they are
     (bf16 matrices are shared with ``params``, not copied).  A paged
     engine on one CUDA device captures its admission prefill's windows
-    as CUDA graphs here (`paged.PrefillGraphs`) and replays them (a
-    decode tier, which never prefills, captures none); on the CPU and on
-    a mesh the prefill is launched op by op.
+    and its decode step as CUDA graphs here (`paged.PrefillGraphs`, and
+    the model's `capture_decode`) and replays them (a decode tier, which
+    never prefills, captures no windows, and a prefill tier, which never
+    decodes, no step); on the CPU and on a mesh both are launched op by
+    op.
 
     ``config``: a `BurninConfig`, or a `models.mla_moe.MlaMoeConfig`
     (DeepSeek-V3's block: latent attention and top-k experts), which
@@ -616,10 +619,12 @@ class ServeEngine:
         self._pick = _make_pick(self._sampled, temperature, top_k, top_p)
         self._prefill_tokens = {"computed": 0, "reused": 0}
         # Paged prefill windows run, by path (`_prefill_into`), and the
-        # captured windows that the graph path replays (`_capture_prefill`;
+        # captured windows that the graph path replays (`_capture`;
         # None where the prefill runs op by op).
         self._prefill_windows = {"graph": 0, "eager": 0}
         self._prefill_graphs: "PrefillGraphs | None" = None
+        # Decode steps run, by path (`_step_once`).
+        self._decode_steps = {"graph": 0, "eager": 0}
         # The expert tally as `moe_assignments` last read it.
         self._moe_seen: "list[list[int]] | None" = None
         # Swapped-out and handed-in requests (paged only; empty on rows).
@@ -651,11 +656,14 @@ class ServeEngine:
         # pos, active, seeds, then the tables — one for a wave's seeds and
         # lengths, and one admission row per slot (padded prompt, table
         # row, length).  Each is rewritten only after the fetch that ended
-        # the device work reading it.
+        # the device work reading it.  The per-call state uploads into one
+        # device buffer, ``_state``, whose views are the captured decode
+        # step's static inputs.
         pin = dev.type == "cuda"
         self._stage = torch.zeros(
             4 * slots + slots * self._table_cols, dtype=torch.int32, pin_memory=pin
         )
+        self._state = torch.zeros(self._stage.shape, dtype=torch.int32, device=dev)
         self._wave_stage = torch.zeros(2 * slots, dtype=torch.int32, pin_memory=pin)
         self._prompt_stage = torch.zeros(
             (slots, prompt_slots + self._table_cols + 1), dtype=torch.int32,
@@ -667,6 +675,8 @@ class ServeEngine:
         self._next_id = 0
         self._closed = False
         self._device_steps = 0
+        if kv_layout == "paged":
+            self._capture()
         self._register_telemetry()
 
     def _register_telemetry(self) -> None:
@@ -723,7 +733,6 @@ class ServeEngine:
         self._pool = self._model.init_pool(nb, w, kv_int8=self.kv_int8, device=self.device,
                                            mesh=self.mesh)
         self._prefill = self._model.make_prefill(self.prompt_slots, w, mesh=self.mesh)
-        self._capture_prefill()
         self._prefix = (
             PagedPrefixCache(prefix_cache_slots, self._balloc, block_size=w)
             if prefix_cache_slots else None
@@ -1247,18 +1256,28 @@ class ServeEngine:
             staged = out.copy_(stage, non_blocking=True)
         return staged[None, :P], staged[-1:], staged[None, P:P + self._table_cols]
 
-    def _capture_prefill(self) -> None:
-        """Capture the admission prefill's windows on the engine's pool
-        as it is now, on the calling thread, before the engine serves: a
-        paged engine on one CUDA device that prefills (a decode tier never
-        does).  Code that rebinds the engine's pool calls it again, as a
-        `DisaggServer` does once it has shared an alias prefill tier's
-        pool with the decode tier: the graphs address the pool they were
-        captured on."""
+    def _capture(self) -> None:
+        """Capture the admission prefill's windows and the decode step on
+        the engine's pool as it is now, on the calling thread, before the
+        engine serves: a paged engine on one CUDA device, the windows if
+        it prefills (a decode tier never does), the step if it decodes (a
+        prefill tier never does).  The step's static inputs are views of
+        ``_state``.  Code that rebinds the engine's pool calls it again,
+        as a `DisaggServer` does once it has shared an alias prefill
+        tier's pool with the decode tier: the graphs address the pool they
+        were captured on."""
         self._prefill_graphs = None  # the old graphs' memory first
-        if self.mesh is None and self.device.type == "cuda" and self.tier != "decode":
+        self._model.drop_decode_graphs()
+        if self.mesh is not None or self.device.type != "cuda":
+            return
+        if self.tier != "decode":
             self._prefill_graphs = self._model.capture(self.prompt_slots, self.block_size,
                                                        self._table_cols, self.params, self._pool)
+        if self.tier != "prefill":
+            B, s = self.slots, self._state
+            self._model.capture_decode(self.params, self._pool, s[:B],
+                                       s[4 * B:].view(B, self._table_cols), s[B:2 * B],
+                                       self.attn_backend)
 
     def _prefill_into(self, stage: torch.Tensor, prompt: "list[int]", table_row,
                       first_window: int) -> torch.Tensor:
@@ -1582,7 +1601,7 @@ class ServeEngine:
             paged = self._kv_layout == "paged"
             if paged:
                 stage[4 * B:] = self._table.reshape(-1)
-            state = self._stage.to(self.device, non_blocking=True)
+            state = self._state.copy_(self._stage, non_blocking=True)
             tok, pos = state[:B], state[B:2 * B]
             live = state[2 * B:3 * B].bool()
             seeds = state[3 * B:4 * B]
@@ -1590,9 +1609,11 @@ class ServeEngine:
             rows = self._rows
             toks, lps = [], []
             for _ in range(n):
+                path = "eager"
                 if paged and rows is None:
                     logits, self._pool = self._model.decode(self.params, tok, self._pool, table,
                                                             pos, self.attn_backend)
+                    path = self._model.decode_path
                 elif paged:
                     logits, self._pool = _paged_step(self.params, tok, self._pool, table, pos,
                                                      self.config, "gather", rows)
@@ -1604,6 +1625,8 @@ class ServeEngine:
                 else:
                     logits, self._cache = _step_rows(self.params, tok, self._cache, pos,
                                                      self.config, rows)
+                self._decode_steps[path] += 1
+                SERVE_DECODE_STEPS.inc(path=path)
                 # The token fed at position pos lands in pos + 1.  On a mesh
                 # the logits are the rank's group's rows.
                 ahead = pos + 1
@@ -2074,10 +2097,12 @@ class ServeEngine:
         """The prefix cache's counters (hits, misses, evictions,
         resident, pool_slots, epoch, trimmed_blocks; zeros without a
         cache), the admission prefill split: tokens computed, and
-        tokens reused (aliased instead of prefilled), and the paged
+        tokens reused (aliased instead of prefilled), the paged
         prefill's windows by path: replayed from captured CUDA graphs
         (``prefill_windows_graph``) or launched op by op
-        (``prefill_windows_eager``; zeros on rows)."""
+        (``prefill_windows_eager``; zeros on rows), and the decode steps
+        by path (``decode_steps_graph``, ``decode_steps_eager``; every
+        rows step is eager)."""
         stats = (
             self._prefix.stats()
             if self._prefix is not None
@@ -2088,6 +2113,8 @@ class ServeEngine:
         stats["prefill_tokens_reused"] = self._prefill_tokens["reused"]
         stats["prefill_windows_graph"] = self._prefill_windows["graph"]
         stats["prefill_windows_eager"] = self._prefill_windows["eager"]
+        stats["decode_steps_graph"] = self._decode_steps["graph"]
+        stats["decode_steps_eager"] = self._decode_steps["eager"]
         return stats
 
     def close(self) -> None:
@@ -2112,6 +2139,7 @@ class ServeEngine:
         if self._kv_layout == "paged":
             self._pool = None
             self._prefill_graphs = None
+            self._model.drop_decode_graphs()
         else:
             self._cache = None
             if self._prefix is not None:

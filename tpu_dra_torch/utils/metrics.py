@@ -287,9 +287,16 @@ SERVE_PREFILL_WINDOWS = REGISTRY.counter(
     "CUDA graphs, one CUDA device) vs eager (launched op by op: CPU and mesh "
     "engines)",
 )
+SERVE_DECODE_STEPS = REGISTRY.counter(
+    "tpu_dra_serve_decode_steps_total",
+    "Serve-engine decode steps by path: graph (a paged engine on one CUDA "
+    "device replaying its captured CUDA graphs) vs eager (launched op by op: "
+    "CPU, mesh and rows engines, and a step with no graphs for its pool)",
+)
 # Both series from the start, so a graph share reads 0, not absent.
 for _path in ("graph", "eager"):
     SERVE_PREFILL_WINDOWS.inc(0, path=_path)
+    SERVE_DECODE_STEPS.inc(0, path=_path)
 SERVE_MOE_ASSIGNMENTS = REGISTRY.counter(
     "tpu_dra_serve_moe_assignments_total",
     "Token-expert assignments a top-k expert model's layers computed, by "
