@@ -197,7 +197,9 @@ Phases, each asserted; any failure exits non-zero and prints no result:
     shapes (128 rows, contexts to 2,816), timed beside its bound; then
     the whole model through the paged engine, a few requests served
     through K3 (27 launches a decode step) with every prefill window
-    replayed from its graph, a decode tick at 128 rows timed, and the
+    and every decode step, the first included, replayed from the graphs
+    the engine captured when it was built, a decode tick at 128 rows
+    timed, and the
     served tokens against the plain reference (`tests/ref_mla_moe.py`);
 16. the kernels' JSON line (K1's rows also list each path's launches, K2's
     the trainer's, the sharded trainer's, the Ulysses trainer's, the
@@ -745,9 +747,9 @@ def serve(ServeEngine, params, cfg, stream, backend, kv_int8=False, warm_up=Fals
 
 def decode_paths(engines, label: str) -> str:
     """The engines' decode steps by path (`prefix_stats`): a paged engine
-    on one card replays every step from the graphs it captured when it
-    was built, a mesh or rows engine none.  Returns the graph path's
-    share as text."""
+    on one card, of either model, replays every step, its first
+    included, from the graphs it captured when it was built; a mesh or
+    rows engine none.  Returns the graph path's share as text."""
     graph = steps = 0
     for eng in engines:
         s = eng.prefix_stats
@@ -1553,7 +1555,7 @@ def phase_handoff(torch, serve_mod, swap_mod, pa, params, cfg, logits_at):
         staging = None
         if mode == "alias":  # one allocator and one pool dict for both
             pre._balloc, pre._pool = dec._balloc, dec._pool
-            pre._capture()  # its graphs, on the shared pool
+            pre._capture()  # the engine's graphs again, on the shared pool
         else:
             staging = swap_mod.HostBlockPool(4 * pre._table_cols)
         copies = []
@@ -4663,6 +4665,7 @@ def phase_moonlight(torch, serve_mod, mla_moe, k3):
     assert launches == 27 * eng.device_steps, (launches, eng.device_steps)
     stats = eng.prefix_stats
     assert stats["prefill_windows_eager"] == 0 and stats["prefill_windows_graph"] == 6 * 6
+    replayed = decode_paths([eng], "Moonlight engine")
     for _ in range(128):
         eng.submit(torch.randint(0, cfg.vocab_size, (384,), generator=rng).tolist(), 24)
     eng.tick()
@@ -4677,7 +4680,7 @@ def phase_moonlight(torch, serve_mod, mla_moe, k3):
     log(f"Moonlight decode tick at {eng.occupancy or 128} rows: median "
         f"{statistics.median(walls) * 1e3:.1f} ms; K3 launches {launches} = 27 x "
         f"{launches // 27} steps; prefill windows {stats['prefill_windows_graph']} replayed, 0 "
-        f"eager; memory peak {peak} B ({peak / 80e9:.1%} of 80 GB)")
+        f"eager; {replayed}; memory peak {peak} B ({peak / 80e9:.1%} of 80 GB)")
     done = [eng.request(i) for i in ids]
     eng.close()
     del eng

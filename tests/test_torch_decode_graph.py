@@ -1,7 +1,9 @@
 """The burn-in LM's paged decode step replayed as captured CUDA graphs
-(`paged.DecodeGraphs` over `paged._decode_parts`, the engine's graph
-path) against the port's own eager step (`paged.paged_decode_step_rows`),
-and which engines take which path.
+(the engine's graph path: `paged.PartGraphs` over
+`paged.PagedLM.decode_parts`, captured by `ServeEngine._capture` and
+replayed by `ServeEngine._decode_paged`) against the port's own eager
+step (`paged.paged_decode_step_rows`), and which engines take which
+path.
 
 The card tests (marked ``cuda``; each skips where torch sees no CUDA
 device) run at the ``burnin-lm-80g`` widths (vocab 32768, d_model 4096,
@@ -16,16 +18,19 @@ block but scratch, and the logits of every row that reads real blocks (a
 frozen or overrun row reads scratch, which the capture's warm-up and the
 overrun rows' racing writes fill, and the engine drops its logits, so
 such a row is held to nothing but running); the capture writes scratch alone and
-counts no K1 launch; two replays in a row each read their own inputs;
+counts no K1 launch; two replays in a row each read their own inputs
+(these cases serve a pool of their own through a decode-tier engine
+that captures again on it, as an alias tier does);
 greedy engines with the graphs (continuous and fused ticks, bf16 and
 int8) serve an eager engine's tokens with K1 counted 8 a step, and so
 does a two-replica `ServeFleet` on one card.  On a GPU host:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_decode_graph.py -q
 
-The CPU tests hold the eager path to its count and the one-device step
-to the prefill's block loop (`decode._run_blocks`) bitwise.  This module
-imports neither JAX nor the reference package."""
+The CPU tests hold the eager path to its count, the engine to counting
+the path each step took, the one-device step to the prefill's block loop
+(`decode._run_blocks`) bitwise, and K1 and K3 to one launch-count rule.
+This module imports neither JAX nor the reference package."""
 
 import threading
 
@@ -34,7 +39,7 @@ import torch
 
 from tpu_dra_torch.fleet import ServeFleet
 from tpu_dra_torch.parallel import burnin, decode, paged, quant
-from tpu_dra_torch.parallel.kernels import paged_attn
+from tpu_dra_torch.parallel.kernels import mla_decode, paged_attn
 from tpu_dra_torch.parallel.serve import ServeEngine
 from tpu_dra_torch.parallel.weights import cast_matrices
 from tpu_dra_torch.utils import metrics
@@ -140,14 +145,16 @@ def _assert_pools_equal(got, want):
         assert torch.equal(g[:, 1:], w[:, 1:])
 
 
-def _graph_seam(cfg, params, pool, backend, dev):
-    """A `PagedLM` with its decode step captured over static inputs of
-    zeros (the engine's layout: tokens, positions, then the tables)."""
-    seam = paged.PagedLM(cfg)
-    state = torch.zeros(2 * B + B * COLS, dtype=torch.int32, device=dev)
-    seam.capture_decode(params, pool, state[:B], state[2 * B:].view(B, COLS), state[B:2 * B],
-                        backend)
-    return seam
+def _engine_on(cfg, params, pool, backend, int8: bool):
+    """A decode-tier engine of `B` rows and `COLS` table columns (which
+    captures its step and no windows), its pool rebound to ``pool`` and
+    its step captured again there, as an alias tier's graphs are."""
+    eng = ServeEngine(params, cfg, slots=B, prompt_slots=COLS * W - 256, max_new_cap=256,
+                      prefix_window=W, kv_blocks=COLS + 1, attn_backend=backend,
+                      kv_int8=int8, tier="decode")
+    eng._pool = pool
+    eng._capture()
+    return eng
 
 
 @pytest.mark.cuda
@@ -159,14 +166,14 @@ class TestReplayIsTheEagerStep:
         table, pos, live, nb = _layout(cuda)
         want_pool = _pool(FULL, nb, cuda, int8)
         got_pool = paged._tree_map(torch.clone, want_pool)
-        seam = _graph_seam(FULL, params, got_pool, backend, cuda)
+        eng = _engine_on(FULL, params, got_pool, backend, int8)
         tok = torch.arange(B, dtype=torch.int32, device=cuda) * 251 % FULL.vocab
         before = paged_attn.paged_attention.launches
         for step in range(STEPS):
             want, _ = paged.paged_decode_step_rows(params, tok, want_pool, table, pos, FULL,
                                                    backend=backend)
-            got, _ = seam.decode(params, tok, got_pool, table, pos, backend)
-            assert seam.decode_path == "graph"
+            got, path = eng._decode_paged(tok, table, pos)
+            assert path == "graph"
             real = _reads_real_blocks(table, pos)
             assert 100 < int(real.sum()) < B
             assert torch.equal(got[real], want[real]), step
@@ -184,7 +191,7 @@ class TestReplayIsTheEagerStep:
         pool = _pool(FULL, nb, cuda, int8)
         before_pool = paged._tree_map(torch.clone, pool)
         before = paged_attn.paged_attention.launches
-        _graph_seam(FULL, params, pool, "cuda", cuda)
+        _engine_on(FULL, params, pool, "cuda", int8)
         torch.cuda.synchronize()
         assert paged_attn.paged_attention.launches == before
         _assert_pools_equal(pool, before_pool)
@@ -196,13 +203,13 @@ class TestReplayIsTheEagerStep:
         table, pos, _, nb = _layout(cuda)
         want_pool = _pool(FULL, nb, cuda, False)
         got_pool = paged._tree_map(torch.clone, want_pool)
-        seam = _graph_seam(FULL, params, got_pool, "cuda", cuda)
+        eng = _engine_on(FULL, params, got_pool, "cuda", False)
         tok_a = torch.arange(B, dtype=torch.int32, device=cuda) * 7 % FULL.vocab
         tok_b = torch.arange(B, dtype=torch.int32, device=cuda) * 13 % FULL.vocab
         table_b = table.flip(0).contiguous()
         pos_b = (pos.flip(0) + 1).contiguous()
-        got_a = seam.decode(params, tok_a, got_pool, table, pos, "cuda")[0].clone()
-        got_b = seam.decode(params, tok_b, got_pool, table_b, pos_b, "cuda")[0]
+        got_a = eng._decode_paged(tok_a, table, pos)[0].clone()
+        got_b = eng._decode_paged(tok_b, table_b, pos_b)[0]
         want_a, _ = paged.paged_decode_step_rows(params, tok_a, want_pool, table, pos, FULL,
                                                  backend="cuda")
         want_b, _ = paged.paged_decode_step_rows(params, tok_b, want_pool, table_b, pos_b, FULL,
@@ -253,7 +260,7 @@ class TestEngineOnTheCard:
         assert _steps(eng) == (eng.device_steps, 0)
         eng.close()
         ref = ServeEngine(params, FULL, **spec)
-        ref._model.drop_decode_graphs()  # the eager path, as the oracle
+        ref._step_graphs = None  # the eager step, as the oracle
         assert _drain(ref, stream) == got
         assert _steps(ref) == (0, ref.device_steps)
         ref.close()
@@ -274,7 +281,7 @@ class TestEngineOnTheCard:
                        for r in range(2)]
             if not graphs:
                 for e in engines:
-                    e._model.drop_decode_graphs()
+                    e._step_graphs = None
             fleet = ServeFleet(engines, seed=3, name=f"fleet-dg-{graphs}",
                                max_queue_per_replica=64)
             before = paged_attn.paged_attention.launches
@@ -292,9 +299,9 @@ class TestEngineOnTheCard:
     def test_closed_engine_drops_its_decode_graphs(self, cuda):
         params = cast_matrices(burnin.init_params(SMALL, device=cuda))
         eng = ServeEngine(params, SMALL, **ENGINE)
-        assert eng._model._decode_graphs is not None
+        assert eng._step_graphs is not None
         eng.close()
-        assert eng._model._decode_graphs is None
+        assert eng._step_graphs is None
 
 
 # -- the CPU: the eager path and its count ----------------------------------
@@ -317,7 +324,7 @@ class TestEagerPath:
         before = {p: metrics.SERVE_DECODE_STEPS.value(path=p) for p in ("graph", "eager")}
         eng = ServeEngine(_cpu_params(int8), SMALL, device="cpu", kv_int8=int8,
                           scheduling=scheduling, steps_per_tick=3, **ENGINE)
-        assert eng._model._decode_graphs is None
+        assert eng._step_graphs is None
         _drain(eng, _small_stream())
         assert eng.device_steps > 0 and _steps(eng) == (0, eng.device_steps)
         moved = {p: metrics.SERVE_DECODE_STEPS.value(path=p) - before[p]
@@ -330,20 +337,31 @@ class TestEagerPath:
         assert eng.device_steps > 0 and _steps(eng) == (0, eng.device_steps)
 
     def test_engine_counts_the_path_the_seam_reports(self):
+        """The engine counts the path each step took: a replay of the step
+        graphs it holds (here a stand-in two steps in three, which runs the
+        model's step op by op) or the model's eager step.  The tokens are
+        a plain CPU engine's."""
         eng = ServeEngine(_cpu_params(False), SMALL, device="cpu", **ENGINE)
-        model, reported = eng._model, []
-        real = model.decode
+        took, real = [], eng._decode_paged
 
-        def decode(*args):
-            out = real(*args)
-            model.decode_path = "graph" if len(reported) % 3 else "eager"
-            reported.append(model.decode_path)
-            return out
+        class StandIn:
+            def replay(self, tok, table, pos):
+                took.append("graph")
+                return {"logits": eng._model.decode(eng.params, tok, eng._pool, table, pos,
+                                                    eng.attn_backend)[0]}
 
-        model.decode = decode
-        _drain(eng, _small_stream())
-        assert _steps(eng) == (reported.count("graph"), reported.count("eager"))
-        assert len(reported) == eng.device_steps and "graph" in reported
+        def decode_paged(tok, table, pos):
+            eng._step_graphs = StandIn() if len(took) % 3 else None
+            if eng._step_graphs is None:
+                took.append("eager")
+            return real(tok, table, pos)
+
+        eng._decode_paged = decode_paged
+        got = _drain(eng, _small_stream())
+        assert _steps(eng) == (took.count("graph"), took.count("eager"))
+        assert len(took) == eng.device_steps and "graph" in took
+        plain = ServeEngine(_cpu_params(False), SMALL, device="cpu", **ENGINE)
+        assert got == _drain(plain, _small_stream())
 
     def test_keys_and_family_start_at_zero_on_both_paths(self):
         eng = ServeEngine(_cpu_params(False), SMALL, device="cpu", **ENGINE)
@@ -392,6 +410,20 @@ class TestStepIsTheBlockLoop:
 
 
 class TestK1Counter:
+    def test_one_rule_for_k1_and_k3(self):
+        """K3 counts as K1 does: nothing a thread launches inside either
+        kernel's `uncounted`, a replay's launches through `note_replays`."""
+        before = mla_decode.mla_decode.launches, paged_attn.paged_attention.launches
+        with paged_attn.uncounted():
+            mla_decode._count.launched(mla_decode.mla_decode)
+            paged_attn._count_launch()
+        with mla_decode.uncounted():
+            mla_decode._count.launched(mla_decode.mla_decode)
+        assert (mla_decode.mla_decode.launches, paged_attn.paged_attention.launches) == before
+        mla_decode.note_replays(27)
+        mla_decode._count.launched(mla_decode.mla_decode)
+        assert mla_decode.mla_decode.launches == before[0] + 28
+
     def test_note_replays_adds_launches(self):
         before = paged_attn.paged_attention.launches
         paged_attn.note_replays(8)

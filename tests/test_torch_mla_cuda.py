@@ -20,8 +20,10 @@ captured graph, and the served tokens and their logprobs against the
 plain f32 reference (`ref_mla_moe`, TF32 off) that follows the engine's
 expert choices: every gap and logprob within ``2**-5`` of the logits'
 scale (the port's bf16 products and latent cache, as on the CPU).  The
-decode step replayed from its captured graphs is held to the same step
-run op by op."""
+engine captures its windows and its step when it is built, its first
+served step is a replay, and the capture's warm-up leaves the expert
+tally and the routes at zero.  The decode step replayed from its
+captured graphs is held to the same step run op by op."""
 
 import dataclasses
 
@@ -96,6 +98,30 @@ def test_engine_launches_k3_once_a_layer_and_replays_every_window(cuda):
 
 
 @pytest.mark.cuda
+def test_engine_captures_at_build_and_replays_its_first_step(cuda):
+    """Both graphs exist once the engine is built, the tally and the
+    routes read zero there, and every decode step from the first is a
+    replay: the tally then sums the prompt's real tokens and every slot's
+    row a step, six assignments each, and nothing of the warm-up."""
+    params = mm.init_params(NARROW, 5, cuda)
+    eng = ServeEngine(params, NARROW, device=cuda, record_routes=True, slots=4,
+                      prompt_slots=128, max_new_cap=64, prefix_window=32)
+    assert eng._prefill_graphs is not None and eng._step_graphs is not None
+    model = eng._model
+    assert not model.tally.any() and not model.routes.any()
+    before = k3.mla_decode.launches
+    rid = eng.submit(list(range(1, 40)), 3)
+    eng.run()
+    steps = eng.device_steps
+    stats = eng.prefix_stats
+    assert steps >= 2 and (stats["decode_steps_graph"], stats["decode_steps_eager"]) == (steps, 0)
+    assert k3.mla_decode.launches - before == 27 * steps
+    assert (model.tally.sum(-1) == 6 * (39 + 4 * steps)).all()
+    assert eng.request(rid).routes.shape == (39 + 2, 26, 6)
+    eng.close()
+
+
+@pytest.mark.cuda
 def test_decode_graphs_replay_the_eager_step(cuda):
     """The decode step replayed from its captured graphs against the same
     step run op by op from the same pool, three steps, rows at positions
@@ -109,10 +135,11 @@ def test_decode_graphs_replay_the_eager_step(cuda):
     starts both from the same pool, and a row whose choices differ is
     left out)."""
     params = mm.init_params(NARROW, 11, cuda)
-    seams = [mm.PagedMlaMoe(NARROW, slots=4, positions=256, record_routes=True)
-             for _ in range(2)]
-    served = seams[0].prepare(params)
-    pools = [s.init_pool(40, 32, kv_int8=False, device=cuda, mesh=None) for s in seams]
+    eng = ServeEngine(params, NARROW, device=cuda, record_routes=True, slots=4,
+                      prompt_slots=128, max_new_cap=128, prefix_window=32, kv_blocks=40)
+    eager = mm.PagedMlaMoe(NARROW, slots=4, positions=256, record_routes=True)
+    seams, served = [eng._model, eager], eng.params
+    pools = [eng._pool, eager.init_pool(40, 32, kv_int8=False, device=cuda, mesh=None)]
     g = torch.Generator(device=cuda).manual_seed(12)
     pools[0]["latent"].copy_(torch.randn(pools[0]["latent"].shape, generator=g, device=cuda))
     table = torch.arange(1, 33, dtype=torch.int32, device=cuda).view(4, 8)
@@ -122,12 +149,10 @@ def test_decode_graphs_replay_the_eager_step(cuda):
     before = k3.mla_decode.launches
     for step in range(3):
         pools[1]["latent"].copy_(pools[0]["latent"])
-        graphed, _ = seams[0].decode(served, tok, pools[0], table, pos + step, "cuda")
+        graphed, path = eng._decode_paged(tok, table, pos + step)
+        assert path == "graph"
         graphed = graphed.clone()
-        st = {"tok": tok, "table": table, "pos": pos + step}
-        for _, part in seams[1]._decode_parts(served, pools[1], "cuda"):
-            part(st)
-        want = st["logits"]
+        want, _ = eager.decode(served, tok, pools[1], table, pos + step, "cuda")
         at = (pos + step).long()
         chose = [s.routes[rows, at].sort(-1).values for s in seams]
         alike = (chose[0] == chose[1]).flatten(1).all(-1)

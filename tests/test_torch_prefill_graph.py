@@ -1,7 +1,7 @@
-"""The paged admission prefill replayed as captured CUDA graphs
-(`paged.PrefillGraphs`, the engine's graph path) against the port's own
-eager prefill (`paged.make_paged_prefill`), and which engines take which
-path.
+"""The paged admission prefill replayed as captured CUDA graphs (the
+engine's graph path: `paged.PartGraphs` over `paged.PagedLM.prefill_parts`,
+captured by `ServeEngine._capture`) against the port's own eager prefill
+(`paged.make_paged_prefill`), and which engines take which path.
 
 The card tests (marked ``cuda``; each skips where torch sees no CUDA
 device) hold the replay BITWISE equal to the eager windows: the same
@@ -13,7 +13,10 @@ the capture's writes (scratch block 0 alone), and engines: a graph
 engine's greedy tokens against an engine put on the eager path, with the
 prefix cache on, and the alias tiers of a `DisaggServer`, whose prefill
 tier captures again on the shared pool when the server is built (the
-decode tier captures nothing).  On a GPU host:
+decode tier captures no windows).  The bitwise cases serve a pool of
+their own through an engine that captures again on it, as an alias tier
+does, and prefill through the engine's own path (`_prefill_into`).  On a
+GPU host:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_prefill_graph.py -q
 
@@ -78,15 +81,29 @@ def _leaves(pool):
 
 def _request(dev, length: int, table_row, seed: int):
     """A prompt of ``length`` tokens: the eager prefill's ``(prompt (1,
-    P), lens (1,), table (1, cols))`` and the engine's staging row
-    (prompt, table row, length) that the graphs' ``staged`` takes."""
+    P), lens (1,), table (1, cols))`` and the engine's ``(tokens,
+    table_row)``."""
     g = torch.Generator().manual_seed(seed)
     prompt = torch.zeros((1, PROMPT_SLOTS), dtype=torch.int32)
     prompt[0, :length] = torch.randint(0, CFG.vocab, (length,), generator=g)
     table = torch.tensor([table_row], dtype=torch.int32)
     lens = torch.tensor([length], dtype=torch.int32)
-    row = torch.cat([prompt[0], table[0], lens])
-    return prompt.to(dev), lens.to(dev), table.to(dev), row.to(dev)
+    return prompt.to(dev), lens.to(dev), table.to(dev), (prompt[0, :length].tolist(), table_row)
+
+
+def _engine_on(pool, params, int8: bool, cfg=CFG):
+    """A card engine whose graphs are captured again on ``pool`` (as an
+    alias tier's are once its pool is rebound)."""
+    eng = ServeEngine(params, cfg, kv_int8=int8, **ENGINE)
+    eng._pool = pool
+    eng._capture()
+    return eng
+
+
+def _replay(eng, request, first_window: int, row: int = 0):
+    """The engine's graph path over ``request``'s staging row ``row``."""
+    tokens, table_row = request[3]
+    return eng._prefill_into(eng._prompt_stage[row], tokens, table_row, first_window)
 
 
 def _assert_pools_equal(got, want):
@@ -110,11 +127,11 @@ class TestReplayIsTheEagerPrefill:
     def test_last_and_blocks_bitwise(self, cuda, int8, first_window, length):
         params, pool = _params(cuda, int8), _pool(cuda, int8)
         want_pool, got_pool = _clone(pool), _clone(pool)
-        graphs = paged.PrefillGraphs(CFG, PROMPT_SLOTS, W, TABLE_COLS, params, got_pool)
-        prompt, lens, table, row = _request(cuda, length, [3, 1, 5, 2, 6, 4], seed=length)
-        graphs.staged.copy_(row)
-        got = graphs(first_window)
-        want = _eager(params, want_pool, prompt, lens, table, first_window)
+        eng = _engine_on(got_pool, params, int8)
+        req = _request(cuda, length, [3, 1, 5, 2, 6, 4], seed=length)
+        got = _replay(eng, req, first_window)
+        assert eng.prefix_stats["prefill_windows_graph"] == NWIN - first_window
+        want = _eager(params, want_pool, *req[:3], first_window)
         assert torch.equal(got, want)
         _assert_pools_equal(got_pool, want_pool)
 
@@ -125,13 +142,11 @@ class TestReplayIsTheEagerPrefill:
         run, the first's logits untouched by the second replay."""
         params, pool = _params(cuda, int8), _pool(cuda, int8)
         want_pool, got_pool = _clone(pool), _clone(pool)
-        graphs = paged.PrefillGraphs(CFG, PROMPT_SLOTS, W, TABLE_COLS, params, got_pool)
+        eng = _engine_on(got_pool, params, int8)
         a = _request(cuda, W + 1, [1, 2, 3, 4, 5, 6], seed=7)
         b = _request(cuda, PROMPT_SLOTS - 3, [7, 8, 9, 10, 11, 12], seed=8)
-        graphs.staged.copy_(a[3], non_blocking=True)
-        got_a = graphs(0)
-        graphs.staged.copy_(b[3], non_blocking=True)
-        got_b = graphs(0)
+        got_a = _replay(eng, a, 0, row=0)
+        got_b = _replay(eng, b, 0, row=1)
         want_a = _eager(params, want_pool, *a[:3], 0)
         want_b = _eager(params, want_pool, *b[:3], 0)
         assert not torch.equal(want_a, want_b)
@@ -143,24 +158,23 @@ class TestReplayIsTheEagerPrefill:
                                   seq=128, rope=True)
         params, pool = _params(cuda, False, cfg), _pool(cuda, False, cfg)
         want_pool, got_pool = _clone(pool), _clone(pool)
-        graphs = paged.PrefillGraphs(cfg, PROMPT_SLOTS, W, TABLE_COLS, params, got_pool)
-        prompt, lens, table, row = _request(cuda, 2 * W + 5, [2, 4, 6, 1, 3, 5], seed=9)
-        graphs.staged.copy_(row)
-        got = graphs(1)
-        assert torch.equal(got, _eager(params, want_pool, prompt, lens, table, 1, cfg))
+        eng = _engine_on(got_pool, params, False, cfg)
+        req = _request(cuda, 2 * W + 5, [2, 4, 6, 1, 3, 5], seed=9)
+        got = _replay(eng, req, 1)
+        assert torch.equal(got, _eager(params, want_pool, *req[:3], 1, cfg))
         _assert_pools_equal(got_pool, want_pool)
 
     @pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
     def test_capture_writes_scratch_alone(self, cuda, int8):
-        """The warm-up and the capture run on a table of scratch: every
-        other block keeps its bits."""
+        """The warm-up and the capture (the windows' and the step's) run on
+        tables of scratch: every other block keeps its bits."""
         params, pool = _params(cuda, int8), _pool(cuda, int8)
         before = _clone(pool)
-        graphs = paged.PrefillGraphs(CFG, PROMPT_SLOTS, W, TABLE_COLS, params, pool)
+        eng = _engine_on(pool, params, int8)
         torch.cuda.synchronize()
         _assert_pools_equal(pool, before)
-        with pytest.raises(ValueError, match="first_window"):
-            graphs(NWIN)
+        with pytest.raises(ValueError, match="first"):
+            eng._prefill_graphs.replay(NWIN)
 
 
 def _drain(eng, stream=STREAM, prefix=()):
@@ -189,8 +203,8 @@ class TestEngineOnTheCard:
         params = _params(cuda, int8)
         eng = ServeEngine(params, CFG, kv_int8=int8, **ENGINE)
         ref = ServeEngine(params, CFG, kv_int8=int8, **ENGINE)
-        ref._prefill_graphs = None  # the eager path, as the oracle
-        assert isinstance(eng._prefill_graphs, paged.PrefillGraphs)
+        ref._prefill_graphs = None  # the eager windows, as the oracle
+        assert isinstance(eng._prefill_graphs, paged.PartGraphs)
         assert _tokens(_drain(eng)) == _tokens(_drain(ref))
         assert _windows(eng) == (len(STREAM) * NWIN, 0)
         assert _windows(ref) == (0, len(STREAM) * NWIN)
@@ -221,7 +235,7 @@ class TestEngineOnTheCard:
         srv = DisaggServer(params, CFG, prefill=dict(tier), decode=dict(tier), handoff="alias")
         pre = srv._prefill
         assert pre._pool is srv._decode._pool
-        assert isinstance(pre._prefill_graphs, paged.PrefillGraphs)
+        assert isinstance(pre._prefill_graphs, paged.PartGraphs)
         assert srv._decode._prefill_graphs is None
         dids = [srv.submit([(3 * i + j) % CFG.vocab for j in range(n)], b)
                 for i, (n, b) in enumerate(STREAM)]

@@ -178,14 +178,14 @@ class TestRowsParity:
         jeng = JaxEngine(jparams, jcfg, **spec)
         teng = ServeEngine(tparams, tcfg, device="cpu", **spec)
         walked = []
-        real = td.decode_step_rows
+        real = td._step_rows
 
-        def spy(params, tok, cache, pos, config):
+        def spy(params, tok, cache, pos, config, rows=None):
             walked.append(int(pos.max()))
-            return real(params, tok, cache, pos, config)
+            return real(params, tok, cache, pos, config, rows)
 
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr("tpu_dra_torch.parallel.serve.decode_step_rows", spy)
+            mp.setattr("tpu_dra_torch.parallel.serve._step_rows", spy)
             want, got = lockstep(jeng, teng, reqs)
         assert max(walked) >= tcfg.seq and teng.wasted_steps > 0
         assert_tokens_match(jcfg, jparams, reqs, want, got, {})

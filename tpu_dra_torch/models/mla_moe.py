@@ -38,22 +38,21 @@ decode step runs the absorbed form: ``q_lat[h] = q_nope[h] @ W_UK[h]``
 layer (`kernels.mla_decode`, K3, on a card; its plain version or a
 gather on the CPU), then ``o[h] = o_lat[h] @ W_UV[h]``.  The two forms
 are one function in exact arithmetic; in bf16 they round at other
-points.  On a card the decode step is captured as CUDA graphs, one a
-block half, and replayed (`paged.DecodeGraphs`), as the prefill windows
-are.
+points.  On a card the engine captures the prefill windows and the
+decode step, one graph a window and a block half, and replays them
+(`paged.PartGraphs`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 
 import torch
 
 from tpu_dra_torch.parallel.kernels import mla_decode as k3
 from tpu_dra_torch.parallel.moe import swiglu, topk_moe_mlp
-from tpu_dra_torch.parallel.paged import DecodeGraphs, PrefillGraphs
+from tpu_dra_torch.parallel.paged import _clamp_to_reach, run_parts
 from tpu_dra_torch.utils import trace
 
 __all__ = [
@@ -339,8 +338,10 @@ def absorbed_dense(q, lat, pos, c: MlaMoeConfig):
 
 class PagedMlaMoe:
     """The model's side of `serve.ServeEngine`'s paged seam: its pool, its
-    prefill windows (eager, or captured as CUDA graphs), its decode step,
-    and the bookkeeping of the experts' assignments.
+    prefill windows and decode step (eager, or as the parts the engine
+    captures as CUDA graphs), and the bookkeeping of the experts'
+    assignments.  ``kernel`` is the decode kernel whose launch counter a
+    step on ``attn_backend="cuda"`` feeds (K3).
 
     ``tally`` (moe layers, E) int64 on the device sums the assignments of
     the tokens the expert layers computed: every decode row (an idle
@@ -352,6 +353,7 @@ class PagedMlaMoe:
 
     swap_tier = False  # the engine builds no host tier for it
     default_layout = "paged"
+    kernel = k3
 
     def __init__(self, config: MlaMoeConfig, *, slots: int, positions: int,
                  record_routes: bool):
@@ -362,9 +364,6 @@ class PagedMlaMoe:
         self.tally = None
         self.routes = None
         self._prefill_routes = None
-        self._decode_graphs: "DecodeGraphs | None" = None
-        # How the last `decode` ran: "graph" (replayed) or "eager".
-        self.decode_path = "eager"
 
     def refuse(self, *, kv_layout, kv_int8, quantized, prefix_cache_slots, host_kv_blocks,
                tier, mesh, **_engine_options) -> None:
@@ -428,7 +427,7 @@ class PagedMlaMoe:
                                       dtype=_BF16, device=dev)}
 
     # -- prefill -------------------------------------------------------------
-    def _window(self, params, prompt, lens, pool, table, last, p0: int, prompt_cols: int):
+    def _window(self, params, prompt, lens, pool, table, last, p0: int):
         """One prefill window at ``p0`` of a (B, P) padded prompt: its
         latents into block column ``p0 // W`` of ``table``, the expanded
         attention over the prompt's blocks, and ``last`` (B, V) takes the
@@ -436,12 +435,12 @@ class PagedMlaMoe:
         c = self.config
         lat_pool = pool["latent"]
         W = lat_pool.shape[2]
-        B, dev = prompt.shape[0], prompt.device
+        (B, P), dev = prompt.shape, prompt.device
         positions = p0 + torch.arange(W, device=dev)
         cos, sin = rope_tables(positions[None], c)
-        mask = (torch.arange(prompt_cols * W, device=dev)[None, :] <= positions[:, None])[None]
+        mask = (torch.arange(P, device=dev)[None, :] <= positions[:, None])[None]
         blk = table[:, p0 // W].long()
-        cols = table[:, :prompt_cols].long()
+        cols = table[:, :P // W].long()
         # The real prompt tokens' assignments count, pads do not.
         real = (positions[None, :] < lens.long()[:, None]).reshape(-1).long()
         real = real.repeat_interleave(c.num_experts_per_tok)
@@ -451,7 +450,7 @@ class PagedMlaMoe:
             with trace.range(ATTN_RANGE):
                 q_nope, q_pe, lat = _project(layer, x, c, cos, sin)
                 lat_pool[i].index_put_((blk,), lat)
-                ctx = lat_pool[i][cols].reshape(B, prompt_cols * W, -1)
+                ctx = lat_pool[i][cols].reshape(B, P, -1)
                 o = _attend_expanded(layer, q_nope, q_pe, ctx, mask, c)
                 x = x + (o @ layer["wo"]).float()
             x, topi, _ = _mlp_half(layer, x, c)
@@ -465,38 +464,35 @@ class PagedMlaMoe:
         xl = x[torch.arange(B, device=dev), off.clamp(0, W - 1)]
         return torch.where(hit[:, None], _logits(params, xl[:, None], c)[:, 0], last)
 
-    def _prefill_buffers(self, prompt_slots: int, device) -> None:
+    def prefill_parts(self, params, pool, st: dict) -> list:
+        """The prefill's windows as parts, in order: window ``i`` reads
+        ``st["prompt"]`` (B, P), ``st["lens"]`` (B,) and ``st["table"]``
+        and updates ``st["last"]`` (B, V) in place (`_window`)."""
         c = self.config
+        W, P = pool["latent"].shape[2], st["prompt"].shape[1]
         if self.record_routes and c.n_moe_layers and self._prefill_routes is None:
-            self._prefill_routes = torch.zeros(
-                (prompt_slots, c.n_moe_layers, c.num_experts_per_tok), dtype=torch.uint8,
-                device=device)
+            self._prefill_routes = torch.zeros((P, c.n_moe_layers, c.num_experts_per_tok),
+                                               dtype=torch.uint8, device=pool["latent"].device)
+
+        def window(p0: int):
+            def part(st):
+                st["last"].copy_(self._window(params, st["prompt"], st["lens"], pool, st["table"],
+                                              st["last"], p0))
+            return part
+
+        return [(None, window(i * W)) for i in range(P // W)]
 
     def make_prefill(self, prompt_slots: int, block_size: int, mesh=None):
         """The eager prefill: ``prefill(params, prompt, lens, pool, table,
         first_window=0) -> (last, pool)`` over windows ``[first_window,
         prompt_slots / W)`` (`paged.make_paged_prefill`'s contract)."""
-        nwin = prompt_slots // block_size
 
         def prefill(params, prompt, lens, pool, table, first_window=0):
-            self._prefill_buffers(prompt_slots, prompt.device)
             last = torch.zeros((prompt.shape[0], self.config.vocab_size), device=prompt.device)
-            for i in range(first_window, nwin):
-                last = self._window(params, prompt, lens, pool, table, last, i * block_size, nwin)
-            return last, pool
+            st = {"prompt": prompt, "lens": lens, "table": table, "last": last}
+            return run_parts(self.prefill_parts(params, pool, st), st, first_window)["last"], pool
 
         return prefill
-
-    def capture(self, prompt_slots: int, block_size: int, table_cols: int, params, pool):
-        """The windows captured as CUDA graphs (`paged.PrefillGraphs`)."""
-        self._prefill_buffers(prompt_slots, pool["latent"].device)
-        nwin = prompt_slots // block_size
-
-        def window(prompt, lens, table, last, p0):
-            return self._window(params, prompt, lens, pool, table, last, p0, nwin)
-
-        return PrefillGraphs(self.config, prompt_slots, block_size, table_cols, params, pool,
-                             window_fn=window, device=pool["latent"].device)
 
     def admitted(self, row: int, length: int) -> None:
         """A row's prefill ran: its prompt's routes into the row's record."""
@@ -516,19 +512,12 @@ class PagedMlaMoe:
         req.routes = self.fed_routes(row, req)
 
     # -- decode --------------------------------------------------------------
-    def capture_decode(self, params, pool, tok, table, pos, backend: str) -> None:
-        """Nothing captured at build: the first step on a card runs op by
-        op over its real inputs and captures the step (`decode`)."""
-
-    def drop_decode_graphs(self) -> None:
-        self._decode_graphs = None
-
-    def _decode_parts(self, params, pool, backend: str) -> list:
+    def decode_parts(self, params, pool, backend: str) -> list:
         """The decode step cut at its block halves, in order: ``(name,
         part)`` pairs, each ``part(st)`` reading and writing the step's
         state ``st`` (the inputs ``tok``, ``table``, ``pos``; the residual
         stream ``x``; ``logits`` at the end).  ``name`` is the range a
-        replay of the part's graph runs under (`paged.DecodeGraphs`);
+        replay of the part's graph runs under (`paged.PartGraphs`);
         eagerly the parts open their own ranges."""
         c = self.config
         lat_pool = pool["latent"]
@@ -536,11 +525,7 @@ class PagedMlaMoe:
         R = c.kv_lora_rank
 
         def head(st):
-            table, pos = st["table"], st["pos"]
-            reach = min(table.shape[1] * W, c.seq)
-            over = pos >= reach
-            pos = pos.clamp(max=reach - 1)
-            table = torch.where(over[:, None], 0, table)
+            table, pos = _clamp_to_reach(st["table"], st["pos"], W, c.seq)
             rows = torch.arange(pos.shape[0], device=pos.device)
             st["cos"], st["sin"] = rope_tables(pos[:, None], c)
             st["blk"] = table[rows, (pos // W).long()].long()
@@ -587,31 +572,20 @@ class PagedMlaMoe:
             parts.append((MOE_RANGE if j >= 0 else None, mlp(j, layer)))
         return parts + [(None, tail)]
 
-    def decode(self, params, tok, pool, table, pos, backend: str):
-        """One decode step of every row, each at its own position through
-        its block table (`paged.paged_decode_step_rows`' contract: a row at
-        or past its reach runs at the reach's last position over scratch).
-        ``backend`` ``"cuda"``: K3 (its plain version on CPU tensors);
-        ``"gather"``: the table's reach gathered and contracted densely.
-        On a card with K3 the first step runs op by op and is captured,
-        and later steps of the same shapes, params and pool replay it
-        (`paged.DecodeGraphs`): the logits are then the graphs' static
-        output, valid until the next call; `decode_path` says which ran.
+    def captured(self) -> None:
+        """The engine captured the parts: their warm-up step added to the
+        tally and wrote routes, both zero before it, so both are zeroed."""
+        self.tally.zero_()
+        if self.routes is not None:
+            self.routes.zero_()
+
+    def decode(self, params, tok, pool, table, pos, backend: str, rows=None):
+        """One decode step of every row op by op, each at its own position
+        through its block table (`paged.paged_decode_step_rows`' contract:
+        a row at or past its reach runs at the reach's last position over
+        scratch).  ``backend`` ``"cuda"``: K3 (its plain version on CPU
+        tensors); ``"gather"``: the table's reach gathered and contracted
+        densely.  ``rows`` is always None: `refuse` keeps meshes out.
         Returns ``(logits (B, V) f32, pool)``."""
-        if backend == "cuda" and tok.device.type == "cuda":
-            key = (id(params), pool["latent"].data_ptr(), tok.shape[0], table.shape[1])
-            graphs = self._decode_graphs
-            if graphs is not None and graphs.key == key:
-                self.decode_path = "graph"
-                return graphs(tok, table, pos), pool
-            self.drop_decode_graphs()  # the old graphs' memory first
-            graphs = DecodeGraphs(key, self._decode_parts(params, pool, backend),
-                                  functools.partial(k3.note_replays, self.config.n_layers))
-            self._decode_graphs = graphs
-            self.decode_path = "eager"
-            return graphs.capture(tok.clone(), table.clone(), pos.clone()), pool
-        self.decode_path = "eager"
         st = {"tok": tok, "table": table, "pos": pos}
-        for _, part in self._decode_parts(params, pool, backend):
-            part(st)
-        return st["logits"], pool
+        return run_parts(self.decode_parts(params, pool, backend), st)["logits"], pool

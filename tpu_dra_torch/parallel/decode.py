@@ -112,7 +112,7 @@ __all__ = [
 ]
 
 # The profiler range over each decode block's attention half, eager or
-# replayed from a captured graph (`paged.DecodeGraphs`).
+# replayed from a captured graph (`paged.PartGraphs`).
 ATTN_RANGE = "decode.attn"
 
 def serving_config(config: BurninConfig) -> BurninConfig:

@@ -36,9 +36,10 @@ contraction.
   point (the probabilities rounded to bf16 before their product with
   ``c_kv``).  The CPU runs it; the card holds the kernel against it.
 - `mla_decode`: the public entry.  CPU tensors go to the plain version;
-  CUDA tensors launch the kernel (and bump ``mla_decode.launches``; a
-  launch recorded into a CUDA graph is not counted, and `note_replays`
-  counts the graph's replays instead); anything else raises.
+  CUDA tensors launch the kernel (and bump ``mla_decode.launches``,
+  except inside `uncounted`: a decode graph's warm-up and capture;
+  `note_replays` counts a graph's replays instead); anything else
+  raises.
 """
 
 from __future__ import annotations
@@ -49,7 +50,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["mla_decode", "mla_decode_plain", "note_replays", "split_count"]
+from tpu_dra_torch.parallel.kernels import _count
+from tpu_dra_torch.parallel.kernels._count import uncounted
+
+__all__ = ["mla_decode", "mla_decode_plain", "note_replays", "split_count", "uncounted"]
 
 _NEG = -1.0e30
 # The card's SMs: enough programs are launched to give each about two.
@@ -67,15 +71,9 @@ _LOCK = threading.Lock()
 _COUNTERS: "dict[tuple[int, int], torch.Tensor]" = {}
 
 
-def _count_launch() -> None:
-    with _LOCK:
-        mla_decode.launches += 1
-
-
 def note_replays(n: int) -> None:
     """Count ``n`` launches run by replaying captured CUDA graphs."""
-    with _LOCK:
-        mla_decode.launches += n
+    _count.add(mla_decode, n)
 
 
 def split_count(rows: int, max_blocks: int) -> int:
@@ -190,8 +188,7 @@ def _launch(q, pool, table, pos, v_dim: int, scale: float):
         H=H, HP=hp, DL=v_dim, DR=dr, W=W, S=S, BLOCK_N=min(BLOCK_N, W),
         num_warps=WARPS, num_stages=2,
     )
-    if not torch.cuda.is_current_stream_capturing():
-        _count_launch()
+    _count.launched(mla_decode)
     return out
 
 

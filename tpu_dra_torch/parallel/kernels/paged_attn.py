@@ -25,52 +25,27 @@ reference's ``_block_kv``.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import threading
 
 import torch
 
 from tpu_dra_torch.parallel.burnin import bf16_scalar
+from tpu_dra_torch.parallel.kernels import _count
+from tpu_dra_torch.parallel.kernels._count import uncounted
 from tpu_dra_torch.parallel.quant import is_quantized_leaf
 
 __all__ = ["note_replays", "paged_attention", "paged_attention_plain", "uncounted"]
 
 _NEG_INF = -1e30
 
-# Guards the launch counter: replicas of a fleet launch from their own
-# threads, and ``launches += 1`` is a read and a write an update of
-# another thread can fall between.
-_LAUNCHES_LOCK = threading.Lock()
-# ``off`` is true on a thread inside `uncounted`.
-_UNCOUNTED = threading.local()
-
 
 def _count_launch() -> None:
-    """Add one to ``paged_attention.launches``, exactly, from any thread
-    outside `uncounted`."""
-    if getattr(_UNCOUNTED, "off", False):
-        return
-    with _LAUNCHES_LOCK:
-        paged_attention.launches += 1
+    _count.launched(paged_attention)
 
 
 def note_replays(n: int) -> None:
     """Count ``n`` launches run by replaying captured CUDA graphs."""
-    with _LAUNCHES_LOCK:
-        paged_attention.launches += n
-
-
-@contextlib.contextmanager
-def uncounted():
-    """Launches this thread makes inside the block are not counted: a
-    decode graph's warm-up on scratch and its capture, which serve no
-    step."""
-    _UNCOUNTED.off = True
-    try:
-        yield
-    finally:
-        _UNCOUNTED.off = False
+    _count.add(paged_attention, n)
 
 
 def _sqrt_d(K: int) -> float:

@@ -24,8 +24,9 @@ privatization).  The rule they serve: a block with more than one owner
 is never written.
 
 On one CUDA device the engine replays its admission windows and its
-decode step from CUDA graphs captured when it is built (`PrefillGraphs`,
-`DecodeGraphs`).
+decode step from CUDA graphs captured when it is built: the model hands
+it both as parts (`PagedLM.prefill_parts`, `PagedLM.decode_parts`), and
+`PartGraphs` captures and replays them.
 
 On a mesh (``mesh=`` on `init_block_pool`, `paged_decode_step_rows` and
 `make_paged_prefill`; `block_pool_spec`) a rank holds its heads of every
@@ -42,7 +43,6 @@ the gather.
 
 from __future__ import annotations
 
-import functools
 import time
 
 import torch
@@ -69,6 +69,7 @@ from tpu_dra_torch.parallel.decode import (
     _zeros_kv,
 )
 from tpu_dra_torch.parallel.device import resolve_device
+from tpu_dra_torch.parallel.kernels import paged_attn
 from tpu_dra_torch.parallel.moe import expert_capacity
 from tpu_dra_torch.parallel.quant import dequantize_bf16, is_quantized_leaf
 from tpu_dra_torch.parallel.weights import cast_matrices
@@ -77,15 +78,15 @@ from tpu_dra_torch.utils.metrics import SERVE_KV_BLOCK_AGE_SECONDS
 
 __all__ = [
     "BlockAllocator",
-    "DecodeGraphs",
     "PagedLM",
-    "PrefillGraphs",
+    "PartGraphs",
     "block_pool_spec",
     "copy_block",
     "init_block_pool",
     "make_paged_prefill",
     "paged_decode_step_rows",
     "read_block",
+    "run_parts",
     "write_block",
 ]
 
@@ -264,9 +265,7 @@ def _paged_step(params, tok, pool, table, pos, config: BurninConfig, backend: st
     rank's fsdp group's rows."""
     if rows is None:
         st = {"tok": tok, "table": table, "pos": pos}
-        for _, part in _decode_parts(params, pool, config, backend):
-            part(st)
-        return st["logits"], pool
+        return run_parts(_decode_parts(params, pool, config, backend), st)["logits"], pool
     W = _pool_block_size(pool)
     table, pos = _clamp_to_reach(table, pos, W, config.seq)
     own = rows.own(pos)
@@ -300,7 +299,7 @@ def _decode_parts(params, pool, config: BurninConfig, backend: str) -> list:
     attention and MLP halves (an int8 layer's matrices dequantized in
     the half that reads them), and the tail's final norm and logits.
     ``name`` is the range a replay of the part's graph runs under
-    (`DecodeGraphs`); eagerly the attention half opens it itself."""
+    (`PartGraphs`); eagerly the attention half opens it itself."""
     c = config
     W = _pool_block_size(pool)
     mlp_leaves = [n for n in params["layers"] if n not in _ATTN_LEAVES]
@@ -357,8 +356,9 @@ def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int, mes
     blocks (overwritten by decode before the mask reaches them) or into
     scratch.  On a ``mesh`` the prompt, lengths and table are global, the
     pool the rank's heads, ``last`` the rank's rows (a B=1 admission is
-    replicated over data x fsdp: every rank prefills it).  `PrefillGraphs`
-    replays the same windows as captured CUDA graphs."""
+    replicated over data x fsdp: every rank prefills it).  On one CUDA
+    device the engine replays the same windows as captured CUDA graphs
+    (`PagedLM.prefill_parts`)."""
     c = config
     _check_prefix_window(c, prompt_slots, window)
     W = window
@@ -366,7 +366,8 @@ def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int, mes
     place = _place(mesh)
 
     def prefill(params, prompt, lens_c, pool, table, first_window=0):
-        _check_first_window(first_window, nwin)
+        if not 0 <= first_window < nwin:
+            raise ValueError(f"first_window must be in [0, {nwin}), got {first_window}")
         rows = _rows(place, prompt.shape[0])
         if rows is None:
             kv = _PagedKV(table, W)
@@ -380,11 +381,6 @@ def make_paged_prefill(config: BurninConfig, prompt_slots: int, window: int, mes
         return (last if rows is None else rows.own_of_group(last)), pool
 
     return prefill
-
-
-def _check_first_window(first_window: int, nwin: int) -> None:
-    if not 0 <= first_window < nwin:
-        raise ValueError(f"first_window must be in [0, {nwin}), got {first_window}")
 
 
 def _prefill_window(params, prompt, lens_c, pool, kv: _PagedKV, last, p0: int,
@@ -417,152 +413,69 @@ def _prefill_window(params, prompt, lens_c, pool, kv: _PagedKV, last, p0: int,
     return torch.where(hit[:, None], cand, last), pool
 
 
-class PrefillGraphs:
-    """`make_paged_prefill`'s B=1 admission prefill on one CUDA device,
-    each window captured once as a CUDA graph and replayed: the same
-    kernels in the same order on the caller's stream as the eager
-    windows, over static device inputs, so one launch runs a window's
-    gathers, products and writes of every layer.  ``window_fn(prompt,
-    lens, table, last, p0) -> last`` runs another model's window in
-    place of the burn-in LM's (``device`` then names the card).
-
-    The inputs live in one device buffer, ``staged``: the padded prompt
-    ``(prompt_slots,)``, the table row ``(table_cols,)`` and the length,
-    the layout of the engine's staging row; the caller copies a row into
-    it before `__call__`.  ``last`` (1, vocab) is static too: every
-    window graph updates it in place, and `__call__` hands back a copy,
-    since the next admission's replay rewrites it before a wave reads
-    its logits.  The graphs address ``params`` and ``pool`` as they are
-    at capture: a caller that rebinds its pool captures again.
-
-    Capture runs on the constructing thread (``thread_local`` error
-    mode, so other threads' CUDA work does not void it) on a side
-    stream, after one warm-up pass of every window there, with the table
-    on scratch block 0 and the prompt and length zero: the pool's real
-    blocks take no write.  The windows share one private memory pool;
-    replays run in window order on one stream, so their intermediates
-    never overlap in time."""
-
-    def __init__(self, config: BurninConfig, prompt_slots: int, window: int,
-                 table_cols: int, params, pool, *, window_fn=None, device=None):
-        c = config
-        W, P = window, prompt_slots
-        if window_fn is None:
-            _check_prefix_window(c, P, W)
-        self.nwin = P // W
-        dev = _values(pool["k"]).device if device is None else device
-        self.staged = torch.zeros(P + table_cols + 1, dtype=torch.int32, device=dev)
-        self.last = torch.zeros((1, c.vocab), device=dev)
-        prompt, lens = self.staged[None, :P], self.staged[-1:]
-        table = self.staged[None, P:P + table_cols]
-        if window_fn is None:
-            kv = _PagedKV(table, W)
-
-            def window_fn(prompt, lens, table, last, p0):
-                return _prefill_window(params, prompt, lens, pool, kv, last, p0, c)[0]
-
-        def run(i: int) -> None:
-            self.last.copy_(window_fn(prompt, lens, table, self.last, i * W))
-
-        with torch.cuda.device(dev):
-            caller, stream = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
-            stream.wait_stream(caller)
-            with torch.cuda.stream(stream):
-                for i in range(self.nwin):
-                    run(i)
-            mempool = torch.cuda.graph_pool_handle()
-            self._graphs = []
-            for i in range(self.nwin):
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=mempool, stream=stream,
-                                      capture_error_mode="thread_local"):
-                    run(i)
-                self._graphs.append(graph)
-            # The warm-up's writes (scratch, ``last``) before the caller's
-            # next work.
-            caller.wait_stream(stream)
-
-    def __call__(self, first_window: int = 0) -> torch.Tensor:
-        """Replay windows ``[first_window, nwin)`` over ``staged``;
-        returns a copy of ``last``."""
-        _check_first_window(first_window, self.nwin)
-        self.last.zero_()
-        for graph in self._graphs[first_window:]:
-            graph.replay()
-        return self.last.clone()
+def run_parts(parts: list, st: dict, first: int = 0) -> dict:
+    """Run ``(name, part)`` pairs ``[first, n)`` op by op over ``st``
+    (each ``part(st)`` reads and writes it); returns ``st``."""
+    for _, part in parts[first:]:
+        part(st)
+    return st
 
 
-class DecodeGraphs:
-    """A paged model's decode step on one CUDA card, each of its parts
-    (``(name, part)`` pairs in order, each ``part(st)`` reading and
-    writing the step's state: `_decode_parts` for the burn-in LM,
-    `models.mla_moe.PagedMlaMoe._decode_parts` for DeepSeek-V3's block)
-    captured as a CUDA graph and replayed in order on the caller's
-    stream, so the host issues one graph a part where the eager step
-    issues every product, norm, gather and kernel.  A replay runs the
-    eager step's kernels in the same order.  A named part replays under
+class PartGraphs:
+    """``(name, part)`` pairs (`run_parts`' parts: a model's prefill
+    windows or decode step) captured once each as a CUDA graph on one
+    CUDA device, and replayed: the eager parts' kernels in the same order
+    on the caller's stream, one launch a part where the eager run issues
+    every product, norm, gather and kernel.  A named part replays under
     that profiler range (the one its eager form opens), so a profile
-    still splits the step.  ``key`` names what the graphs address (the
-    params and the pool as captured); ``launches``, when given, is called
-    at each replay to count the kernel launches it made.
+    still splits the computation.  The tensors in ``st`` are the static
+    inputs, and the parts leave their outputs there; the graphs address
+    what the parts closed over (params, pool) as it was at capture.
 
-    `capture` runs the step op by op on a side stream over its inputs
-    (the warm-up: every kernel's first launch, the state the step writes)
-    and then captures the parts there, over the same input tensors, which
-    stay the graphs' static inputs.  The parts share one private memory
-    pool and replay in capture order on one stream, so the activations
-    one part leaves are what the next reads."""
+    Capture runs on the constructing thread (``thread_local`` error mode,
+    so other threads' CUDA work does not void it) on a side stream, after
+    one warm-up pass of every part there, op by op, over a copy of
+    ``st``.  The parts share one private memory pool and replay in
+    capture order on one stream, so what one part leaves is what the
+    next reads, and no two replays' intermediates overlap in time."""
 
-    def __init__(self, key, parts: list, launches=None):
-        self.key = key
-        self._parts = parts
-        self._launches = launches
+    def __init__(self, parts: list, st: dict):
+        dev = next(t.device for t in st.values() if torch.is_tensor(t))
+        self.st = st
         self._graphs: "list[tuple[str | None, torch.cuda.CUDAGraph]]" = []
-        self.st: dict = {}
-
-    def capture(self, tok, table, pos) -> torch.Tensor:
-        """The step over ``tok``, ``table`` and ``pos``, op by op, then the
-        capture over the same tensors.  Returns the step's logits (a
-        copy)."""
-        dev = tok.device
-        self.st = {"tok": tok, "table": table, "pos": pos}
         with torch.cuda.device(dev):
             caller, stream = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
             stream.wait_stream(caller)
             with torch.cuda.stream(stream):
-                st = dict(self.st)
-                for _, part in self._parts:
-                    part(st)
-                first = st.pop("logits")
-                del st
+                run_parts(parts, dict(st))
             mempool = torch.cuda.graph_pool_handle()
-            for name, part in self._parts:
+            for name, part in parts:
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph, pool=mempool, stream=stream,
                                       capture_error_mode="thread_local"):
-                    part(self.st)
+                    part(st)
                 self._graphs.append((name, graph))
-            self._parts = None
+            # The warm-up's writes (scratch, the static outputs) before
+            # the caller's next work.
             caller.wait_stream(stream)
-        return first.clone()
 
-    def __call__(self, tok, table, pos) -> torch.Tensor:
-        """Replay the step over ``tok``, ``table`` and ``pos``, each copied
-        into its static input unless it is that tensor's storage already.
-        Returns the static logits, valid until the next replay."""
+    def replay(self, first: int = 0, **inputs) -> dict:
+        """Replay parts ``[first, n)`` in order, each of ``inputs`` first
+        copied into its static input unless it is that storage already.
+        Returns ``st``, whose outputs stay valid until the next replay."""
+        if not 0 <= first < len(self._graphs):
+            raise ValueError(f"first must be in [0, {len(self._graphs)}), got {first}")
         st = self.st
-        for name, t in (("tok", tok), ("table", table), ("pos", pos)):
+        for name, t in inputs.items():
             if t.data_ptr() != st[name].data_ptr():
                 st[name].copy_(t)
-        for name, graph in self._graphs:
+        for name, graph in self._graphs[first:]:
             if name is None:
                 graph.replay()
             else:
                 with trace.range(name):
                     graph.replay()
-        if self._launches is not None:
-            self._launches()
-        return st["logits"]
+        return st
 
 
 def _tree_map(fn, *trees):
@@ -769,24 +682,24 @@ class BlockAllocator:
 class PagedLM:
     """The burn-in LM's side of `serve.ServeEngine`'s model seam
     (`BurninConfig.paged_model`): the engine asks its model for the
-    served tree, the pool, the eager prefill, the captured prefill
-    windows and the decode step, eager or captured, through these
-    methods, has it check the engine's options, and tells it of
-    admissions and finished requests.
-    Here each is this module's own function; `models.mla_moe.PagedMlaMoe`
-    is the latent-attention model's."""
+    served tree, the pool, the eager prefill and decode step, and the
+    parts of both that it captures as CUDA graphs on one CUDA device
+    (`PartGraphs`), through these methods, has it check the engine's
+    options, and tells it of admissions, captures and finished requests.
+    ``kernel`` is the decode kernel whose launch counter a step on
+    ``attn_backend="cuda"`` feeds (K1).  Here each is this module's own
+    function; `models.mla_moe.PagedMlaMoe` is the latent-attention
+    model's."""
 
     tally = None  # no expert tally: the switch layer serves on rows
     swap_tier = True
+    kernel = paged_attn
 
     def __init__(self, config: BurninConfig, *, record_routes: bool = False):
         if record_routes:
             raise ValueError("record_routes keeps a top-k router's choices: the burn-in LM "
                              "has none")
         self.config = config
-        self._decode_graphs: "DecodeGraphs | None" = None
-        # How the last `decode` ran: "graph" (replayed) or "eager".
-        self.decode_path = "eager"
 
     @property
     def default_layout(self) -> str:
@@ -820,8 +733,28 @@ class PagedLM:
     def make_prefill(self, prompt_slots: int, block_size: int, mesh=None):
         return make_paged_prefill(self.config, prompt_slots, block_size, mesh=mesh)
 
-    def capture(self, prompt_slots: int, block_size: int, table_cols: int, params, pool):
-        return PrefillGraphs(self.config, prompt_slots, block_size, table_cols, params, pool)
+    def prefill_parts(self, params, pool, st: dict) -> list:
+        """The B=1 admission prefill's windows as parts, in order: window
+        ``i`` reads ``st["prompt"]`` (1, prompt_slots), ``st["lens"]``
+        (1,) and ``st["table"]`` (1, cols) and updates ``st["last"]`` (1,
+        vocab) in place (`make_paged_prefill`'s windows over one row)."""
+        c = self.config
+        kv = _PagedKV(st["table"], _pool_block_size(pool))
+
+        def window(p0: int):
+            def part(st):
+                st["last"].copy_(_prefill_window(params, st["prompt"], st["lens"], pool, kv,
+                                                 st["last"], p0, c)[0])
+            return part
+
+        return [(None, window(i * kv.W)) for i in range(st["prompt"].shape[1] // kv.W)]
+
+    def decode_parts(self, params, pool, backend: str) -> list:
+        """The one-device decode step as parts (`_decode_parts`)."""
+        return _decode_parts(params, pool, self.config, backend)
+
+    def captured(self) -> None:
+        """The engine captured the parts: their warm-up wrote scratch alone."""
 
     def admitted(self, row: int, length: int) -> None:
         pass
@@ -832,40 +765,8 @@ class PagedLM:
     def fed_routes(self, row: int, req) -> None:
         return None
 
-    def capture_decode(self, params, pool, tok, table, pos, backend: str) -> None:
-        """Capture the decode step on this pool as CUDA graphs
-        (`DecodeGraphs`) over the static inputs ``tok``, ``table`` and
-        ``pos``, which the engine's staging upload writes; they hold zeros
-        here, so the warm-up's writes land in scratch block 0.  Neither
-        the warm-up nor the capture counts a K1 launch; a replay counts
-        one a layer.  The caller drops the old graphs first."""
-        from tpu_dra_torch.parallel.kernels import paged_attn
-
-        launches = (functools.partial(paged_attn.note_replays, self.config.n_layers)
-                    if backend == "cuda" else None)
-        graphs = DecodeGraphs(_decode_key(params, pool, backend),
-                              _decode_parts(params, pool, self.config, backend), launches)
-        with paged_attn.uncounted():
-            graphs.capture(tok, table, pos)
-        self._decode_graphs = graphs
-
-    def drop_decode_graphs(self) -> None:
-        """Forget the captured step (later steps run op by op)."""
-        self._decode_graphs = None
-
-    def decode(self, params, tok, pool, table, pos, backend: str):
-        """`paged_decode_step_rows`, replayed from the captured graphs
-        when they address these params, this pool and this backend (the
-        logits are then the graphs' static output, valid until the next
-        call), else op by op; `decode_path` says which ran."""
-        graphs = self._decode_graphs
-        if graphs is not None and graphs.key == _decode_key(params, pool, backend):
-            self.decode_path = "graph"
-            return graphs(tok, table, pos), pool
-        self.decode_path = "eager"
-        return paged_decode_step_rows(params, tok, pool, table, pos, self.config,
-                                      backend=backend)
-
-
-def _decode_key(params, pool, backend: str) -> tuple:
-    return id(params), _values(pool["k"]).data_ptr(), backend
+    def decode(self, params, tok, pool, table, pos, backend: str, rows: "_Rows | None" = None):
+        """One decode step op by op (`_paged_step`): on one device the
+        logits of every row, on a mesh (``rows``) of the rank's fsdp
+        group's rows."""
+        return _paged_step(params, tok, pool, table, pos, self.config, backend, rows)

@@ -13,7 +13,7 @@ per-token logprobs, continuous scheduling or fused ticks.
   would restart the per-expert capacity queues, and so route other
   tokens than the one-shot prefill the model was trained with), and the
   whole row is copied into its slot; the decode step attends the rows
-  through the dense masked attention (`decode.decode_step_rows`).  Its
+  through the dense masked attention (`decode._step_rows`).  Its
   prefix cache (dense models only) keeps prompts in a pool of rows
   (`prefixcache.PrefixCache`): a hit copies the prefix into the new
   request's B=1 cache and prefills only the windows after it.  No block
@@ -172,15 +172,13 @@ from tpu_dra_torch.parallel.decode import (
     _step_rows,
     _validate_filters,
     copy_prefix_into_row,
-    decode_step_rows,
     init_cache,
 )
 from tpu_dra_torch.parallel.device import resolve_device
 from tpu_dra_torch.parallel.paged import (
     MESH_KERNEL_REFUSAL,
     BlockAllocator,
-    PrefillGraphs,
-    _paged_step,
+    PartGraphs,
     _tree_map,
     copy_block,
     read_block,
@@ -413,11 +411,11 @@ class ServeEngine:
     copy whose plain layer matrices are bf16, int8 pairs as they are
     (bf16 matrices are shared with ``params``, not copied).  A paged
     engine on one CUDA device captures its admission prefill's windows
-    and its decode step as CUDA graphs here (`paged.PrefillGraphs`, and
-    the model's `capture_decode`) and replays them (a decode tier, which
-    never prefills, captures no windows, and a prefill tier, which never
-    decodes, no step); on the CPU and on a mesh both are launched op by
-    op.
+    and its decode step as CUDA graphs here, from the parts its model
+    hands over (`paged.PartGraphs`), and replays them (a decode tier,
+    which never prefills, captures no windows, and a prefill tier, which
+    never decodes, no step); on the CPU and on a mesh both are launched
+    op by op.
 
     ``config``: a `BurninConfig`, or a `models.mla_moe.MlaMoeConfig`
     (DeepSeek-V3's block: latent attention and top-k experts), which
@@ -618,13 +616,14 @@ class ServeEngine:
         self._sampled = temperature > 0
         self._pick = _make_pick(self._sampled, temperature, top_k, top_p)
         self._prefill_tokens = {"computed": 0, "reused": 0}
-        # Paged prefill windows run, by path (`_prefill_into`), and the
-        # captured windows that the graph path replays (`_capture`;
-        # None where the prefill runs op by op).
+        # Paged prefill windows run, by path (`_prefill_into`), decode
+        # steps run, by path (`_step_once`), and the captured windows and
+        # step that the graph paths replay (`_capture`; None where they
+        # run op by op).
         self._prefill_windows = {"graph": 0, "eager": 0}
-        self._prefill_graphs: "PrefillGraphs | None" = None
-        # Decode steps run, by path (`_step_once`).
         self._decode_steps = {"graph": 0, "eager": 0}
+        self._prefill_graphs: "PartGraphs | None" = None
+        self._step_graphs: "PartGraphs | None" = None
         # The expert tally as `moe_assignments` last read it.
         self._moe_seen: "list[list[int]] | None" = None
         # Swapped-out and handed-in requests (paged only; empty on rows).
@@ -1257,39 +1256,48 @@ class ServeEngine:
         return staged[None, :P], staged[-1:], staged[None, P:P + self._table_cols]
 
     def _capture(self) -> None:
-        """Capture the admission prefill's windows and the decode step on
-        the engine's pool as it is now, on the calling thread, before the
-        engine serves: a paged engine on one CUDA device, the windows if
-        it prefills (a decode tier never does), the step if it decodes (a
-        prefill tier never does).  The step's static inputs are views of
-        ``_state``.  Code that rebinds the engine's pool calls it again,
-        as a `DisaggServer` does once it has shared an alias prefill
-        tier's pool with the decode tier: the graphs address the pool they
-        were captured on."""
-        self._prefill_graphs = None  # the old graphs' memory first
-        self._model.drop_decode_graphs()
+        """The one place that captures: on one CUDA device without a mesh,
+        the model's prefill windows unless this is a decode tier, its step
+        unless a prefill tier (`paged.PartGraphs`), on the pool as it is
+        now.  The inputs, views of a staging buffer (``st["staged"]``) and
+        of ``_state``, are zeros: the warm-up writes scratch alone, and
+        counts no kernel launch.  Code that rebinds the pool calls it
+        again (`DisaggServer`'s alias tiers): the graphs address the pool
+        they were captured on."""
+        self._prefill_graphs = self._step_graphs = None  # the old graphs' memory first
         if self.mesh is not None or self.device.type != "cuda":
             return
-        if self.tier != "decode":
-            self._prefill_graphs = self._model.capture(self.prompt_slots, self.block_size,
-                                                       self._table_cols, self.params, self._pool)
-        if self.tier != "prefill":
-            B, s = self.slots, self._state
-            self._model.capture_decode(self.params, self._pool, s[:B],
-                                       s[4 * B:].view(B, self._table_cols), s[B:2 * B],
-                                       self.attn_backend)
+        model, dev, cols = self._model, self.device, self._table_cols
+        with model.kernel.uncounted():
+            if self.tier != "decode":
+                P = self.prompt_slots
+                staged = torch.zeros(P + cols + 1, dtype=torch.int32, device=dev)
+                st = {"staged": staged, "prompt": staged[None, :P], "lens": staged[-1:],
+                      "table": staged[None, P:P + cols],
+                      "last": torch.zeros((1, self.config.vocab), device=dev)}
+                self._prefill_graphs = PartGraphs(
+                    model.prefill_parts(self.params, self._pool, st), st)
+            if self.tier != "prefill":
+                B, state = self.slots, self._state.zero_()
+                st = {"tok": state[:B], "pos": state[B:2 * B],
+                      "table": state[4 * B:].view(B, cols)}
+                self._step_graphs = PartGraphs(
+                    model.decode_parts(self.params, self._pool, self.attn_backend), st)
+        model.captured()
 
     def _prefill_into(self, stage: torch.Tensor, prompt: "list[int]", table_row,
                       first_window: int) -> torch.Tensor:
         """Prefill ``prompt`` into the blocks ``table_row`` names, from
         window ``first_window`` on, through ONE upload of ``stage``:
-        replayed from the captured windows where the engine has them,
-        launched op by op elsewhere.  Returns the logits at the prompt's
-        last position, on the device."""
+        replayed from the captured windows where the engine has them
+        (``last`` zeroed first and copied after: the next admission's
+        replay rewrites it before a wave reads it), launched op by op
+        elsewhere.  Returns the logits at the prompt's last position."""
         graphs = self._prefill_graphs
         if graphs is not None:
-            self._upload(stage, prompt, table_row, out=graphs.staged)
-            last, path = graphs(first_window), "graph"
+            self._upload(stage, prompt, table_row, out=graphs.st["staged"])
+            graphs.st["last"].zero_()
+            last, path = graphs.replay(first_window)["last"].clone(), "graph"
         else:
             tokens, lens, table = self._upload(stage, prompt, table_row)
             last, self._pool = self._prefill(self.params, tokens, lens, self._pool, table,
@@ -1609,22 +1617,14 @@ class ServeEngine:
             rows = self._rows
             toks, lps = [], []
             for _ in range(n):
-                path = "eager"
-                if paged and rows is None:
-                    logits, self._pool = self._model.decode(self.params, tok, self._pool, table,
-                                                            pos, self.attn_backend)
-                    path = self._model.decode_path
-                elif paged:
-                    logits, self._pool = _paged_step(self.params, tok, self._pool, table, pos,
-                                                     self.config, "gather", rows)
-                elif rows is None:
-                    # A row that walks past the context in a fused call
-                    # writes its own last slot (`decode_step_rows` clamps).
-                    logits, self._cache = decode_step_rows(self.params, tok, self._cache, pos,
-                                                           self.config)
+                if paged:
+                    logits, path = self._decode_paged(tok, table, pos)
                 else:
+                    # A row that walks past the context in a fused call
+                    # writes its own last slot (`_step_rows` clamps).
                     logits, self._cache = _step_rows(self.params, tok, self._cache, pos,
                                                      self.config, rows)
+                    path = "eager"
                 self._decode_steps[path] += 1
                 SERVE_DECODE_STEPS.inc(path=path)
                 # The token fed at position pos lands in pos + 1.  On a mesh
@@ -1669,6 +1669,21 @@ class ServeEngine:
             self._profile_left -= 1
             if self._profile_left <= 0:
                 self._stop_profile()
+
+    def _decode_paged(self, tok, table, pos):
+        """One paged decode step, replayed from the captured step (static
+        logits, valid until the next replay; the kernel's launches
+        counted) or the model's step op by op (on a mesh, the rank's fsdp
+        group's rows).  Returns ``(logits, path)``."""
+        graphs = self._step_graphs
+        if graphs is None:
+            logits, self._pool = self._model.decode(self.params, tok, self._pool, table, pos,
+                                                    self.attn_backend, rows=self._rows)
+            return logits, "eager"
+        logits = graphs.replay(tok=tok, table=table, pos=pos)["logits"]
+        if self.attn_backend == "cuda":
+            self._model.kernel.note_replays(self.config.n_layers)
+        return logits, "graph"
 
     def tick(self) -> "list[Request]":
         """Admit waiting requests into free rows, then run
@@ -2138,8 +2153,7 @@ class ServeEngine:
         obscap.unregister(self.name)
         if self._kv_layout == "paged":
             self._pool = None
-            self._prefill_graphs = None
-            self._model.drop_decode_graphs()
+            self._prefill_graphs = self._step_graphs = None
         else:
             self._cache = None
             if self._prefix is not None:
